@@ -1,0 +1,261 @@
+"""Canonical ITD sift — port of ``pyitd_tpu/decomp/itd.py``.
+
+Per level, count the extrema of the current baseline:
+
+* **stop A** (``num_extrema < 2``): the residual row is the previously
+  stored baseline (the input of the most recent extraction); if the very
+  first baseline is already flat the output is one zero row;
+* **stop B** (trip ``> max_iteration``): the residual row is
+  ``rotation + baseline``;
+* otherwise store the rotation and descend into the baseline.
+
+The loop runs ``max_iteration + 2`` trips (the most output rows there can
+be); each trip writes row ``i`` with a per-row payload of rotation,
+residual or zeros, so stopping is a per-row flag, not control flow.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..ops import cuda_fill as cf
+from ..ops.linear_baseline import (ENDPOINT_MODES, check_kernel_input,
+                                   linear_baseline_extract)
+
+__all__ = ["itd_sift", "SiftResult", "ITD", "STOP_RUNNING", "STOP_FLAT",
+           "STOP_BUDGET"]
+
+STOP_RUNNING = 0  # never appears in outputs
+STOP_FLAT = 1     # stop A: baseline has < 2 extrema
+STOP_BUDGET = 2   # stop B: level budget exhausted
+
+
+class SiftResult(NamedTuple):
+    """Fixed-shape sift output, level axis first: ``(levels, *batch, n)``.
+
+    ``num_components`` rows of ``rotations`` are valid (the last valid row
+    is the residual trend); rows beyond are zero.  ``correction`` collects
+    every level's exact two-sum rounding residual, so
+    ``sum(rotations[:num_components]) + correction == x`` to the roundoff of
+    the correction itself."""
+
+    rotations: torch.Tensor
+    baselines: torch.Tensor
+    num_components: torch.Tensor  # int32, per batch element
+    stop_reason: torch.Tensor     # int32, STOP_FLAT or STOP_BUDGET
+    correction: torch.Tensor      # (*batch, n), same dtype as x
+
+
+def itd_sift(x: torch.Tensor, max_iteration: int = 11, *,
+             endpoint_mode: str = "reference", store_baselines: bool = True,
+             backend: str = "auto", early_exit: bool = False) -> SiftResult:
+    """Full canonical sift of ``x`` (last axis = time; leading axes = batch).
+
+    ``backend``:
+
+    * ``"auto"`` — ``"kernel"`` on a CUDA tensor, ``"torch"`` elsewhere;
+    * ``"kernel"`` — one trip = the three launches of ``ops/cuda_fill.py``,
+      stop flags and counts kept on the device, each row written in place
+      into the preallocated output (on a CPU tensor the wrappers run their
+      plain versions).  f32 only, no backward yet;
+    * ``"torch"`` — the plain loop of the JAX ``xla`` backend, any device,
+      any float dtype, differentiable through autograd.
+
+    ``early_exit`` checks after each trip whether every row has stopped
+    (one host sync per trip) and skips the remaining trips, whose rows
+    would be zero.
+    """
+    if endpoint_mode not in ENDPOINT_MODES:
+        raise ValueError(f"unknown endpoint_mode: {endpoint_mode!r}")
+    if x.shape[-1] < 2:
+        raise ValueError(
+            f"a signal needs at least 2 samples (got n={x.shape[-1]})")
+    if backend == "auto":
+        backend = "kernel" if x.is_cuda else "torch"
+    if backend == "kernel":
+        check_kernel_input(x)
+        return _itd_sift_kernel(x, max_iteration, endpoint_mode,
+                                store_baselines, early_exit)
+    if backend == "torch":
+        return _itd_sift_torch(x, max_iteration, endpoint_mode,
+                               store_baselines, early_exit)
+    raise ValueError(f"unknown backend: {backend!r}")
+
+
+def _itd_sift_torch(x, max_iteration, endpoint_mode, store_baselines,
+                    early_exit):
+    """The plain loop of the JAX ``_itd_sift_xla``, in its order of
+    operations."""
+    levels = max_iteration + 2
+
+    def extract(a):
+        return linear_baseline_extract(a, endpoint_mode=endpoint_mode,
+                                       backend="torch")
+
+    first = extract(x)
+    rotation, baseline = first.rotation, first.baseline
+    # exact rounding residual of the not-yet-emitted rotation
+    pending_err = first.sub_err
+    zero = x * 0
+    out_rot, out_base = [], []
+
+    izero = torch.zeros(x.shape[:-1], dtype=torch.int32, device=x.device)
+    done = izero != 0
+    reason = izero
+    ncomp = izero
+    prev_base = zero  # mirrors the reference's zero-filled container read
+    comp = zero       # accumulated correction (see SiftResult.correction)
+
+    for i in range(levels):
+        new = extract(baseline)
+        nex = new.num_extrema
+
+        stop_a = ~done & (nex < 2)
+        stop_b = (~done & ~stop_a) if i >= max_iteration + 1 \
+            else torch.zeros_like(done)
+        cont = ~done & ~stop_a & ~stop_b
+        stopping = stop_a | stop_b
+
+        row, comp = cf.emit_row(rotation, baseline, prev_base, pending_err,
+                                comp, stop_a[..., None], stop_b[..., None],
+                                cont[..., None])
+        out_rot.append(row)
+        if store_baselines:
+            out_base.append(torch.where(cont[..., None], baseline,
+                                        torch.zeros_like(baseline)))
+
+        rotation = new.rotation
+        pending_err = new.sub_err
+        prev_base = baseline
+        baseline = new.baseline
+
+        ncomp = torch.where(stopping, i + 1, ncomp)
+        reason = torch.where(stop_a, STOP_FLAT,
+                             torch.where(stop_b, STOP_BUDGET, reason))
+        done = done | stopping
+        if early_exit and bool(done.all()):
+            break
+
+    for rows in (out_rot, out_base) if store_baselines else (out_rot,):
+        rows.extend(torch.zeros_like(x) for _ in range(levels - len(rows)))
+    return SiftResult(
+        rotations=torch.stack(out_rot),
+        baselines=torch.stack(out_base) if store_baselines
+        else (torch.zeros_like(x) + zero)[None],
+        num_components=ncomp,
+        stop_reason=reason,
+        correction=comp,
+    )
+
+
+def _itd_sift_kernel(x, max_iteration, endpoint_mode, store_baselines,
+                     early_exit):
+    """The loop of the JAX ``_itd_sift_fused``: per trip one pre-pass
+    (summaries + tile scan, which also decides the stop flags on the
+    device) and one level launch that writes the row in place."""
+    levels = max_iteration + 2
+    batch_shape, n = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, n).contiguous()
+    rows = x2.shape[0]
+
+    first = cf.sift_level_cuda(x2, cf.level_states_cuda(x2),
+                               endpoint_mode=endpoint_mode)
+    rot, base, perr = first.rotation, first.baseline, first.sub_err
+
+    zero = x2 * 0
+    out_rot = torch.empty((levels, rows, n), dtype=x2.dtype, device=x2.device)
+    if store_baselines:
+        out_base = torch.empty_like(out_rot)
+    else:
+        out_base = (torch.zeros_like(x2) + zero)[None]
+    carry = cf.SiftCarry.zeros(rows, x2.device)
+    prev_base, comp = zero, zero
+
+    for i in range(levels):
+        states = cf.level_states_cuda(base, carry, trip=i,
+                                      max_iteration=max_iteration)
+        new = cf.sift_level_cuda(base, states, endpoint_mode=endpoint_mode,
+                                 rotp=rot, pbase=prev_base, perr=perr,
+                                 comp=comp, out_row=out_rot[i])
+        if store_baselines:
+            cont = (states.flags & cf.CONT)[:, None] != 0
+            torch.where(cont, base, torch.zeros_like(base), out=out_base[i])
+        comp = new.comp
+        rot, prev_base, base, perr = new.rotation, base, new.baseline, \
+            new.sub_err
+        if early_exit and i + 1 < levels and bool((carry.done != 0).all()):
+            out_rot[i + 1:] = 0
+            if store_baselines:
+                out_base[i + 1:] = 0
+            break
+
+    return SiftResult(
+        rotations=out_rot.reshape((levels,) + batch_shape + (n,)),
+        baselines=out_base.reshape((out_base.shape[0],) + batch_shape + (n,)),
+        num_components=carry.ncomp.reshape(batch_shape),
+        stop_reason=carry.reason.reshape(batch_shape),
+        correction=comp.reshape(batch_shape + (n,)),
+    )
+
+
+class ITD:
+    """Class API mirroring the reference's ``ITD``: construct, call
+    ``itd(data)``, then read ``get_rotations()`` / ``get_baselines()``.
+
+    ``extrema_detection`` accepts the reference's three options; like the
+    reference, only the "matlab" behavior exists.  Unlike the reference's,
+    ``__call__`` works."""
+
+    def __init__(self, extrema_detection: str = "matlab", *,
+                 endpoint_mode: str = "reference", as_numpy: bool = False):
+        if extrema_detection not in ("simple", "parabol", "matlab"):
+            raise ValueError(
+                "Only 'simple', 'matlab', and 'parabol' values supported")
+        self.extrema_detection = extrema_detection
+        self.endpoint_mode = endpoint_mode
+        self.as_numpy = as_numpy  # convert outputs to host numpy arrays
+        self.rotations = None
+        self.baselines = None
+
+    def __call__(self, S, max_iteration: int = 11):
+        return self.itd(S, max_iteration=max_iteration)
+
+    def itd(self, data, max_iteration: int = 11):
+        """Sift a single 1-D signal; returns the valid rotation rows
+        (components; last row = residual trend) as a ``(n_comp, N)``
+        tensor."""
+        x = torch.as_tensor(data)
+        if x.dim() != 1:
+            raise ValueError(
+                "ITD.itd expects a 1-D signal; use itd_sift for batches")
+        res = itd_sift(x, max_iteration, endpoint_mode=self.endpoint_mode)
+        n = int(res.num_components)
+        self.rotations = res.rotations[:n]
+        # reference slice quirk: stop A exposes the stored baselines; stop B
+        # additionally exposes one zero row past them
+        n_base = n - 1 if int(res.stop_reason) == STOP_FLAT else n
+        self.baselines = res.baselines[:n_base]
+        if self.as_numpy:
+            self.rotations = self.rotations.detach().cpu().numpy()
+            self.baselines = self.baselines.detach().cpu().numpy()
+        return self.rotations
+
+    def get_rotations(self):
+        if self.rotations is None:
+            raise ValueError(
+                "No IPR found. Please, run ITD method or its variant first.")
+        return self.rotations
+
+    def get_baselines(self):
+        if self.baselines is None:
+            raise ValueError(
+                "No baselines found. Please, run ITD method or its variant "
+                "first.")
+        return self.baselines
+
+    def get_rotations_and_residual(self):
+        """``(proper rotations, residual trend)`` — the last valid row of
+        :meth:`itd`'s output is the residual."""
+        rot = self.get_rotations()
+        return rot[:-1], rot[-1]

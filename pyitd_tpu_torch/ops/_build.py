@@ -1,0 +1,114 @@
+"""Build ``csrc/*.cu`` with ``nvcc`` at first use and load it with ctypes.
+
+The library has a plain C interface (no PyTorch headers), so one build
+takes seconds.  Its file name carries a hash of the sources and the flags,
+so an edit rebuilds and a stale library is never loaded.  The build writes
+to a temporary name and renames it into place, so parallel processes that
+race to build the same library each end with a complete file.
+
+Flags: ``-fmad=false`` keeps every ``a*b+c`` in the kernels as a rounded
+multiply and a rounded add, as PyTorch's eager elementwise kernels compute
+it, which makes the kernels bit-comparable with their plain versions on the
+card.  No fast-math: the two-sum residuals and the NaN tests depend on
+IEEE arithmetic.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+__all__ = ["NVCC_FLAGS", "build", "load_library"]
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points of csrc/sift_level.cu: (name, argtypes); each returns the
+# launch's cudaGetLastError() as an int
+_SIGNATURES = {
+    "pyitd_tile_size": (),
+    "pyitd_level_summaries": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P),
+    "pyitd_tile_scan": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _P, _P, _P, _I, _I, _P),
+    "pyitd_sift_level": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _P, _P, _P, _P, _P, _I, _I, _P),
+    "pyitd_error_string": (_I,),
+}
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
+    return path
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for f in NVCC_FLAGS:
+        h.update(f.encode() + b"\0")
+    for src in _sources():
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"libpyitd_sift_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, str]:
+    """Compile the kernels if no library for these sources and flags
+    exists; returns ``(path, nvcc output)``.  Raises with nvcc's stderr on
+    failure."""
+    so = library_path()
+    if so.exists():
+        return so, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+    os.close(fd)
+    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stderr}")
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return so, proc.stdout + proc.stderr
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built and loaded once per process (the
+    wrappers call this on every launch, so it must not rehash the
+    sources)."""
+    if "lib" not in _loaded:
+        so, _ = build()
+        lib = ctypes.CDLL(str(so))
+        for name, args in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(args)
+            fn.restype = ctypes.c_char_p if name == "pyitd_error_string" \
+                else ctypes.c_int
+        _loaded["lib"] = lib
+    return _loaded["lib"]

@@ -1,0 +1,460 @@
+"""One sift trip as hand-written CUDA kernels — port of
+``pyitd_tpu/ops/pallas_fill.py`` (K1 ``sift_level_fused_padded``, its XLA
+pre-pass ``level_block_states_fwd``, and K2 ``linear_level_pallas``).
+
+The kernels live in ``csrc/sift_level.cu`` (see its header for the design).
+A trip is three launches:
+
+* ``level_summaries_cuda(x)``: per (row, tile) last-two knots, first-two
+  knots and knot count;
+* ``tile_scan_cuda(summ, carry, ...)``: per-tile exclusive forward prefix
+  and reverse suffix, the interior extrema count, and, when a sift carry is
+  given, the stop flags and the in-place ``done``/``reason``/``ncomp``
+  update;
+* ``sift_level_cuda(x, states, ...)``: baseline, rotation and its two-sum
+  residual, and with the previous extraction's outputs the output row
+  (written in place into the caller's ``rotations[level]``) and the
+  compensation.
+
+Each wrapper checks its tensors, launches its kernel on PyTorch's current
+stream for a CUDA tensor, and counts the launch in ``LAUNCHES``.  For a CPU
+tensor it runs the plain PyTorch version beside it (``level_summaries``,
+``tile_scan``, ``sift_level``), which compute the same numbers with the same
+tiles; those plain versions run on any device.  A CUDA tensor never reaches
+a plain version through a wrapper.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .linear_baseline import interp, knot_mask, knot_value, two_sum_err
+
+__all__ = [
+    "TILE", "STOP_A", "STOP_B", "CONT", "LAUNCHES", "reset_launches",
+    "TileSummaries", "LevelStates", "SiftCarry", "LevelOut",
+    "level_summaries", "tile_scan", "level_states", "sift_level",
+    "stop_flags", "emit_row",
+    "level_summaries_cuda", "tile_scan_cuda", "level_states_cuda",
+    "sift_level_cuda",
+]
+
+TILE = 4096  # samples per tile; csrc/sift_level.cu's TILE (checked at load)
+
+# stop-flag bits of LevelStates.flags
+STOP_A, STOP_B, CONT = 1, 2, 4
+
+# launches per kernel wrapper, counted where the kernel is launched
+LAUNCHES = {"level_summaries": 0, "tile_scan": 0, "sift_level": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+class TileSummaries(NamedTuple):
+    """Per (row, tile): last two knots (``fpos``/``fval``, latest first),
+    first two knots (``rpos``/``rval``, earliest first), knot count.
+    Positions are int32 within the row, -1 for none (value 0)."""
+    fpos: torch.Tensor  # (rows, ntiles, 2) int32
+    fval: torch.Tensor  # (rows, ntiles, 2) x.dtype
+    rpos: torch.Tensor  # (rows, ntiles, 2) int32
+    rval: torch.Tensor  # (rows, ntiles, 2) x.dtype
+    cnt: torch.Tensor   # (rows, ntiles) int32
+
+
+class LevelStates(NamedTuple):
+    """Seeds and stop decisions of one trip: ``fpos``/``fval`` hold the last
+    two knots before each tile, ``rpos``/``rval`` the first two after it."""
+    nex: torch.Tensor    # (rows,) int32 interior extrema count
+    flags: torch.Tensor  # (rows,) int32 STOP_A | STOP_B | CONT bits
+    fpos: torch.Tensor
+    fval: torch.Tensor
+    rpos: torch.Tensor
+    rval: torch.Tensor
+
+
+class SiftCarry(NamedTuple):
+    """Per-row sift state, int32 on the signal's device, updated in place."""
+    done: torch.Tensor
+    reason: torch.Tensor
+    ncomp: torch.Tensor
+
+    @classmethod
+    def zeros(cls, rows: int, device) -> "SiftCarry":
+        z = [torch.zeros(rows, dtype=torch.int32, device=device)
+             for _ in range(3)]
+        return cls(*z)
+
+
+class LevelOut(NamedTuple):
+    baseline: torch.Tensor
+    rotation: torch.Tensor
+    sub_err: torch.Tensor
+    comp: torch.Tensor | None  # updated compensation (bookkeeping only)
+
+
+def _ntiles(n: int) -> int:
+    return -(-n // TILE)
+
+
+def _tiled(a: torch.Tensor, fill, ntiles: int) -> torch.Tensor:
+    """(rows, n) -> (rows, ntiles, TILE), padded with ``fill``."""
+    rows, n = a.shape
+    pad = ntiles * TILE - n
+    if pad:
+        a = torch.cat([a, a.new_full((rows, pad), fill)], dim=-1)
+    return a.reshape(rows, ntiles, TILE)
+
+
+def _positions(ntiles: int, device) -> torch.Tensor:
+    return torch.arange(ntiles * TILE, device=device).reshape(ntiles, TILE)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def level_summaries(x: torch.Tensor) -> TileSummaries:
+    """Plain version of the ``level_summaries`` kernel."""
+    rows, n = x.shape
+    nt = _ntiles(n)
+    m = _tiled(knot_mask(x), False, nt)
+    flat = _tiled(x, 0.0, nt).reshape(rows, -1)
+    pos = _positions(nt, x.device)
+    big = nt * TILE
+
+    lp = torch.where(m, pos, -1)
+    p1 = lp.amax(-1)
+    p2 = torch.where(lp < p1[..., None], lp, -1).amax(-1)
+    rp = torch.where(m, pos, big)
+    q1 = rp.amin(-1)
+    q2 = torch.where(rp > q1[..., None], rp, big).amin(-1)
+    q1 = torch.where(q1 == big, -1, q1)
+    q2 = torch.where(q2 == big, -1, q2)
+
+    def val(p):
+        v = torch.gather(flat, 1, p.clamp(min=0).reshape(rows, -1))
+        return torch.where(p >= 0, v.reshape(p.shape), 0.0)
+
+    return TileSummaries(
+        fpos=torch.stack([p1, p2], -1).to(torch.int32),
+        fval=torch.stack([val(p1), val(p2)], -1),
+        rpos=torch.stack([q1, q2], -1).to(torch.int32),
+        rval=torch.stack([val(q1), val(q2)], -1),
+        cnt=m.sum(-1).to(torch.int32),
+    )
+
+
+def _fwd_combine(a, b):
+    """``a`` covers samples before ``b``'s; keep the last two knots."""
+    h1, h2 = b[0] >= 0, b[2] >= 0
+    tp = torch.where(h1, a[0], a[2])
+    tv = torch.where(h1, a[1], a[3])
+    return (torch.where(h1, b[0], a[0]), torch.where(h1, b[1], a[1]),
+            torch.where(h2, b[2], tp), torch.where(h2, b[3], tv))
+
+
+def _rev_combine(a, b):
+    """``a`` covers samples before ``b``'s; keep the first two knots."""
+    h1, h2 = a[0] >= 0, a[2] >= 0
+    tq = torch.where(h1, b[0], b[2])
+    tw = torch.where(h1, b[1], b[3])
+    return (torch.where(h1, a[0], b[0]), torch.where(h1, a[1], b[1]),
+            torch.where(h2, a[2], tq), torch.where(h2, a[3], tw))
+
+
+def _exclusive(pos, val, combine, reverse):
+    """Per-tile exclusive scan of (rows, ntiles, 2) states over tiles."""
+    ntiles = pos.shape[1]
+    acc = (torch.full_like(pos[:, 0, 0], -1), torch.zeros_like(val[:, 0, 0]),
+           torch.full_like(pos[:, 0, 0], -1), torch.zeros_like(val[:, 0, 0]))
+    out_pos, out_val = torch.empty_like(pos), torch.empty_like(val)
+    order = range(ntiles - 1, -1, -1) if reverse else range(ntiles)
+    for k in order:
+        out_pos[:, k, 0], out_val[:, k, 0] = acc[0], acc[1]
+        out_pos[:, k, 1], out_val[:, k, 1] = acc[2], acc[3]
+        t = (pos[:, k, 0], val[:, k, 0], pos[:, k, 1], val[:, k, 1])
+        acc = combine(t, acc) if reverse else combine(acc, t)
+    return out_pos, out_val
+
+
+def stop_flags(nex, carry: SiftCarry | None, trip: int, max_iteration: int):
+    """The sift's stop decision for this trip (``decomp/itd.py:520-522``);
+    updates ``carry`` in place and returns the flag bits."""
+    if carry is None:
+        return torch.zeros_like(nex)
+    done = carry.done != 0
+    stop_a = ~done & (nex < 2)
+    stop_b = (~done & ~stop_a) if trip >= max_iteration + 1 \
+        else torch.zeros_like(done)
+    cont = ~done & ~stop_a & ~stop_b
+    stopping = stop_a | stop_b
+    carry.ncomp.copy_(torch.where(stopping, trip + 1, carry.ncomp))
+    carry.reason.copy_(torch.where(stop_a, 1, torch.where(stop_b, 2,
+                                                          carry.reason)))
+    carry.done.copy_((done | stopping).to(torch.int32))
+    return (stop_a.to(torch.int32) * STOP_A + stop_b.to(torch.int32) * STOP_B
+            + cont.to(torch.int32) * CONT)
+
+
+def tile_scan(summ: TileSummaries, carry: SiftCarry | None = None,
+              trip: int = 0, max_iteration: int = 0) -> LevelStates:
+    """Plain version of the ``tile_scan`` kernel."""
+    fpos, fval = _exclusive(summ.fpos, summ.fval, _fwd_combine, False)
+    rpos, rval = _exclusive(summ.rpos, summ.rval, _rev_combine, True)
+    nex = (summ.cnt.sum(-1) - 2).to(torch.int32)
+    flags = stop_flags(nex, carry, trip, max_iteration)
+    return LevelStates(nex, flags, fpos, fval, rpos, rval)
+
+
+def level_states(x: torch.Tensor, carry: SiftCarry | None = None,
+                 trip: int = 0, max_iteration: int = 0) -> LevelStates:
+    """Plain version of one trip's pre-pass (the counterpart of
+    ``level_block_states_fwd``): summaries, then the tile scan."""
+    return tile_scan(level_summaries(x), carry, trip, max_iteration)
+
+
+def emit_row(rotation, baseline, prev_base, pending_err, comp, stop_a,
+             stop_b, cont):
+    """The sift's output row and compensation update for the previous
+    extraction's outputs (``decomp/itd.py:247-267``): the rotation while
+    running, the stop-A residual ``prev_base``, the stop-B residual
+    ``rotation + baseline``; the pending rotation's rounding residual joins
+    the compensation when it is emitted, and stop B's addition rounds once
+    more.  The stop masks broadcast against the samples."""
+    res_sum = rotation + baseline
+    residual = torch.where(stop_a, prev_base, res_sum)
+    row = torch.where(stop_a | stop_b, residual,
+                      torch.where(cont, rotation, torch.zeros_like(rotation)))
+    res_err = two_sum_err(rotation, baseline, res_sum)
+    comp = comp + torch.where(cont | stop_b, pending_err, 0.0) + torch.where(
+        stop_b, res_err, 0.0)
+    return row, comp
+
+
+def sift_level(x: torch.Tensor, states: LevelStates, *,
+               endpoint_mode: str = "reference", rotp=None, pbase=None,
+               perr=None, comp=None, out_row=None) -> LevelOut:
+    """Plain version of the ``sift_level`` kernel: tile-local fills seeded
+    from ``states``, the epilogue in the order of the gather form, and,
+    when ``rotp`` is given, the bookkeeping (row into ``out_row``)."""
+    rows, n = x.shape
+    nt = _ntiles(n)
+    m = _tiled(knot_mask(x), False, nt)
+    xt = _tiled(x, 0.0, nt)
+    pos = _positions(nt, x.device).expand(rows, nt, TILE)
+    tbase = pos[..., :1]
+    big = nt * TILE
+
+    def xval(p):  # value at an in-tile position
+        return torch.gather(xt, -1, (p - tbase).clamp(0, TILE - 1))
+
+    sp1, sp2 = (states.fpos[..., i:i + 1].long() for i in (0, 1))
+    sv1, sv2 = (states.fval[..., i:i + 1] for i in (0, 1))
+    sq1, sq2 = (states.rpos[..., i:i + 1].long() for i in (0, 1))
+    sw1, sw2 = (states.rval[..., i:i + 1] for i in (0, 1))
+
+    # last two knots at or before t
+    f1 = torch.cummax(torch.where(m, pos, -1), -1).values
+    f1x = torch.cat([torch.full_like(f1[..., :1], -1), f1[..., :-1]], -1)
+    f2 = torch.gather(f1x, -1, (f1 - tbase).clamp(0, TILE - 1))
+    in1 = f1 >= 0
+    in2 = in1 & (f2 >= 0)
+    p1 = torch.where(in1, f1, sp1)
+    v1 = torch.where(in1, xval(f1), sv1)
+    p2 = torch.where(in2, f2, torch.where(in1, sp1, sp2))
+    v2 = torch.where(in2, xval(f2), torch.where(in1, sv1, sv2))
+
+    # first two knots strictly after t
+    r1 = torch.cummin(torch.where(m, pos, big).flip(-1), -1).values.flip(-1)
+    r1x = torch.cat([r1[..., 1:], torch.full_like(r1[..., :1], big)], -1)
+    r2 = torch.gather(r1x, -1, (r1x - tbase).clamp(0, TILE - 1))
+    jn1 = r1x < big
+    jn2 = jn1 & (r2 < big)
+    q1 = torch.where(jn1, r1x, sq1)
+    w1 = torch.where(jn1, xval(r1x), sw1)
+    q2 = torch.where(jn2, r2, torch.where(jn1, sq1, sq2))
+    w2 = torch.where(jn2, xval(r2), torch.where(jn1, sw1, sw2))
+
+    # the sample after n-1 does not exist: the gather form clips to n-1
+    last = pos == n - 1
+    q1 = torch.where(last, n - 1, q1)
+    w1 = torch.where(last, xt, w1)
+
+    b_first = (0.5 * (x[:, 0] + x[:, 1]))[:, None, None]
+    b_last = (0.5 * (x[:, n - 2] + x[:, n - 1]))[:, None, None]
+    b_l = torch.where(p1 == n - 1, b_last, torch.where(
+        p1 == 0, b_first, knot_value(p1, v1, p2, v2, q1, w1)))
+    b_r = torch.where(q1 == n - 1, b_last, knot_value(q1, w1, p1, v1, q2, w2))
+    baseline = interp(xt, pos, n, b_l, v1, b_r, w1, endpoint_mode)
+    baseline = baseline.reshape(rows, -1)[:, :n].contiguous()
+
+    rotation = x - baseline
+    out = LevelOut(baseline, rotation, two_sum_err(x, -baseline, rotation),
+                   None)
+    if rotp is None:
+        return out
+    f = states.flags[:, None]
+    row, comp = emit_row(rotp, x, pbase, perr, comp, (f & STOP_A) != 0,
+                         (f & STOP_B) != 0, (f & CONT) != 0)
+    out_row.copy_(row)
+    return out._replace(comp=comp)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _lib():
+    from ._build import load_library
+
+    lib = load_library()
+    if lib.pyitd_tile_size() != TILE:
+        raise RuntimeError(
+            f"csrc/sift_level.cu tiles by {lib.pyitd_tile_size()}, "
+            f"cuda_fill.TILE is {TILE}")
+    return lib
+
+
+def _check(code: int, what: str) -> None:
+    if code != 0:
+        msg = _lib().pyitd_error_string(code).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
+
+
+def _check_signal(x: torch.Tensor) -> None:
+    if x.dim() != 2:
+        raise ValueError(f"expected a (rows, n) signal, got {tuple(x.shape)}")
+    if x.dtype != torch.float32:
+        raise ValueError(f"the sift kernels take float32, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("the sift kernels need a contiguous signal")
+    rows, n = x.shape
+    if n < 2:
+        raise ValueError(f"a signal needs at least 2 samples (got n={n})")
+    if x.is_cuda and not 0 < rows <= 65535:
+        raise ValueError(f"the sift kernels take 1..65535 rows, got {rows}")
+    if n > 2**31 - 1 - TILE:  # int32 positions in the kernels
+        raise ValueError(f"the sift kernels take n < 2^31 - {TILE + 1}, "
+                         f"got {n}")
+
+
+def _same(x: torch.Tensor, *tensors, dtype=None, shape=None) -> None:
+    for t in tensors:
+        if t.device != x.device:
+            raise ValueError(f"tensor on {t.device}, signal on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError("the sift kernels need contiguous tensors")
+        if dtype is not None and t.dtype != dtype:
+            raise ValueError(f"expected {dtype}, got {t.dtype}")
+        if shape is not None and tuple(t.shape) != tuple(shape):
+            raise ValueError(f"expected shape {tuple(shape)}, "
+                             f"got {tuple(t.shape)}")
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def level_summaries_cuda(x: torch.Tensor) -> TileSummaries:
+    """Per-tile knot summaries of ``x`` (rows, n) f32."""
+    _check_signal(x)
+    if not x.is_cuda:
+        return level_summaries(x)
+    rows, n = x.shape
+    nt = _ntiles(n)
+    pos = torch.empty((2, rows, nt, 2), dtype=torch.int32, device=x.device)
+    val = torch.empty((2, rows, nt, 2), dtype=torch.float32, device=x.device)
+    cnt = torch.empty((rows, nt), dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        code = _lib().pyitd_level_summaries(
+            x.data_ptr(), rows, n, nt, pos[0].data_ptr(), val[0].data_ptr(),
+            pos[1].data_ptr(), val[1].data_ptr(), cnt.data_ptr(), _stream(x))
+    _check(code, "level_summaries")
+    LAUNCHES["level_summaries"] += 1
+    return TileSummaries(pos[0], val[0], pos[1], val[1], cnt)
+
+
+def tile_scan_cuda(summ: TileSummaries, carry: SiftCarry | None = None,
+                   trip: int = 0, max_iteration: int = 0) -> LevelStates:
+    """Exclusive per-tile seeds, extrema counts and (with ``carry``) the
+    trip's stop flags; ``carry`` is updated in place."""
+    rows, nt = summ.cnt.shape
+    ref = summ.fval
+    _same(ref, summ.fpos, summ.rpos, summ.cnt, dtype=torch.int32)
+    _same(ref, summ.fval, summ.rval, dtype=torch.float32, shape=(rows, nt, 2))
+    if carry is not None:
+        _same(ref, *carry, dtype=torch.int32, shape=(rows,))
+    if not ref.is_cuda:
+        return tile_scan(summ, carry, trip, max_iteration)
+    pos = torch.empty((2, rows, nt, 2), dtype=torch.int32, device=ref.device)
+    val = torch.empty((2, rows, nt, 2), dtype=torch.float32, device=ref.device)
+    nex = torch.empty(rows, dtype=torch.int32, device=ref.device)
+    flags = torch.empty(rows, dtype=torch.int32, device=ref.device)
+    done, reason, ncomp = (None, None, None) if carry is None else (
+        t.data_ptr() for t in carry)
+    with torch.cuda.device(ref.device):
+        code = _lib().pyitd_tile_scan(
+            rows, nt, summ.fpos.data_ptr(), summ.fval.data_ptr(),
+            summ.rpos.data_ptr(), summ.rval.data_ptr(), summ.cnt.data_ptr(),
+            pos[0].data_ptr(), val[0].data_ptr(), pos[1].data_ptr(),
+            val[1].data_ptr(), nex.data_ptr(), flags.data_ptr(), done,
+            reason, ncomp, trip, max_iteration, _stream(ref))
+    _check(code, "tile_scan")
+    LAUNCHES["tile_scan"] += 1
+    return LevelStates(nex, flags, pos[0], val[0], pos[1], val[1])
+
+
+def level_states_cuda(x: torch.Tensor, carry: SiftCarry | None = None,
+                      trip: int = 0, max_iteration: int = 0) -> LevelStates:
+    """One trip's pre-pass: ``level_summaries_cuda``, then
+    ``tile_scan_cuda``."""
+    return tile_scan_cuda(level_summaries_cuda(x), carry, trip, max_iteration)
+
+
+def sift_level_cuda(x: torch.Tensor, states: LevelStates, *,
+                    endpoint_mode: str = "reference", rotp=None, pbase=None,
+                    perr=None, comp=None, out_row=None) -> LevelOut:
+    """One extraction of ``x`` (rows, n) f32 seeded by ``states``.  With
+    ``rotp`` (and ``pbase``, ``perr``, ``comp``, ``out_row``, all (rows, n)
+    f32) it also writes the previous extraction's output row into
+    ``out_row`` and returns the updated compensation."""
+    if endpoint_mode not in ("reference", "natural"):
+        raise ValueError(f"unknown endpoint_mode: {endpoint_mode!r}")
+    _check_signal(x)
+    rows, n = x.shape
+    nt = _ntiles(n)
+    book = rotp is not None
+    _same(x, states.fpos, states.rpos, dtype=torch.int32, shape=(rows, nt, 2))
+    _same(x, states.fval, states.rval, dtype=torch.float32,
+          shape=(rows, nt, 2))
+    if book:
+        _same(x, states.flags, dtype=torch.int32, shape=(rows,))
+        _same(x, rotp, pbase, perr, comp, out_row, dtype=torch.float32,
+              shape=(rows, n))
+    if not x.is_cuda:
+        return sift_level(x, states, endpoint_mode=endpoint_mode, rotp=rotp,
+                          pbase=pbase, perr=perr, comp=comp, out_row=out_row)
+    base, rot, err = torch.empty((3, rows, n), dtype=torch.float32,
+                                 device=x.device)
+    comp_out = torch.empty_like(x) if book else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(x.device):
+        code = _lib().pyitd_sift_level(
+            x.data_ptr(), rows, n, nt, states.fpos.data_ptr(),
+            states.fval.data_ptr(), states.rpos.data_ptr(),
+            states.rval.data_ptr(), ptr(states.flags if book else None),
+            ptr(rotp), ptr(pbase), ptr(perr), ptr(comp), base.data_ptr(),
+            rot.data_ptr(), err.data_ptr(), ptr(out_row), ptr(comp_out),
+            int(book), int(endpoint_mode == "reference"), _stream(x))
+    _check(code, "sift_level")
+    LAUNCHES["sift_level"] += 1
+    return LevelOut(base, rot, err, comp_out)
