@@ -8,11 +8,22 @@ Run from the repository root on a machine with an NVIDIA H100 and nvcc:
 Phases (each raises on failure, so any failure exits non-zero):
 
 1. environment and build: the card's name and power limit, the build of
-   ``pyitd_tpu_torch/csrc/*.cu`` with nvcc for sm_90a, timed;
-2. kernel vs plain on the card: ``itd_sift`` and ``linear_baseline_extract``
-   through the kernels against ``backend="torch"`` on the same CUDA tensors,
-   bitwise (NaN equal to NaN), at small edge-case shapes, both endpoint
-   modes, stop A and stop B;
+   ``pyitd_tpu_torch/csrc/*.cu`` with nvcc for sm_90a into one library (one
+   ``nvcc -c`` per source, in parallel, then one link), timed;
+2. kernel vs plain on the card, at small edge-case shapes: ``itd_sift`` and
+   ``linear_baseline_extract`` through the kernels against
+   ``backend="torch"`` on the same CUDA tensors, bitwise (NaN equal to NaN),
+   both endpoint modes, stop A and stop B; the sift's gradient through the
+   kernels against the plain structural route and against plain scans
+   (``SCAN_LIMITS``), which must also reject three planted scan faults
+   (``FAULTS``); the fills (fill2 in both
+   directions and both ``strict`` modes, fillv) bitwise against their plain
+   versions, with marks on tile seams and a row with no mark; segsum with 1
+   and 2 channels in both directions, exact on integer-valued inputs and
+   within ``segsum_error_bound`` on real ones; the level adjoint on the
+   kernels against the plain route (rtol = atol = 2e-4, and no more than
+   1.5x the plain route's error against an f64 truth, plus 1e-6); the
+   ``ITD`` class on a numpy float64 signal through the sift kernels;
 3. the main path at full size: the bench signal, 8 x 1,000,000 f32,
    ``itd_sift(x, 8, store_baselines=False)`` (10 levels), with every kernel
    launch counted, and the compensated reconstruction
@@ -20,14 +31,29 @@ Phases (each raises on failure, so any failure exits non-zero):
 4. timing of the kernel path and the plain path at 8 x 1M and at the
    256 x 16k EEG shape (CUDA events after warm-up, median of 10, and the
    device busy time from a ``torch.profiler`` trace), the main-path output
-   of both held bitwise equal, and each kernel against its plain version at
-   the main path's shapes (device time per call from the profiler).
+   of both held bitwise equal;
+5. the main path's gradient at full size: the same signal with
+   ``requires_grad``, loss ``sum(rotations^2) + 0.7 * sum(correction)``,
+   ``.backward()``; launches counted, the gradient finite and held against
+   the plain structural route (``backend="torch",
+   linear_backend="structural"``) and both against an f64 truth, and
+   against plain scans with the planted faults rejected; forward +
+   backward and forward alone timed (median of 10), device busy time,
+   idle share, top device kernels and peak memory;
+6. the trainer of ``examples/train_through_itd.py`` at 8 x 1,000,000 with
+   ``max_iteration=6``: 5 Adam steps (lr 3e-2) through the kernel sift, each
+   loss finite, the step-0 taps gradient held against the plain structural
+   route and against plain scans, the planted faults rejected;
+7. each kernel against its plain version at the main path's shapes, with
+   its device time, the plain version's, and its bound (bytes over the
+   card's 3.35 TB/s, or f32 operations over its 67 TFLOP/s).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -36,14 +62,39 @@ import time
 
 import numpy as np
 
-SRC = "pyitd_tpu_torch/csrc/sift_level.cu"
+SRC = {k: "pyitd_tpu_torch/csrc/sift_level.cu"
+       for k in ("level_summaries", "tile_scan", "sift_level")}
+SRC.update({k: "pyitd_tpu_torch/csrc/fill_segsum.cu"
+            for k in ("fill2", "fillv", "segsum")})
 REPLACES = {
     "level_summaries": "pyitd_tpu/ops/pallas_fill.py:1398",
     "tile_scan": "pyitd_tpu/ops/pallas_fill.py:1398",
     "sift_level": "pyitd_tpu/ops/pallas_fill.py:1717",
+    "fill2": "pyitd_tpu/ops/pallas_fill.py:590",
+    "fillv": "pyitd_tpu/ops/pallas_fill.py:363",
+    "segsum": "pyitd_tpu/ops/pallas_fill.py:503",
 }
 MAIN_SHAPE, MAIN_MAX_IT = (8, 1_000_000), 8
 EEG_SHAPE, EEG_MAX_IT = (256, 16384), 8
+TRAIN_MAX_IT, TRAIN_STEPS = 6, 5
+# the card's data-sheet peaks (H100 SXM): HBM bytes/s, f32 FLOP/s outside
+# the tensor cores
+HBM_BPS, F32_FLOPS = 3.35e12, 67e12
+# Limits on the sift gradient through the kernels, as fractions of max|g|:
+# (max |diff|, rms(diff)); for the trainer's 9 taps, max |diff| alone.  The
+# forwards are bit for bit the same, so only the adjoint's sums differ, and
+# the backward's knot quotients amplify them where two knots nearly meet.
+# GRAD_LIMITS / TAPS_REL: against the plain structural route, whose
+# differences of row-long running sums round far more than a segment sum.
+# At 8x1M its rounding hides a scan fault, so the sharp test is SCAN_LIMITS
+# / TAPS_SCAN_REL: against the same adjoint with each scan wrapper swapped
+# for its plain version (fill2 is bitwise; segsum sums in f64).  Each limit
+# sits above the largest reading of the sound kernels on the H100 (PERF.md,
+# Findings); the sharp ones must also reject every planted fault below.
+GRAD_LIMITS = {"phase 2": (4e-3, 1e-4), "8x1M": (0.1, 1e-3)}
+TAPS_REL = 2e-5
+SCAN_LIMITS = {"phase 2": (5e-5, 1e-6), "8x1M": (1e-3, 1e-6)}
+TAPS_SCAN_REL = 3e-7
 
 
 def card_line() -> str:
@@ -123,6 +174,15 @@ def device_ms(fn, reps: int = 5) -> tuple[float, dict]:
     return (total if total > 0 else float("nan")), by_name
 
 
+def kernel_label(name: str) -> str:
+    """A profiler kernel name cut to what tells kernels apart: PyTorch's
+    elementwise kernels differ only in their functor, deep in the
+    template arguments."""
+    for s in ("void ", "at::native::", "(anonymous namespace)::"):
+        name = name.replace(s, "")
+    return name[:110]
+
+
 def bench_signal(rows: int, n: int):
     """The headline bench signal (bench.py:349-358)."""
     rng = np.random.default_rng(0)
@@ -161,15 +221,245 @@ def phase2_cases():
     yield "monotone (2, 9000)", np.stack([t, t ** 2]).astype(np.float32)
 
 
+def sift_loss(r):
+    """The gradient phases' loss."""
+    return (r.rotations ** 2).sum() + 0.7 * r.correction.sum()
+
+
+def scan_masks(x):
+    """Masks for the scans on ``x``: its knot mask, and random marks with
+    marks on tile seams, a row with no mark and, with three rows or more, a
+    row marked everywhere."""
+    import torch
+    from pyitd_tpu_torch.ops.linear_baseline import knot_mask
+
+    rows, n = x.shape
+    m = np.random.default_rng(n).random((rows, n)) < 0.01
+    m[0, [i for i in (0, 4095, 4096, 4097, 8191, 8192, n - 1) if i < n]] = True
+    m[-1] = False
+    if rows > 2:
+        m[1] = True
+    return knot_mask(x), torch.from_numpy(m).to(x.device)
+
+
+def segsum_within_bound(vals, flags, reverse, what) -> tuple[float, float]:
+    """segsum on real-valued channels, kernel against plain: the same
+    non-finite results, the finite ones within ``segsum_error_bound``.
+    Returns (max abs err, max err / bound)."""
+    import torch
+    from pyitd_tpu_torch.ops import cuda_fill as cf
+
+    chans = (vals,) if isinstance(vals, torch.Tensor) else tuple(vals)
+    got = cf.segsum_cuda(chans, flags, reverse)
+    want = cf.segsum(chans, flags, reverse)
+    err_max, ratio = 0.0, 0.0
+    for v, a, b in zip(chans, got, want):
+        fin = torch.isfinite(b)
+        if not bitwise_equal(a[~fin], b[~fin]):
+            raise AssertionError(f"segsum {what}: non-finite sums differ")
+        err = (a.double() - b.double()).abs()[fin]
+        bound = cf.segsum_error_bound(v, flags, reverse)[fin]
+        if not bool((err <= bound).all()):
+            raise AssertionError(f"segsum {what}: beyond segsum_error_bound")
+        if err.numel():
+            err_max = max(err_max, float(err.max()))
+            ratio = max(ratio, float((err / bound.clamp(min=1e-300)).max()))
+    return err_max, ratio
+
+
+def check_scans(name, x) -> tuple[float, float]:
+    """fill2 and fillv bitwise against their plain versions; segsum exact
+    on integer-valued channels and within its bound on real ones."""
+    import torch
+    from pyitd_tpu_torch.ops import cuda_fill as cf
+
+    rng = np.random.default_rng(x.shape[1] + 1)
+    ints = torch.from_numpy(rng.integers(
+        -8, 9, size=(2,) + tuple(x.shape)).astype(np.float32)).to(x.device)
+    worst = (0.0, 0.0)
+    for mask in scan_masks(x):
+        for rev in (False, True):
+            for strict in (False, True):
+                for a, b in zip(cf.fill2_cuda(x, mask, rev, strict),
+                                cf.fill2(x, mask, rev, strict)):
+                    if not bitwise_equal(a, b):
+                        raise AssertionError(f"fill2 {name} reverse={rev} "
+                                             f"strict={strict} differs")
+            if not bitwise_equal(cf.fillv_cuda(x, mask, rev),
+                                 cf.fillv(x, mask, rev)):
+                raise AssertionError(f"fillv {name} reverse={rev} differs")
+            for nch in (1, 2):
+                got = cf.segsum_cuda(tuple(ints[:nch]), mask, rev)
+                want = cf.segsum(tuple(ints[:nch]), mask, rev)
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f"segsum {name} {nch} channels "
+                                         f"reverse={rev}: integer sums differ")
+            e = segsum_within_bound((x, 0.5 * x + 1.0), mask, rev, name)
+            worst = (max(worst[0], e[0]), max(worst[1], e[1]))
+    return worst
+
+
+def check_adjoint(name, x, rng, tight: bool) -> tuple[float, float]:
+    """The level adjoint on the kernels against the plain route: the
+    kernel route's error against an f64 truth at most 1.5x the plain
+    route's, plus 1e-6; with ``tight``, also rtol = atol = 2e-4 between
+    them (the tolerance JAX holds its two routes to on this signal)."""
+    import torch
+    from pyitd_tpu_torch.ops.linear_baseline import structural_level_bwd
+
+    cts = [torch.from_numpy(rng.normal(size=tuple(x.shape)).astype(
+        np.float32)).to(x.device) for _ in range(3)]
+    gk = structural_level_bwd(x, *cts, "reference", fills="kernel")
+    gt = structural_level_bwd(x, *cts, "reference", fills="torch")
+    g64 = structural_level_bwd(x.double(), *(c.double() for c in cts),
+                               "reference", fills="torch")
+    if not bitwise_equal(torch.isnan(gk), torch.isnan(gt)):
+        raise AssertionError(f"adjoint {name}: NaN positions differ")
+    ok = ~torch.isnan(g64)
+    if tight:
+        torch.testing.assert_close(gk[ok], gt[ok], rtol=2e-4, atol=2e-4)
+    err_k = float((gk.double() - g64)[ok].abs().max()) if ok.any() else 0.0
+    err_t = float((gt.double() - g64)[ok].abs().max()) if ok.any() else 0.0
+    if not err_k <= 1.5 * err_t + 1e-6:
+        raise AssertionError(f"adjoint {name}: kernel route error {err_k} "
+                             f"against f64, plain route {err_t}")
+    return err_k, err_t
+
+
+def grad_gap(gk, gp) -> tuple[float, float, float]:
+    """``(max |gk - gp|, rms(gk - gp))`` over the samples where ``gp`` is
+    not NaN, as fractions of ``max|gp|``, and ``max|gp|``; infinite where
+    the NaN positions differ."""
+    import torch
+
+    g_max = float(gp.abs().nan_to_num(0.0).max())
+    if not bitwise_equal(torch.isnan(gk), torch.isnan(gp)):
+        return float("inf"), float("inf"), g_max
+    ok = ~torch.isnan(gp)
+    d = (gk - gp)[ok].double()
+    if g_max == 0.0:
+        return (0.0, 0.0, 0.0) if not bool(d.any()) else \
+            (float("inf"), float("inf"), 0.0)
+    return (float(d.abs().max()) / g_max,
+            float(d.square().mean().sqrt()) / g_max, g_max)
+
+
+def within(gap, limits) -> bool:
+    return gap[0] <= limits[0] and gap[1] <= limits[1]
+
+
+# ---- planted faults: scan wrappers with the defects a tiled scan kernel is
+# most likely to have.  Each limit on the gradient must reject each fault
+# wherever the fault changes the gradient.
+
+def _seam_resets(flags, reverse):
+    """A reset on each tile's first sample in scan order: a segsum that
+    drops the carry into every tile."""
+    import torch
+    from pyitd_tpu_torch.ops import cuda_fill as cf
+
+    t = torch.arange(flags.shape[-1], device=flags.device)
+    return flags | (t % cf.TILE == (cf.TILE - 1 if reverse else 0))
+
+
+def _one_reset_dropped(flags):
+    """Without the first reset at or after the middle of each row."""
+    import torch
+
+    n = flags.shape[-1]
+    t = torch.arange(n, device=flags.device)
+    first = torch.where(flags & (t >= n // 2), t, n).amin(-1, keepdim=True)
+    return flags & (t != first)
+
+
+def _tile_carry_dropped(out, mask, reverse, strict):
+    """fill2's outputs zeroed where no mark comes before the sample (in scan
+    order) in its own tile: a fill2 that drops the carry into every
+    tile."""
+    import torch
+    import torch.nn.functional as F
+    from pyitd_tpu_torch.ops import cuda_fill as cf
+    from pyitd_tpu_torch.ops.fill import shift_left, shift_right
+
+    if strict:
+        mask = shift_left(mask, False) if reverse else shift_right(mask, False)
+    rows, n = mask.shape
+    nt = -(-n // cf.TILE)
+    m = F.pad(mask.int(), (0, nt * cf.TILE - n)).view(rows, nt, cf.TILE)
+    seen = (m.flip(-1) if reverse else m).cummax(-1).values
+    seen = (seen.flip(-1) if reverse else seen).reshape(rows, -1)[:, :n]
+    return tuple(torch.where(seen != 0, o, torch.zeros_like(o)) for o in out)
+
+
+FAULTS = {
+    "segsum drops the tile carry": ("segsum_cuda", lambda fn: (
+        lambda v, f, reverse=False: fn(v, _seam_resets(f, reverse), reverse))),
+    "segsum drops one reset per row": ("segsum_cuda", lambda fn: (
+        lambda v, f, reverse=False: fn(v, _one_reset_dropped(f), reverse))),
+    "fill2 drops the tile carry": ("fill2_cuda", lambda fn: (
+        lambda v, m, reverse=False, strict=False: _tile_carry_dropped(
+            fn(v, m, reverse, strict), m, reverse, strict))),
+}
+
+
+@contextlib.contextmanager
+def swapped(fns: dict):
+    """Run with the ``cuda_fill`` functions named in ``fns`` replaced."""
+    from pyitd_tpu_torch.ops import cuda_fill as cf
+
+    real = {k: getattr(cf, k) for k in fns}
+    for k, fn in fns.items():
+        setattr(cf, k, fn)
+    try:
+        yield
+    finally:
+        for k, fn in real.items():
+            setattr(cf, k, fn)
+
+
+def plain_scans():
+    """The adjoint's scan wrappers swapped for their plain versions."""
+    from pyitd_tpu_torch.ops import cuda_fill as cf
+
+    return swapped({"fill2_cuda": cf.fill2, "segsum_cuda": cf.segsum})
+
+
+def planted(fault: str):
+    """The adjoint's scan wrapper with ``fault`` planted in it."""
+    from pyitd_tpu_torch.ops import cuda_fill as cf
+
+    attr, wrap = FAULTS[fault]
+    return swapped({attr: wrap(getattr(cf, attr))})
+
+
+def sift_grad(x, max_iteration, **kw):
+    """The gradient of ``sift_loss`` through ``itd_sift`` at ``x``."""
+    from pyitd_tpu_torch import itd_sift
+
+    xg = x.clone().requires_grad_()
+    sift_loss(itd_sift(xg, max_iteration, **kw)).backward()
+    return xg.grad
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time in ms for the work, and what bounds it."""
+    t_b, t_f = nbytes / HBM_BPS * 1e3, flops / F32_FLOPS * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from pyitd_tpu_torch import itd_sift, linear_baseline_extract
+    from pyitd_tpu_torch import ITD, itd_sift, linear_baseline_extract
+    from pyitd_tpu_torch.examples import train_through_itd as trainer
     from pyitd_tpu_torch.ops import _build
     from pyitd_tpu_torch.ops import cuda_fill as cf
+    from pyitd_tpu_torch.ops.fill import shift_left
+    from pyitd_tpu_torch.ops.linear_baseline import knot_mask
+    from pyitd_tpu_torch.utils.interop import from_numpy
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -181,12 +471,17 @@ def main() -> int:
     t0 = time.perf_counter()
     so, log = _build.build()
     cf._lib()
-    print(f"[1] built {so.name} in {time.perf_counter() - t0:.2f} s "
-          f"(flags: {' '.join(_build.NVCC_FLAGS)})", flush=True)
+    print(f"[1] built {so.name} in {time.perf_counter() - t0:.2f} s, one "
+          f"nvcc -c per source in parallel, then one link (flags: "
+          f"{' '.join(_build.NVCC_FLAGS)})", flush=True)
     if log.strip():
         print(log.strip())
 
-    # ---- phase 2: kernel vs plain, bitwise ----
+    # ---- phase 2: kernel vs plain on small edge cases ----
+    rng = np.random.default_rng(3)
+    # (what, (max, rms, max|g|), limits, must pass) of the sharp
+    # comparisons: the sound kernels must pass, every planted fault fail
+    verdicts = []
     for name, xn in phase2_cases():
         x = torch.from_numpy(xn).to(dev)
         for mode in ("reference", "natural"):
@@ -211,21 +506,77 @@ def main() -> int:
         if not all(bitwise_equal(getattr(ee, f), getattr(ref, f))
                    for f in ee._fields):
             raise AssertionError(f"early_exit differs on {name}")
+
+        # the sift's gradient through the kernels against the plain
+        # structural route and against plain scans; on rows of more than
+        # one tile, the planted faults against plain scans
+        gk = sift_grad(x, 5)
+        gap = grad_gap(gk, sift_grad(x, 5, backend="torch",
+                                     linear_backend="structural"))
+        if not within(gap, GRAD_LIMITS["phase 2"]):
+            raise AssertionError(f"gradient {name}: kernel against plain "
+                                 f"structural (max, rms, max|g|) {gap}")
+        with plain_scans():
+            gs = sift_grad(x, 5)
+        sgap = grad_gap(gk, gs)
+        verdicts.append((f"{name}: sound kernels", sgap,
+                         SCAN_LIMITS["phase 2"], True))
+        for fault in FAULTS if x.shape[1] > cf.TILE and gap[2] > 0 else ():
+            with planted(fault):
+                fgap = grad_gap(sift_grad(x, 5), gs)
+            if fgap[:2] != (0.0, 0.0):
+                verdicts.append((f"{name}: {fault}", fgap,
+                                 SCAN_LIMITS["phase 2"], False))
+
+        s_err = check_scans(name, x)
+        a_err = check_adjoint(name, x, rng, tight=False)
         print(f"[2] {name}: kernel == torch bitwise; stop reasons "
               f"{b.stop_reason.tolist()}, components "
-              f"{b.num_components.tolist()}", flush=True)
-    for bad, exc in ((torch.zeros(2, 64, dtype=torch.float64, device=dev),
-                      ValueError),
-                     (torch.zeros(2, 64, device=dev, requires_grad=True),
-                      NotImplementedError)):
-        try:
-            itd_sift(bad, 2)
-        except exc:
-            pass
-        else:
-            raise AssertionError(f"itd_sift took {bad.dtype} "
-                                 f"requires_grad={bad.requires_grad}")
-    print("[2] f64 and requires_grad inputs on CUDA raise", flush=True)
+              f"{b.num_components.tolist()}; gradient against the plain "
+              f"structural route max|diff| {gap[0]!r} and rms {gap[1]!r} "
+              f"of max|g| {gap[2]!r}, against plain scans {sgap[0]!r} and "
+              f"{sgap[1]!r}; "
+              f"fill2/fillv bitwise, segsum exact on integers, real max abs "
+              f"err {s_err[0]!r} ({s_err[1]:.4f} of its bound); level "
+              f"adjoint error against f64 {a_err[0]!r} (plain route "
+              f"{a_err[1]!r})", flush=True)
+
+    # the level adjoint on JAX's own test signal (tests/test_pallas_fill.py:
+    # 381-404), with its 2e-4 tolerance between the routes
+    n = 8192 + 130
+    t = np.linspace(0, 4 * np.pi, n)
+    sig = np.stack([np.sin(9 * t) + 0.2 * rng.standard_normal(n),
+                    rng.standard_normal(n)]).astype(np.float32)
+    a_err = check_adjoint("(2, 8322)", torch.from_numpy(sig).to(dev), rng,
+                          tight=True)
+    print(f"[2] level adjoint (2, 8322): kernel and plain routes within "
+          f"2e-4; error against f64 {a_err[0]!r} (plain route "
+          f"{a_err[1]!r})", flush=True)
+    try:
+        itd_sift(torch.zeros(2, 64, dtype=torch.float64, device=dev), 2)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("itd_sift took float64 on the kernel route")
+    print("[2] f64 on the kernel route raises", flush=True)
+    # the class API on a numpy float64 signal: cast to f32, on the kernels
+    t = np.linspace(0, 2 * np.pi, 9000)
+    s64 = np.sin(20 * t * (1 + 0.2 * t)) + t ** 2 + np.sin(13 * t)
+    cf.reset_launches()
+    comps = ITD()(s64)
+    torch.cuda.synchronize()
+    itd_launches = dict(cf.LAUNCHES)
+    want = itd_sift(torch.from_numpy(s64).float().to(dev), 11,
+                    backend="torch")
+    if not bitwise_equal(comps, want.rotations[:int(want.num_components)]):
+        raise AssertionError("ITD()(numpy f64) differs from the plain f32 "
+                             "sift")
+    if itd_launches != {k: 14 if SRC[k].endswith("sift_level.cu") else 0
+                        for k in itd_launches}:
+        raise AssertionError(f"ITD()(numpy f64) launches {itd_launches}")
+    print(f"[2] ITD()(numpy float64, 9000): {comps.shape[0]} components in "
+          f"f32 on the kernels, bitwise the plain f32 sift; launches "
+          f"{itd_launches}", flush=True)
 
     # ---- phase 3: the main path at full size ----
     xn = bench_signal(*MAIN_SHAPE)
@@ -236,7 +587,9 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = dict(cf.LAUNCHES)
     levels = MAIN_MAX_IT + 2
-    want = {k: levels + 1 for k in launches}
+    # one pre-pass and one level per extraction; no backward, so no scans
+    want = {k: levels + 1 if SRC[k].endswith("sift_level.cu") else 0
+            for k in launches}
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want}")
     if tuple(res.rotations.shape) != (levels,) + MAIN_SHAPE:
@@ -276,7 +629,7 @@ def main() -> int:
               f"idle share {1 - dms / ms:.3f}  [{card}]", flush=True)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
         print("[4]   top device kernels (ms/sift): " + "; ".join(
-            f"{k[:60]} {v:.4f}" for k, v in top), flush=True)
+            f"{kernel_label(k)} {v:.4f}" for k, v in top), flush=True)
 
     report(MAIN_SHAPE, x, k_ms, "kernel")
     report(MAIN_SHAPE, x, p_ms, "torch")
@@ -289,16 +642,182 @@ def main() -> int:
     report(EEG_SHAPE, xe, ek_ms, "kernel")
     report(EEG_SHAPE, xe, ep_ms, "torch")
 
-    # each kernel against its plain version at the main path's shapes
-    # (trip 1 of the 8x1M sift: the first baseline as input)
+    # ---- phase 5: the main path's gradient at full size ----
+    levels = MAIN_MAX_IT + 2
+    xg = x.clone().requires_grad_()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cf.reset_launches()
+    rk = itd_sift(xg, MAIN_MAX_IT, store_baselines=False)
+    sift_loss(rk).backward()
+    torch.cuda.synchronize()
+    grad_launches = dict(cf.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # forward and replay: levels + 1 extractions each; every extraction of
+    # the replay but the last trip's reaches the loss: two fill2 and four
+    # segsum calls each
+    want = {"level_summaries": 2 * (levels + 1), "tile_scan": 2 * (levels + 1),
+            "sift_level": 2 * (levels + 1), "fill2": 2 * levels, "fillv": 0,
+            "segsum": 4 * levels}
+    if grad_launches != want:
+        raise AssertionError(f"gradient launches {grad_launches}, expected "
+                             f"{want}")
+    g = xg.grad.detach().clone()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError("non-finite gradient")
+    xp = x.clone().requires_grad_()
+    rp = itd_sift(xp, MAIN_MAX_IT, store_baselines=False, backend="torch",
+                  linear_backend="structural")
+    for f in rk._fields:
+        if not bitwise_equal(getattr(rk, f).detach(), getattr(rp, f).detach()):
+            raise AssertionError(f"8x1M: kernel and plain structural "
+                                 f"forwards differ in {f}")
+    sift_loss(rp).backward()
+    gp = xp.grad.detach()
+    del rk, rp
+    x64 = x.double().requires_grad_()
+    sift_loss(itd_sift(x64, MAIN_MAX_IT, store_baselines=False,
+                       backend="torch", linear_backend="structural")
+              ).backward()
+    g64 = x64.grad.detach()
+    del x64
+    gap = grad_gap(g, gp)
+    peak_g = gap[2]
+    rms_k = float((g.double() - g64).square().mean().sqrt())
+    rms_p = float((gp.double() - g64).square().mean().sqrt())
+    del g64
+    print(f"[5] 8x1M gradient: launches {grad_launches}; finite; against the "
+          f"plain structural route max|diff| {gap[0]!r} and rms(diff) "
+          f"{gap[1]!r} of max|g| {peak_g!r}; rms error against the f64 "
+          f"sift gradient: kernel route {rms_k!r}, plain route {rms_p!r}; "
+          f"peak memory {peak_gb:.3f} GB  [{card}]", flush=True)
+    if not within(gap, GRAD_LIMITS["8x1M"]):
+        raise AssertionError("8x1M gradient beyond its limits against the "
+                             "plain structural route")
+    if not rms_k <= 1.5 * rms_p + 1e-6 * peak_g:
+        raise AssertionError(f"8x1M gradient: kernel route rms error {rms_k} "
+                             f"against f64, plain route {rms_p}")
+    del gp
+    with plain_scans():
+        gs = sift_grad(x, MAIN_MAX_IT, store_baselines=False)
+    sgap = grad_gap(g, gs)
+    print(f"[5] 8x1M gradient against plain scans: max|diff| {sgap[0]!r} "
+          f"and rms(diff) {sgap[1]!r} of max|g| {sgap[2]!r}", flush=True)
+    verdicts.append(("8x1M: sound kernels", sgap, SCAN_LIMITS["8x1M"], True))
+    for fault in FAULTS:
+        with planted(fault):
+            fgap = grad_gap(sift_grad(x, MAIN_MAX_IT, store_baselines=False),
+                            gs)
+        verdicts.append((f"8x1M: {fault}", fgap, SCAN_LIMITS["8x1M"], False))
+    del gs, g
+
+    def fwd_bwd():
+        xg.grad = None
+        sift_loss(itd_sift(xg, MAIN_MAX_IT, store_baselines=False)).backward()
+
+    fb_ms = cuda_times(fwd_bwd)
+    f_ms = cuda_times(lambda: itd_sift(x, MAIN_MAX_IT, store_baselines=False))
+    fb_dms, fb_by_name = device_ms(fwd_bwd)
+    fb, f = statistics.median(fb_ms), statistics.median(f_ms)
+    print(f"[5] 8x1M forward + backward {fb:.4f} ms (CUDA events, median of "
+          f"{len(fb_ms)}, min {fb_ms[0]:.4f}, max {fb_ms[-1]:.4f}); forward "
+          f"alone {f:.4f} ms (min {f_ms[0]:.4f}, max {f_ms[-1]:.4f}); ratio "
+          f"{fb / f:.2f}; device busy {fb_dms:.4f} ms, idle share "
+          f"{1 - fb_dms / fb:.3f}  [{card}]", flush=True)
+    groups = {"sift kernels": 0.0, "scan kernels": 0.0, "PyTorch ops": 0.0}
+    for k, v in fb_by_name.items():
+        if any(s in k for s in ("sift_level_kernel", "level_summaries_kernel",
+                                "tile_scan_kernel")):
+            groups["sift kernels"] += v
+        elif any(s in k for s in ("scan_summary", "scan_rows", "scan_apply")):
+            groups["scan kernels"] += v
+        else:
+            groups["PyTorch ops"] += v
+    print("[5]   device time by group (ms per forward + backward): "
+          + "; ".join(f"{k} {v:.4f}" for k, v in groups.items()), flush=True)
+    top = sorted(fb_by_name.items(), key=lambda kv: -kv[1])[:8]
+    print("[5]   top device kernels (ms per forward + backward): " + "; ".join(
+        f"{kernel_label(k)} {v:.4f}" for k, v in top), flush=True)
+
+    # ---- phase 6: the trainer ----
+    xn_t, hi_t = trainer.make_problem(n=MAIN_SHAPE[1], batch=MAIN_SHAPE[0])
+    xt, tgt = from_numpy(xn_t, dev).float(), from_numpy(hi_t, dev).float()
+    del xn_t, hi_t
+    taps0 = from_numpy(trainer.identity_taps(), dev).float()
+    taps_k = taps0.clone().requires_grad_()
+    taps_p = taps0.clone().requires_grad_()
+    (gk,) = torch.autograd.grad(
+        trainer.loss_fn(taps_k, xt, tgt, TRAIN_MAX_IT), taps_k)
+    (gt,) = torch.autograd.grad(trainer.loss_fn(
+        taps_p, xt, tgt, TRAIN_MAX_IT, backend="torch",
+        linear_backend="structural"), taps_p)
+    taps_rel = float((gk - gt).abs().max() / gt.abs().max())
+    if not taps_rel <= TAPS_REL:
+        raise AssertionError(f"trainer step 0: taps gradient {gk.tolist()} "
+                             f"against plain structural {gt.tolist()}")
+    def taps_grad():
+        tf = taps0.clone().requires_grad_()
+        return torch.autograd.grad(
+            trainer.loss_fn(tf, xt, tgt, TRAIN_MAX_IT), tf)[0]
+
+    with plain_scans():
+        gs = taps_grad()
+    t_max = float(gs.abs().max())
+    for what, gf in [("sound kernels", gk)] + [
+            (fault, None) for fault in FAULTS]:
+        if gf is None:
+            with planted(what):
+                gf = taps_grad()
+        verdicts.append((f"taps: {what}", (float(
+            (gf - gs).abs().max()) / t_max, 0.0, t_max),
+            (TAPS_SCAN_REL, 0.0), what == "sound kernels"))
+    cf.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, losses = trainer.train(
+        xt, tgt, taps0, TRAIN_STEPS, lr=3e-2, max_iteration=TRAIN_MAX_IT,
+        log=lambda i, v: print(f"[6] trainer step {i}: loss {v!r}",
+                               flush=True))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    train_launches = dict(cf.LAUNCHES)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"trainer losses {losses}")
+    t_levels = TRAIN_MAX_IT + 2
+    if (train_launches["fill2"] != 2 * t_levels * TRAIN_STEPS
+            or train_launches["segsum"] != 4 * t_levels * TRAIN_STEPS):
+        raise AssertionError(f"trainer launches {train_launches}")
+    print(f"[6] trainer 8x1M max_iteration={TRAIN_MAX_IT}: {TRAIN_STEPS} Adam "
+          f"steps, losses {losses}; {step_ms:.2f} ms per step (host clock, "
+          f"first step included); step-0 taps gradient {gk.tolist()} against "
+          f"plain structural {gt.tolist()} (max rel diff {taps_rel:.3g}); "
+          f"launches {train_launches}  [{card}]", flush=True)
+    del xt, tgt
+
+    # against plain scans: the sound kernels within the limits, every
+    # planted fault (where it changed the gradient) beyond them
+    for what, fgap, limits, ok in verdicts:
+        print(f"[6] against plain scans, {what}: max|diff| {fgap[0]!r}, rms "
+              f"{fgap[1]!r} of max|g| {fgap[2]!r}; limits {limits}: "
+              f"{'within' if within(fgap, limits) else 'beyond'}", flush=True)
+    wrong = [what for what, fgap, limits, ok in verdicts
+             if within(fgap, limits) != ok]
+    if wrong:
+        raise AssertionError(f"against plain scans, wrong side of the "
+                             f"limits: {wrong}")
+
+    # ---- phase 7: each kernel against its plain version at the main
+    # path's shapes (trip 1 of the 8x1M sift: the first baseline as input)
     st0 = cf.level_states(x)
     lvl0 = cf.sift_level(x, st0)
     base = lvl0.baseline
+    rows, n = MAIN_SHAPE
+    nt = -(-n // cf.TILE)
     entries = []
 
-    def entry(name, errs, kernel_fn, plain_fn):
-        err = max(errs)
-        if err != 0.0:
+    def entry(name, err, kernel_fn, plain_fn, nbytes, flops, count,
+              exact=True):
+        if exact and err != 0.0:
             raise AssertionError(f"{name}: kernel differs from its plain "
                                  f"version, max abs err {err}")
         # device time from the profiler; CUDA events where it has none
@@ -308,21 +827,27 @@ def main() -> int:
             ms = statistics.median(cuda_times(kernel_fn))
             plain_ms = statistics.median(cuda_times(plain_fn))
             method = "CUDA events"
-        print(f"[4] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-              f"per call at 8x1M ({method}; max abs err {err})  [{card}]",
+        b_ms, b_by = bound(nbytes, flops)
+        print(f"[7] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per "
+              f"call at 8x1M ({method}; max abs err {err!r}); bound "
+              f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e6:.1f} MFLOP); {count} launches  [{card}]",
               flush=True)
-        entries.append({"name": name, "route": "cuda", "source": SRC,
-                        "replaces": REPLACES[name],
-                        "launches": launches[name], "max_abs_err": err,
-                        "ms": ms, "plain_ms": plain_ms})
+        entries.append({"name": name, "route": "cuda", "source": SRC[name],
+                        "replaces": REPLACES[name], "launches": count,
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": None})
 
     sk, sp = cf.level_summaries_cuda(base), cf.level_summaries(base)
-    entry("level_summaries", [max_abs_err(a, b) for a, b in zip(sk, sp)],
+    entry("level_summaries", max(max_abs_err(a, b) for a, b in zip(sk, sp)),
           lambda: cf.level_summaries_cuda(base),
-          lambda: cf.level_summaries(base))
+          lambda: cf.level_summaries(base),
+          rows * n * 4 + rows * nt * 36, 2 * rows * n,
+          launches["level_summaries"])
 
     def carry():
-        c = cf.SiftCarry.zeros(MAIN_SHAPE[0], dev)
+        c = cf.SiftCarry.zeros(rows, dev)
         c.done[1] = 1
         return c
 
@@ -330,19 +855,72 @@ def main() -> int:
     tk = cf.tile_scan_cuda(sk, ck, trip=1, max_iteration=MAIN_MAX_IT)
     tp = cf.tile_scan(sp, cp, trip=1, max_iteration=MAIN_MAX_IT)
     entry("tile_scan",
-          [max_abs_err(a, b) for a, b in zip(tk + ck, tp + cp)],
+          max(max_abs_err(a, b) for a, b in zip(tk + ck, tp + cp)),
           lambda: cf.tile_scan_cuda(sk, ck, 1, MAIN_MAX_IT),
-          lambda: cf.tile_scan(sp, cp, 1, MAIN_MAX_IT))
+          lambda: cf.tile_scan(sp, cp, 1, MAIN_MAX_IT),
+          rows * nt * (36 + 32) + rows * (12 + 12 + 8), 0,
+          launches["tile_scan"])
 
     row_k, row_p = torch.empty_like(x), torch.empty_like(x)
     zero = x * 0
     args = dict(rotp=lvl0.rotation, pbase=x, perr=lvl0.sub_err, comp=zero)
     lk = cf.sift_level_cuda(base, tk, out_row=row_k, **args)
     lp = cf.sift_level(base, tk, out_row=row_p, **args)
+    # reads: base and comp always, rotp and perr on running or stop-B rows,
+    # pbase on stop-A rows; five row writes; the seeds and flags
+    fl = tk.flags
+    n_rp = int(((fl & (cf.CONT | cf.STOP_B)) != 0).sum())
+    n_pb = int(((fl & cf.STOP_A) != 0).sum())
     entry("sift_level",
-          [max_abs_err(a, b) for a, b in zip(lk + (row_k,), lp + (row_p,))],
+          max(max_abs_err(a, b) for a, b in zip(lk + (row_k,), lp + (row_p,))),
           lambda: cf.sift_level_cuda(base, tk, out_row=row_k, **args),
-          lambda: cf.sift_level(base, tk, out_row=row_p, **args))
+          lambda: cf.sift_level(base, tk, out_row=row_p, **args),
+          4 * n * (7 * rows + 2 * n_rp + n_pb) + rows * nt * 32 + rows * 4,
+          40 * rows * n, launches["sift_level"])
+
+    # the same kernel with the bookkeeping compiled out (K2: the first
+    # extraction of a sift, and every level of the backward's replay)
+    k2 = max(max_abs_err(a, b) for a, b in zip(
+        cf.sift_level_cuda(base, tk)[:3], cf.sift_level(base, tk)[:3]))
+    if k2 != 0.0:
+        raise AssertionError(f"sift_level without bookkeeping differs, max "
+                             f"abs err {k2}")
+    k2_ms = device_ms(lambda: cf.sift_level_cuda(base, tk))[0]
+    k2_plain = device_ms(lambda: cf.sift_level(base, tk))[0]
+    k2_b, k2_by = bound(16 * rows * n + rows * nt * 32, 40 * rows * n)
+    print(f"[7] sift_level without bookkeeping: kernel {k2_ms:.4f} ms, plain "
+          f"{k2_plain:.4f} ms per call at 8x1M (profiler device time; max abs "
+          f"err 0.0); bound {k2_b:.4f} ms by {k2_by}  [{card}]", flush=True)
+
+    # the backward's scans on the same level input, as the adjoint calls them
+    knots = knot_mask(base)
+    f_next = shift_left(knots, False)
+    fk = cf.fill2_cuda(base, knots) + cf.fill2_cuda(base, knots, True, True)
+    fp = cf.fill2(base, knots) + cf.fill2(base, knots, True, True)
+    entry("fill2", max(max_abs_err(a, b) for a, b in zip(fk, fp)),
+          lambda: cf.fill2_cuda(base, knots), lambda: cf.fill2(base, knots),
+          rows * n * (4 + 1 + 16), 0, grad_launches["fill2"])
+    vk = (cf.fillv_cuda(base, knots), cf.fillv_cuda(base, knots, True))
+    vp = (cf.fillv(base, knots), cf.fillv(base, knots, True))
+    entry("fillv", max(max_abs_err(a, b) for a, b in zip(vk, vp)),
+          lambda: cf.fillv_cuda(base, knots), lambda: cf.fillv(base, knots),
+          rows * n * (4 + 1 + 4), 0, grad_launches["fillv"])
+    gen = torch.Generator(device=dev).manual_seed(5)
+    chans = tuple(torch.randn(MAIN_SHAPE, generator=gen, device=dev)
+                  for _ in range(2))
+    s_err, s_ratio = segsum_within_bound(chans, f_next, True, "8x1M")
+    # the knot-neighbor read: one nonzero term per segment, so exact
+    push = shift_left(torch.where(knots, chans[0], 0.0), 0.0)
+    if not torch.equal(cf.segsum_cuda(push, f_next, True),
+                       cf.segsum(push, f_next, True)):
+        raise AssertionError("segsum 8x1M: knot read not exact")
+    print(f"[7] segsum at 8x1M: 2 channels within {s_ratio:.4f} of "
+          f"segsum_error_bound; the knot read exact", flush=True)
+    entry("segsum", s_err, lambda: cf.segsum_cuda(chans, f_next, True),
+          lambda: cf.segsum(chans, f_next, True), rows * n * (8 + 1 + 8),
+          2 * rows * n, grad_launches["segsum"], exact=False)
+    print(f"[7] launches: forward sift {launches}; forward + backward "
+          f"{grad_launches}", flush=True)
 
     print(json.dumps({"kernels": entries}))
     print(card)

@@ -21,7 +21,8 @@ import torch
 
 from ..ops import cuda_fill as cf
 from ..ops.linear_baseline import (ENDPOINT_MODES, check_kernel_input,
-                                   linear_baseline_extract)
+                                   linear_baseline_extract,
+                                   linear_baseline_extract_structural)
 
 __all__ = ["itd_sift", "SiftResult", "ITD", "STOP_RUNNING", "STOP_FLAT",
            "STOP_BUDGET"]
@@ -49,7 +50,8 @@ class SiftResult(NamedTuple):
 
 def itd_sift(x: torch.Tensor, max_iteration: int = 11, *,
              endpoint_mode: str = "reference", store_baselines: bool = True,
-             backend: str = "auto", early_exit: bool = False) -> SiftResult:
+             backend: str = "auto", early_exit: bool = False,
+             linear_backend: str = "auto") -> SiftResult:
     """Full canonical sift of ``x`` (last axis = time; leading axes = batch).
 
     ``backend``:
@@ -58,9 +60,17 @@ def itd_sift(x: torch.Tensor, max_iteration: int = 11, *,
     * ``"kernel"`` — one trip = the three launches of ``ops/cuda_fill.py``,
       stop flags and counts kept on the device, each row written in place
       into the preallocated output (on a CPU tensor the wrappers run their
-      plain versions).  f32 only, no backward yet;
+      plain versions).  f32 only.  Differentiable as JAX's kernel sift is
+      (``decomp/itd.py:178-187``): the backward replays the loop with
+      structural levels (``linear_backend="structural"``) whose forward and
+      adjoint run the kernels, and differentiates that replay;
     * ``"torch"`` — the plain loop of the JAX ``xla`` backend, any device,
       any float dtype, differentiable through autograd.
+
+    ``linear_backend`` (the plain loop's levels): ``"auto"`` differentiates
+    the plain levels with autograd; ``"structural"`` gives every level the
+    hand-written structural backward (``ops/linear_baseline.py``), with the
+    plain fills.  The kernel route's backward is always structural.
 
     ``early_exit`` checks after each trip whether every row has stopped
     (one host sync per trip) and skips the remaining trips, whose rows
@@ -68,28 +78,36 @@ def itd_sift(x: torch.Tensor, max_iteration: int = 11, *,
     """
     if endpoint_mode not in ENDPOINT_MODES:
         raise ValueError(f"unknown endpoint_mode: {endpoint_mode!r}")
+    if linear_backend not in ("auto", "structural"):
+        raise ValueError(f"unknown linear_backend: {linear_backend!r}")
     if x.shape[-1] < 2:
         raise ValueError(
             f"a signal needs at least 2 samples (got n={x.shape[-1]})")
     if backend == "auto":
         backend = "kernel" if x.is_cuda else "torch"
+    args = (max_iteration, endpoint_mode, store_baselines, early_exit)
     if backend == "kernel":
         check_kernel_input(x)
-        return _itd_sift_kernel(x, max_iteration, endpoint_mode,
-                                store_baselines, early_exit)
+        if x.requires_grad and torch.is_grad_enabled():
+            return SiftResult(*_KernelSift.apply(x, *args))
+        return _itd_sift_kernel(x, *args)
     if backend == "torch":
-        return _itd_sift_torch(x, max_iteration, endpoint_mode,
-                               store_baselines, early_exit)
+        return _itd_sift_torch(x, *args, linear_backend=linear_backend)
     raise ValueError(f"unknown backend: {backend!r}")
 
 
 def _itd_sift_torch(x, max_iteration, endpoint_mode, store_baselines,
-                    early_exit):
+                    early_exit, linear_backend="auto", level_backend="torch"):
     """The plain loop of the JAX ``_itd_sift_xla``, in its order of
-    operations."""
+    operations.  With ``linear_backend="structural"`` each level is a
+    :func:`linear_baseline_extract_structural` whose forward and adjoint
+    both run ``level_backend`` (``"torch"`` or ``"kernel"``)."""
     levels = max_iteration + 2
 
     def extract(a):
+        if linear_backend == "structural":
+            return linear_baseline_extract_structural(
+                a, endpoint_mode=endpoint_mode, backend=level_backend)
         return linear_baseline_extract(a, endpoint_mode=endpoint_mode,
                                        backend="torch")
 
@@ -199,19 +217,73 @@ def _itd_sift_kernel(x, max_iteration, endpoint_mode, store_baselines,
     )
 
 
+class _KernelSift(torch.autograd.Function):
+    """The kernel sift with the gradient of JAX's kernel sift
+    (``decomp/itd.py:178-187``): the forward runs the kernels; the backward
+    replays the loop with structural levels on the kernels (forward levels
+    and adjoint fills) and differentiates the replay, whose forward equals
+    the kernel forward bit for bit.  ``num_components`` and
+    ``stop_reason`` are not differentiable."""
+
+    @staticmethod
+    def forward(ctx, x, max_iteration, endpoint_mode, store_baselines,
+                early_exit):
+        ctx.args = (max_iteration, endpoint_mode, store_baselines, early_exit)
+        res = _itd_sift_kernel(x, *ctx.args)
+        ctx.save_for_backward(x)
+        ctx.mark_non_differentiable(res.num_components, res.stop_reason)
+        ctx.set_materialize_grads(False)
+        return tuple(res)
+
+    @staticmethod
+    def backward(ctx, g_rot, g_base, _g_ncomp, _g_reason, g_corr):
+        (x,) = ctx.saved_tensors
+        with torch.enable_grad():
+            xr = x.detach().requires_grad_()
+            res = _itd_sift_torch(xr, *ctx.args, linear_backend="structural",
+                                  level_backend="kernel")
+            pairs = [(o, g) for o, g in ((res.rotations, g_rot),
+                                         (res.baselines, g_base),
+                                         (res.correction, g_corr))
+                     if g is not None]
+            gx = None
+            if pairs:
+                (gx,) = torch.autograd.grad([o for o, _ in pairs], xr,
+                                            [g for _, g in pairs],
+                                            allow_unused=True)
+        return gx, None, None, None, None
+
+
 class ITD:
     """Class API mirroring the reference's ``ITD``: construct, call
     ``itd(data)``, then read ``get_rotations()`` / ``get_baselines()``.
 
     ``extrema_detection`` accepts the reference's three options; like the
     reference, only the "matlab" behavior exists.  Unlike the reference's,
-    ``__call__`` works."""
+    ``__call__`` works.
+
+    ``device`` is where the sift runs: the input moves there.  The default
+    is the card, and without one the constructor raises; pass
+    ``device="cpu"`` to run on the CPU.  ``dtype`` is the sift's dtype: the
+    input is cast to it, float32 by default, as JAX's ``ITD`` computes a
+    numpy signal in f32 unless x64 is on; on the card f32 runs the kernels.
+    ``dtype=None`` keeps the input's dtype; a float64 signal then needs
+    ``device="cpu"`` (the kernels are f32-only, and the kernel route raises
+    for any other dtype)."""
 
     def __init__(self, extrema_detection: str = "matlab", *,
-                 endpoint_mode: str = "reference", as_numpy: bool = False):
+                 endpoint_mode: str = "reference", as_numpy: bool = False,
+                 device="cuda", dtype: torch.dtype | None = torch.float32):
         if extrema_detection not in ("simple", "parabol", "matlab"):
             raise ValueError(
                 "Only 'simple', 'matlab', and 'parabol' values supported")
+        self.device = torch.device(device)
+        self.dtype = dtype
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"ITD(device={str(self.device)!r}) needs a CUDA device and "
+                "torch.cuda.is_available() is false; pass device='cpu' to "
+                "run the sift on the CPU")
         self.extrema_detection = extrema_detection
         self.endpoint_mode = endpoint_mode
         self.as_numpy = as_numpy  # convert outputs to host numpy arrays
@@ -225,7 +297,7 @@ class ITD:
         """Sift a single 1-D signal; returns the valid rotation rows
         (components; last row = residual trend) as a ``(n_comp, N)``
         tensor."""
-        x = torch.as_tensor(data)
+        x = torch.as_tensor(data, dtype=self.dtype, device=self.device)
         if x.dim() != 1:
             raise ValueError(
                 "ITD.itd expects a 1-D signal; use itd_sift for batches")

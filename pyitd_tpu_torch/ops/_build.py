@@ -1,10 +1,11 @@
 """Build ``csrc/*.cu`` with ``nvcc`` at first use and load it with ctypes.
 
 The library has a plain C interface (no PyTorch headers), so one build
-takes seconds.  Its file name carries a hash of the sources and the flags,
-so an edit rebuilds and a stale library is never loaded.  The build writes
-to a temporary name and renames it into place, so parallel processes that
-race to build the same library each end with a complete file.
+takes seconds: one ``nvcc -c`` per source, all started together, then one
+link.  Its file name carries a hash of the sources and the flags, so an
+edit rebuilds and a stale library is never loaded.  The build writes to a
+temporary name and renames it into place, so parallel processes that race
+to build the same library each end with a complete file.
 
 Flags: ``-fmad=false`` keeps every ``a*b+c`` in the kernels as a rounded
 multiply and a rounded add, as PyTorch's eager elementwise kernels compute
@@ -20,6 +21,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 __all__ = ["NVCC_FLAGS", "build", "load_library"]
@@ -28,13 +30,14 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+              "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry points of csrc/sift_level.cu: (name, argtypes); each returns the
-# launch's cudaGetLastError() as an int
+# C entry points of csrc/sift_level.cu and csrc/fill_segsum.cu: (name,
+# argtypes); each launcher returns the launch's cudaGetLastError() as an int
 _SIGNATURES = {
     "pyitd_tile_size": (),
     "pyitd_level_summaries": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P),
@@ -43,6 +46,11 @@ _SIGNATURES = {
     "pyitd_sift_level": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _P, _P, _P, _P, _P, _I, _I, _P),
     "pyitd_error_string": (_I,),
+    "pyitd_scan_tile_size": (),
+    "pyitd_scan_state_bytes": (_I,),
+    "pyitd_fill2": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
+    "pyitd_fillv": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "pyitd_segsum": (_I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -73,6 +81,14 @@ def library_path() -> Path:
     return BUILD_DIR / f"libpyitd_sift_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmd: list[str]) -> subprocess.CompletedProcess:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}): "
+                           f"{' '.join(cmd)}\n{proc.stderr}")
+    return proc
+
+
 def build() -> tuple[Path, str]:
     """Compile the kernels if no library for these sources and flags
     exists; returns ``(path, nvcc output)``.  Raises with nvcc's stderr on
@@ -81,21 +97,17 @@ def build() -> tuple[Path, str]:
     if so.exists():
         return so, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stderr}")
-        os.replace(tmp, so)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return so, proc.stdout + proc.stderr
+    cu = [s for s in _sources() if s.suffix == ".cu"]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, s.stem + ".o") for s in cu]
+        with ThreadPoolExecutor(len(cu)) as pool:
+            procs = list(pool.map(_run, (
+                [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-c", str(s), "-o", o]
+                for s, o in zip(cu, objs))))
+        lib = os.path.join(tmp, so.name)
+        procs.append(_run([_nvcc(), *_ARCH, "-shared", "-o", lib, *objs]))
+        os.replace(lib, so)
+    return so, "".join(p.stdout + p.stderr for p in procs)
 
 
 def load_library() -> ctypes.CDLL:

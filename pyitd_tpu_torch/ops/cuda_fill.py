@@ -1,9 +1,11 @@
-"""One sift trip as hand-written CUDA kernels — port of
-``pyitd_tpu/ops/pallas_fill.py`` (K1 ``sift_level_fused_padded``, its XLA
-pre-pass ``level_block_states_fwd``, and K2 ``linear_level_pallas``).
+"""The hand-written CUDA kernels of the sift and its backward — port of
+``pyitd_tpu/ops/pallas_fill.py``: K1 ``sift_level_fused_padded``, its XLA
+pre-pass ``level_block_states_fwd`` and K2 ``linear_level_pallas`` in
+``csrc/sift_level.cu``; K3 ``fill2_pallas``, ``fillv_pallas`` and K4
+``segsum_pallas`` in ``csrc/fill_segsum.cu`` (see each file's header for
+the design).
 
-The kernels live in ``csrc/sift_level.cu`` (see its header for the design).
-A trip is three launches:
+A sift trip is three launches:
 
 * ``level_summaries_cuda(x)``: per (row, tile) last-two knots, first-two
   knots and knot count;
@@ -16,37 +18,53 @@ A trip is three launches:
   (written in place into the caller's ``rotations[level]``) and the
   compensation.
 
+The backward's scans, each one call of three launches (tile summaries, a
+per-row scan over tiles, the seeded apply pass):
+
+* ``fill2_cuda(vals, mask, reverse, strict)``: per sample, (position,
+  value) of the last two marked samples at or before it (reverse: the
+  first two at or after it; ``strict``: strictly), 0 where none;
+* ``fillv_cuda(vals, mask, reverse)``: the same at depth one, value only;
+* ``segsum_cuda(vals, flags, reverse)``: segmented inclusive running sums
+  of one or two channels that reset at flagged samples.
+
 Each wrapper checks its tensors, launches its kernel on PyTorch's current
 stream for a CUDA tensor, and counts the launch in ``LAUNCHES``.  For a CPU
 tensor it runs the plain PyTorch version beside it (``level_summaries``,
-``tile_scan``, ``sift_level``), which compute the same numbers with the same
-tiles; those plain versions run on any device.  A CUDA tensor never reaches
-a plain version through a wrapper.
+``tile_scan``, ``sift_level``, ``fill2``, ``fillv``, ``segsum``); those
+plain versions run on any device.  A CUDA tensor never reaches a plain
+version through a wrapper.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
+from .fill import (backward_fill2_scan, backward_fill_scan,
+                   forward_fill2_scan, forward_fill_scan, prev_index,
+                   shift_left, shift_right)
 from .linear_baseline import interp, knot_mask, knot_value, two_sum_err
 
 __all__ = [
     "TILE", "STOP_A", "STOP_B", "CONT", "LAUNCHES", "reset_launches",
     "TileSummaries", "LevelStates", "SiftCarry", "LevelOut",
     "level_summaries", "tile_scan", "level_states", "sift_level",
-    "stop_flags", "emit_row",
+    "stop_flags", "emit_row", "fill2", "fillv", "segsum",
+    "segsum_error_bound",
     "level_summaries_cuda", "tile_scan_cuda", "level_states_cuda",
-    "sift_level_cuda",
+    "sift_level_cuda", "fill2_cuda", "fillv_cuda", "segsum_cuda",
 ]
 
-TILE = 4096  # samples per tile; csrc/sift_level.cu's TILE (checked at load)
+TILE = 4096  # samples per tile; the TILE of both csrc/*.cu (checked at load)
 
 # stop-flag bits of LevelStates.flags
 STOP_A, STOP_B, CONT = 1, 2, 4
 
 # launches per kernel wrapper, counted where the kernel is launched
-LAUNCHES = {"level_summaries": 0, "tile_scan": 0, "sift_level": 0}
+LAUNCHES = {"level_summaries": 0, "tile_scan": 0, "sift_level": 0,
+            "fill2": 0, "fillv": 0, "segsum": 0}
 
 
 def reset_launches() -> None:
@@ -305,6 +323,92 @@ def sift_level(x: torch.Tensor, states: LevelStates, *,
     return out._replace(comp=comp)
 
 
+def fill2(vals: torch.Tensor, mask: torch.Tensor, reverse: bool = False,
+          strict: bool = False):
+    """Plain version of the ``fill2`` kernel: per sample, ``(p1, v1, p2,
+    v2)``, the int32 positions and the values of the last two marked
+    samples at or before it (``reverse``: the first two at or after it;
+    ``strict``: strictly before / after), nearest first; 0 where fewer
+    marks exist.  ``strict`` equals JAX's call on inputs shifted by one
+    (``linear_baseline.py:391-393``)."""
+    pos = torch.arange(vals.shape[-1], dtype=torch.int32,
+                       device=vals.device).expand(vals.shape)
+    fill = backward_fill2_scan if reverse else forward_fill2_scan
+    (p1, v1), (p2, v2), _ = fill((pos, vals), mask, (0, 0.0))
+    out = (p1, v1, p2, v2)
+    if strict:  # the non-strict fill of the previous sample in scan order
+        shift = shift_left if reverse else shift_right
+        out = tuple(shift(o, 0) for o in out)
+    return out
+
+
+def fillv(vals: torch.Tensor, mask: torch.Tensor, reverse: bool = False):
+    """Plain version of the ``fillv`` kernel: per sample, the value of the
+    last marked sample at or before it (``reverse``: the first at or after
+    it); 0 where none."""
+    fill = backward_fill_scan if reverse else forward_fill_scan
+    return fill((vals,), mask, (0.0,))[0]
+
+
+def _segsum64(v: torch.Tensor, flags: torch.Tensor) -> torch.Tensor:
+    """Forward segmented sums of one channel in f64: differences of running
+    sums of the finite terms, with NaN and infinities placed where an f32
+    sum of the segment would hold them."""
+    start = prev_index(flags).clamp(min=0)  # each sample's segment start
+
+    def seg(a):  # sum of a over [start, t]
+        c = torch.cumsum(a, -1)
+        c = torch.cat([torch.zeros_like(c[..., :1]), c], -1)
+        return c[..., 1:] - torch.gather(c, -1, start)
+
+    s = seg(torch.where(torch.isfinite(v), v, 0).double())
+    nan = seg(torch.isnan(v).long()) > 0
+    pinf = seg((v == math.inf).long()) > 0
+    ninf = seg((v == -math.inf).long()) > 0
+    s = torch.where(pinf, math.inf, torch.where(ninf, -math.inf, s))
+    return torch.where(nan | (pinf & ninf), math.nan, s)
+
+
+def segsum(vals, flags: torch.Tensor, reverse: bool = False):
+    """Plain version of the ``segsum`` kernel: per channel, ``out[t] = v[t]
+    + (flags[t] ? 0 : out[t-1])`` (``reverse``: with ``t+1``), each segment
+    summed in f64 and rounded once.  ``vals`` is a tensor or a tuple of
+    them; the result has the same form."""
+    chans = (vals,) if isinstance(vals, torch.Tensor) else tuple(vals)
+
+    def one(v):
+        if reverse:
+            return _segsum64(v.flip(-1), flags.flip(-1)).flip(-1).to(v.dtype)
+        return _segsum64(v, flags).to(v.dtype)
+
+    out = tuple(one(v) for v in chans)
+    return out[0] if isinstance(vals, torch.Tensor) else out
+
+
+def segsum_error_bound(v: torch.Tensor, flags: torch.Tensor,
+                       reverse: bool = False) -> torch.Tensor:
+    """Per-sample bound on ``|segsum_cuda(v) - segsum(v)|`` for one f32
+    channel, in f64: ``(d + 2) * 2^-24 * m + 3 * n * 2^-53 * M``.
+
+    ``d = 59 + 2 * ceil(ntiles / 32)`` is the most f32 additions a term
+    passes through in the kernel (``csrc/fill_segsum.cu``), so its sum
+    differs from the exact one by at most ``d * 2^-24`` (to first order)
+    times ``m``, the sum of ``|v|`` over the segment up to the sample; the
+    plain version's rounding adds ``2^-24 * m`` and its f64 running sums
+    ``2 * n * 2^-53`` times ``M``, the sum of ``|v|`` over the row up to
+    the sample in scan order.  Where the sum is not finite the two must
+    agree exactly; the bound there is meaningless."""
+    a = torch.where(torch.isfinite(v), v.abs(), 0).double()
+    if reverse:
+        a, flags = a.flip(-1), flags.flip(-1)
+    m, mm = _segsum64(a, flags), torch.cumsum(a, -1)
+    if reverse:
+        m, mm = m.flip(-1), mm.flip(-1)
+    n = v.shape[-1]
+    d = 59 + 2 * math.ceil(_ntiles(n) / 32)
+    return (d + 2) * 2.0 ** -24 * m + 3 * n * 2.0 ** -53 * mm
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -314,10 +418,11 @@ def _lib():
     from ._build import load_library
 
     lib = load_library()
-    if lib.pyitd_tile_size() != TILE:
-        raise RuntimeError(
-            f"csrc/sift_level.cu tiles by {lib.pyitd_tile_size()}, "
-            f"cuda_fill.TILE is {TILE}")
+    for src, size in (("sift_level", lib.pyitd_tile_size()),
+                      ("fill_segsum", lib.pyitd_scan_tile_size())):
+        if size != TILE:
+            raise RuntimeError(f"csrc/{src}.cu tiles by {size}, "
+                               f"cuda_fill.TILE is {TILE}")
     return lib
 
 
@@ -458,3 +563,97 @@ def sift_level_cuda(x: torch.Tensor, states: LevelStates, *,
     _check(code, "sift_level")
     LAUNCHES["sift_level"] += 1
     return LevelOut(base, rot, err, comp_out)
+
+
+def _check_scan(chans, flags: torch.Tensor) -> None:
+    x = chans[0]
+    if x.dim() != 2:
+        raise ValueError(f"expected (rows, n) channels, got {tuple(x.shape)}")
+    _same(x, *chans, dtype=torch.float32, shape=x.shape)
+    _same(x, flags, dtype=torch.bool, shape=x.shape)
+    rows, n = x.shape
+    if rows < 1 or n < 1:
+        raise ValueError(f"the scan kernels take non-empty rows, got "
+                         f"{tuple(x.shape)}")
+    if rows * _ntiles(n) > 2**31 - 1 or n > 2**31 - 1 - TILE:
+        raise ValueError(f"the scan kernels take rows * ceil(n / {TILE}) "
+                         f"< 2^31, got {tuple(x.shape)}")
+
+
+def _scan_scratch(lib, kind: int, x: torch.Tensor) -> torch.Tensor:
+    """One scan state per (row, tile), as bytes (kind: 0 fill2, 1 fillv,
+    2 or 3 segsum with 1 or 2 channels)."""
+    rows, n = x.shape
+    return torch.empty(lib.pyitd_scan_state_bytes(kind) * rows * _ntiles(n),
+                       dtype=torch.uint8, device=x.device)
+
+
+def fill2_cuda(vals: torch.Tensor, mask: torch.Tensor, reverse: bool = False,
+               strict: bool = False):
+    """``(p1, v1, p2, v2)`` of :func:`fill2` for ``vals`` (rows, n) f32 and
+    ``mask`` (rows, n) bool; positions int32."""
+    _check_scan((vals,), mask)
+    if not vals.is_cuda:
+        return fill2(vals, mask, reverse, strict)
+    rows, n = vals.shape
+    pos = torch.empty((2, rows, n), dtype=torch.int32, device=vals.device)
+    val = torch.empty((2, rows, n), dtype=torch.float32, device=vals.device)
+    lib = _lib()
+    scratch = _scan_scratch(lib, 0, vals)
+    with torch.cuda.device(vals.device):
+        code = lib.pyitd_fill2(
+            vals.data_ptr(), mask.data_ptr(), rows, n, _ntiles(n),
+            int(reverse), int(strict), pos[0].data_ptr(), val[0].data_ptr(),
+            pos[1].data_ptr(), val[1].data_ptr(), scratch.data_ptr(),
+            _stream(vals))
+    _check(code, "fill2")
+    LAUNCHES["fill2"] += 1
+    return pos[0], val[0], pos[1], val[1]
+
+
+def fillv_cuda(vals: torch.Tensor, mask: torch.Tensor,
+               reverse: bool = False) -> torch.Tensor:
+    """:func:`fillv` of ``vals`` (rows, n) f32 and ``mask`` (rows, n)
+    bool."""
+    _check_scan((vals,), mask)
+    if not vals.is_cuda:
+        return fillv(vals, mask, reverse)
+    rows, n = vals.shape
+    out = torch.empty_like(vals)
+    lib = _lib()
+    scratch = _scan_scratch(lib, 1, vals)
+    with torch.cuda.device(vals.device):
+        code = lib.pyitd_fillv(vals.data_ptr(), mask.data_ptr(), rows, n,
+                               _ntiles(n), int(reverse), out.data_ptr(),
+                               scratch.data_ptr(), _stream(vals))
+    _check(code, "fillv")
+    LAUNCHES["fillv"] += 1
+    return out
+
+
+def segsum_cuda(vals, flags: torch.Tensor, reverse: bool = False):
+    """:func:`segsum` of one or two (rows, n) f32 channels (a tensor or a
+    tuple, returned in the same form) sharing ``flags`` (rows, n) bool."""
+    chans = (vals,) if isinstance(vals, torch.Tensor) else tuple(vals)
+    if len(chans) not in (1, 2):
+        raise ValueError(f"segsum takes 1 or 2 channels, got {len(chans)}")
+    _check_scan(chans, flags)
+    x = chans[0]
+    if not x.is_cuda:
+        return segsum(vals, flags, reverse)
+    rows, n = x.shape
+    nch = len(chans)
+    out = torch.empty((nch, rows, n), dtype=torch.float32, device=x.device)
+    lib = _lib()
+    scratch = _scan_scratch(lib, 1 + nch, x)
+    second = (chans[1].data_ptr(), out[1].data_ptr()) if nch == 2 \
+        else (None, None)
+    with torch.cuda.device(x.device):
+        code = lib.pyitd_segsum(nch, x.data_ptr(), second[0],
+                                flags.data_ptr(), rows, n, _ntiles(n),
+                                int(reverse), out[0].data_ptr(), second[1],
+                                scratch.data_ptr(), _stream(x))
+    _check(code, "segsum")
+    LAUNCHES["segsum"] += 1
+    outs = tuple(out[i] for i in range(nch))
+    return outs[0] if isinstance(vals, torch.Tensor) else outs

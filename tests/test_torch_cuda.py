@@ -1,17 +1,24 @@
-"""The sift kernels against their plain PyTorch versions on an NVIDIA GPU:
+"""The kernels against their plain PyTorch versions on an NVIDIA GPU:
 ``chip_smoke.py``'s phase 2 under pytest.  Needs a card and nvcc, so it is
 marked ``cuda`` and skips where ``torch.cuda.is_available()`` is false.
-Run on the card with ``python -m pytest tests/test_torch_cuda.py -q``.
+Run on the card with ``python -m pytest --noconftest tests/test_torch_cuda.py
+-q``.
 
-The comparison is bitwise (NaN equal to NaN): the kernels are built with
-``-fmad=false`` and PyTorch's eager kernels contract nothing across ops.
+The sift kernels and the fills are bitwise (NaN equal to NaN): the kernels
+are built with ``-fmad=false`` and PyTorch's eager kernels contract nothing
+across ops.  ``segsum`` is exact on integer-valued inputs and within
+``segsum_error_bound`` on real ones; the level adjoint on the kernels is
+held against the plain route as ``tests/test_pallas_fill.py:394-404`` holds
+JAX's two routes; the sift gradient against the plain structural route.
 """
 import numpy as np
 import pytest
 import torch
 
-from pyitd_tpu_torch import itd_sift, linear_baseline_extract
+from pyitd_tpu_torch import ITD, itd_sift, linear_baseline_extract
 from pyitd_tpu_torch.ops import cuda_fill
+from pyitd_tpu_torch.ops.linear_baseline import (knot_mask,
+                                                 structural_level_bwd)
 
 pytestmark = pytest.mark.cuda
 
@@ -68,8 +75,132 @@ def test_kernel_sift_is_bitwise_plain(device, name, x, mode):
         assert bitwise_equal(getattr(la, f), getattr(lb, f)), f
 
 
+def test_itd_class_runs_numpy_f64_on_the_kernels(device):
+    """``ITD()`` casts a numpy f64 signal to f32 and sifts it on the
+    kernels, bitwise the plain f32 sift."""
+    t = np.linspace(0, 2 * np.pi, 9000)
+    s = np.sin(20 * t * (1 + 0.2 * t)) + t ** 2 + np.sin(13 * t)
+    cuda_fill.reset_launches()
+    comps = ITD()(s)
+    assert cuda_fill.LAUNCHES["sift_level"] == 11 + 3
+    want = itd_sift(torch.from_numpy(s).float().to(device), 11,
+                    backend="torch")
+    assert bitwise_equal(comps, want.rotations[:int(want.num_components)])
+    with pytest.raises(ValueError, match="f32"):
+        ITD(dtype=None)(s)
+
+
 def test_kernel_route_refuses_what_it_cannot_take(device):
     with pytest.raises(ValueError, match="f32"):
         itd_sift(torch.zeros(2, 64, dtype=torch.float64, device=device), 2)
-    with pytest.raises(NotImplementedError, match="backward"):
-        itd_sift(torch.zeros(2, 64, device=device, requires_grad=True), 2)
+    with pytest.raises(NotImplementedError, match="structural"):
+        linear_baseline_extract(
+            torch.zeros(2, 64, device=device, requires_grad=True))
+
+
+def _masks(x):
+    """The knot mask, and random marks with seams, an empty row and a
+    full one."""
+    rng = np.random.default_rng(x.shape[1])
+    m = rng.random(x.shape) < 0.01
+    m[0, [i for i in (0, 4095, 4096, 4097, 8191, 8192) if i < x.shape[1]]] \
+        = True
+    m[-1] = False
+    if x.shape[0] > 2:
+        m[1] = True
+    return knot_mask(x), torch.from_numpy(m).to(x.device)
+
+
+@pytest.mark.parametrize("name,x", CASES, ids=[c[0] for c in CASES])
+def test_fills_are_bitwise_plain(device, name, x):
+    xt = torch.from_numpy(x).to(device)
+    for mask in _masks(xt):
+        for reverse in (False, True):
+            for strict in (False, True):
+                got = cuda_fill.fill2_cuda(xt, mask, reverse, strict)
+                want = cuda_fill.fill2(xt, mask, reverse, strict)
+                for a, b in zip(got, want):
+                    assert bitwise_equal(a, b), (reverse, strict)
+            assert bitwise_equal(cuda_fill.fillv_cuda(xt, mask, reverse),
+                                 cuda_fill.fillv(xt, mask, reverse))
+
+
+@pytest.mark.parametrize("name,x", CASES, ids=[c[0] for c in CASES])
+def test_segsum_exact_on_integers_and_within_bound(device, name, x):
+    xt = torch.from_numpy(x).to(device)
+    rng = np.random.default_rng(7)
+    ints = torch.from_numpy(rng.integers(-8, 9, size=(2,) + x.shape).astype(
+        np.float32)).to(device)
+    for flags in _masks(xt):
+        for reverse in (False, True):
+            for nch in (1, 2):
+                got = cuda_fill.segsum_cuda(tuple(ints[:nch]), flags, reverse)
+                want = cuda_fill.segsum(tuple(ints[:nch]), flags, reverse)
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b)
+            got = cuda_fill.segsum_cuda(xt, flags, reverse)
+            want = cuda_fill.segsum(xt, flags, reverse)
+            bound = cuda_fill.segsum_error_bound(xt, flags, reverse)
+            fin = torch.isfinite(want)
+            assert bitwise_equal(got[~fin], want[~fin])
+            err = (got.double() - want.double()).abs()[fin]
+            assert bool((err <= bound[fin]).all())
+
+
+def test_level_adjoint_on_kernels_against_plain(device):
+    rng = np.random.default_rng(11)
+    n = 8192 + 130
+    t = np.linspace(0, 4 * np.pi, n)
+    sig = np.stack([np.sin(9 * t) + 0.2 * rng.standard_normal(n),
+                    rng.standard_normal(n)])
+    x = torch.from_numpy(sig.astype(np.float32)).to(device)
+    cts = [torch.from_numpy(rng.normal(size=sig.shape).astype(np.float32))
+           .to(device) for _ in range(3)]
+    cuda_fill.reset_launches()
+    g_ker = structural_level_bwd(x, *cts, "reference")  # auto: the kernels
+    assert cuda_fill.LAUNCHES["fill2"] == 2
+    assert cuda_fill.LAUNCHES["segsum"] == 4
+    g_tor = structural_level_bwd(x, *cts, "reference", fills="torch")
+    torch.testing.assert_close(g_ker, g_tor, rtol=2e-4, atol=2e-4)
+    g_true = structural_level_bwd(x.double(), *(c.double() for c in cts),
+                                  "reference", fills="torch")
+    err_ker = (g_ker.double() - g_true).abs().max().item()
+    err_tor = (g_tor.double() - g_true).abs().max().item()
+    assert err_ker <= err_tor * 1.5 + 1e-6, (err_ker, err_tor)
+
+
+def test_sift_grad_on_kernels_against_plain_structural(device, monkeypatch):
+    """Against the plain structural route to 1e-4 max|g|; against the same
+    route with the scan wrappers swapped for their plain versions to
+    5e-5 max|g| (``chip_smoke.py``'s phase 2 limit)."""
+    x = torch.from_numpy(CASES[0][1]).to(device)
+    for kw in ({}, {"store_baselines": False}, {"early_exit": True}):
+        xk = x.clone().requires_grad_()
+        cuda_fill.reset_launches()
+        rk = itd_sift(xk, 5, **kw)
+        ((rk.rotations ** 2).sum() + 0.7 * rk.correction.sum()).backward()
+        levels = int(rk.num_components.max()) if kw.get("early_exit") \
+            else 5 + 2
+        assert cuda_fill.LAUNCHES["fill2"] == 2 * levels, kw
+        assert cuda_fill.LAUNCHES["segsum"] == 4 * levels, kw
+        with monkeypatch.context() as m:
+            m.setattr(cuda_fill, "fill2_cuda", cuda_fill.fill2)
+            m.setattr(cuda_fill, "segsum_cuda", cuda_fill.segsum)
+            xs = x.clone().requires_grad_()
+            rs = itd_sift(xs, 5, **kw)
+            ((rs.rotations ** 2).sum() + 0.7 * rs.correction.sum()).backward()
+        ok = ~torch.isnan(xs.grad)
+        assert bitwise_equal(torch.isnan(xk.grad), ~ok)
+        assert (xk.grad[ok] - xs.grad[ok]).abs().max() \
+            <= 5e-5 * xs.grad[ok].abs().max()
+        xp = x.clone().requires_grad_()
+        rp = itd_sift(xp, 5, backend="torch", linear_backend="structural",
+                      **kw)
+        for f in rk._fields:
+            assert bitwise_equal(getattr(rk, f).detach(),
+                                 getattr(rp, f).detach()), f
+        ((rp.rotations ** 2).sum() + 0.7 * rp.correction.sum()).backward()
+        gk, gp = xk.grad, xp.grad
+        assert bitwise_equal(torch.isnan(gk), torch.isnan(gp))
+        ok = ~torch.isnan(gp)
+        assert (gk[ok] - gp[ok]).abs().max() <= 1e-4 * gp[ok].abs().max()

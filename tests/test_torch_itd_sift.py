@@ -3,14 +3,16 @@
 * f64 demo chirp against ``reference.itd_ref.itd_sift`` to 1e-11, counts
   and stop reasons exact;
 * batched, flat, ``store_baselines=False``, ``early_exit``, NaN and the
-  ``ITD`` class quirks against JAX ``backend="xla"`` (f64, 1e-12);
+  ``ITD`` class quirks against JAX ``backend="xla"`` (f64, 1e-12); the
+  class runs on the card unless given ``device="cpu"``;
 * f32 (2, 9000) with a NaN pair against JAX ``backend="pallas_fused"`` in
   interpret mode, level by level on JAX's own baselines (``1e-5 * max|x|``:
   XLA on the CPU fuses ``a*b+c`` into an FMA in f32, PyTorch does not, and
   a last-bit difference can flip a knot tie), with the port's own
   compensated reconstruction exact to 1e-10 in f64;
 * the kernel route on the CPU (the wrappers' plain versions) bit for bit
-  against the plain loop, with the launch counters left at 0;
+  against the plain loop, with the launch counters left at 0, and its
+  gradient against the plain structural route;
 * ``import pyitd_tpu_torch`` loads no JAX.
 """
 import os
@@ -118,25 +120,45 @@ def test_matches_jax_xla_loop(name, x, max_it, kw):
 def test_class_api_quirks_match_jax():
     for s in (demo_chirp(), np.linspace(0.0, 1.0, 64)):
         for max_it in (11, 2):
-            j, t = JaxITD(), ITD()
+            j, t = JaxITD(), ITD(device="cpu", dtype=torch.float64)
             jr, tr = j.itd(s, max_iteration=max_it), t(s, max_iteration=max_it)
             np.testing.assert_allclose(tr.numpy(), np.asarray(jr), atol=1e-12,
                                        rtol=0)
             np.testing.assert_allclose(t.get_baselines().numpy(),
                                        np.asarray(j.get_baselines()),
                                        atol=1e-12, rtol=0)
-    itd = ITD(as_numpy=True)
+    itd = ITD(as_numpy=True, device="cpu", dtype=None)
     rot = itd.itd(demo_chirp())
     assert isinstance(rot, np.ndarray)
     comps, residual = itd.get_rotations_and_residual()
     np.testing.assert_allclose(comps.sum(0) + residual, demo_chirp(),
                                atol=1e-9)
     with pytest.raises(ValueError):
-        ITD().itd(np.zeros((2, 8)))
+        ITD(device="cpu").itd(np.zeros((2, 8)))
     with pytest.raises(ValueError):
-        ITD("bogus")
+        ITD("bogus", device="cpu")
     with pytest.raises(ValueError, match="No IPR"):
-        ITD().get_rotations()
+        ITD(device="cpu").get_rotations()
+
+
+def test_class_runs_on_the_card_unless_asked_for_the_cpu():
+    """``ITD()`` sifts on the card; without one it raises rather than run
+    on the CPU.  With ``device="cpu"`` it moves its input there, cast to
+    f32 unless given another ``dtype`` (``None`` keeps the input's)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ITD()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ITD(device="cuda:0")
+    itd = ITD(device="cpu")
+    assert itd.device == torch.device("cpu")
+    rot = itd.itd(demo_chirp())
+    assert rot.device.type == "cpu" and rot.dtype == torch.float32
+    want = itd_sift(torch.from_numpy(demo_chirp()).float(), 11)
+    assert torch.equal(rot, want.rotations[:int(want.num_components)])
+    rot = ITD(device="cpu", dtype=None).itd(torch.from_numpy(demo_chirp()))
+    assert rot.dtype == torch.float64
 
 
 def test_f32_level_by_level_against_pallas_fused():
@@ -218,12 +240,25 @@ def test_compensated_correction_f32_exact():
 
 
 def test_plain_route_is_differentiable_and_kernel_route_refuses_grad():
+    """Both sift routes take a gradient; the kernel LEVEL has no backward of
+    its own (as JAX's pallas level has none) and still refuses one."""
     s = torch.from_numpy(demo_chirp(128)).requires_grad_()
     r = itd_sift(s, 3, store_baselines=False)
     (r.rotations[0] ** 2).sum().backward()
     assert torch.isfinite(s.grad).all()
-    with pytest.raises(NotImplementedError, match="backward"):
-        itd_sift(s.float().detach().requires_grad_(), 3, backend="kernel")
+    sf = s.float().detach().requires_grad_()
+    rk = itd_sift(sf, 3, backend="kernel")
+    rp = itd_sift(sf, 3, backend="torch", linear_backend="structural")
+    (gk,) = torch.autograd.grad((rk.rotations[0] ** 2).sum(), sf)
+    (gp,) = torch.autograd.grad((rp.rotations[0] ** 2).sum(), sf)
+    assert torch.isfinite(gk).all()
+    np.testing.assert_allclose(gk.numpy(), gp.numpy(), rtol=0,
+                               atol=1e-4 * gp.abs().max().item())
+    assert not rk.num_components.requires_grad
+    with torch.no_grad():
+        assert not itd_sift(sf, 3, backend="kernel").rotations.requires_grad
+    with pytest.raises(NotImplementedError, match="structural"):
+        linear_baseline_extract(sf, backend="kernel")
     with pytest.raises(ValueError, match="f32"):
         itd_sift(s.detach(), 3, backend="kernel")
     with pytest.raises(ValueError, match="backend"):
