@@ -23,7 +23,13 @@ Phases (each raises on failure, so any failure exits non-zero):
    within ``segsum_error_bound`` on real ones; the level adjoint on the
    kernels against the plain route (rtol = atol = 2e-4, and no more than
    1.5x the plain route's error against an f64 truth, plus 1e-6); the
-   ``ITD`` class on a numpy float64 signal through the sift kernels;
+   ``ITD`` class on a numpy float64 signal through the sift kernels; the
+   cubic tier (``cubic_baseline_extract``, ``eval_backend="fills"``) on
+   the same edge cases and its own (a row across tiles and SPIKE blocks,
+   short rows, the degenerate rows, the pass-through guard, f64 in and
+   out): each kernel (K5-K8) bitwise against its plain version on the
+   route's own inputs, and the route against the plain route (every
+   wrapper swapped for its plain version) bitwise;
 3. the main path at full size: the bench signal, 8 x 1,000,000 f32,
    ``itd_sift(x, 8, store_baselines=False)`` (10 levels), with every kernel
    launch counted, and the compensated reconstruction
@@ -46,7 +52,18 @@ Phases (each raises on failure, so any failure exits non-zero):
    route and against plain scans, the planted faults rejected;
 7. each kernel against its plain version at the main path's shapes, with
    its device time, the plain version's, and its bound (bytes over the
-   card's 3.35 TB/s, or f32 operations over its 67 TFLOP/s).
+   card's 3.35 TB/s, or f32 operations over its 67 TFLOP/s); the cubic
+   kernels K5-K8 likewise after phase 8, on the inputs the cubic level
+   gave them;
+8. the cubic level at full size: ``cubic_baseline_extract`` of the bench
+   signal, 8 x 1,000,000 f32, ``capacity=n+2``, ``min_extrema=0``, with
+   every kernel launch counted; each kernel bitwise against its plain
+   version and the route against the plain route; the f32 baseline
+   against the f64 gather route within ``CUBIC_F64_REL`` of its largest
+   magnitude; the kernel and plain routes timed (median of 10), device
+   busy time, idle share and top device kernels, the interface solve
+   alone; the gradient of ``sum(rotation^2)`` (autograd of the gather
+   route), finite, timed forward + backward, and its peak memory.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -66,6 +83,9 @@ SRC = {k: "pyitd_tpu_torch/csrc/sift_level.cu"
        for k in ("level_summaries", "tile_scan", "sift_level")}
 SRC.update({k: "pyitd_tpu_torch/csrc/fill_segsum.cu"
             for k in ("fill2", "fillv", "segsum")})
+SRC.update({k: "pyitd_tpu_torch/csrc/cubic.cu"
+            for k in ("cubic_ksite", "cubic_neighbors", "spike_backsub_eval")})
+SRC["spike_factors"] = "pyitd_tpu_torch/csrc/spike.cu"
 REPLACES = {
     "level_summaries": "pyitd_tpu/ops/pallas_fill.py:1398",
     "tile_scan": "pyitd_tpu/ops/pallas_fill.py:1398",
@@ -73,7 +93,15 @@ REPLACES = {
     "fill2": "pyitd_tpu/ops/pallas_fill.py:590",
     "fillv": "pyitd_tpu/ops/pallas_fill.py:363",
     "segsum": "pyitd_tpu/ops/pallas_fill.py:503",
+    "cubic_ksite": "pyitd_tpu/ops/pallas_fill.py:1590",
+    "cubic_neighbors": "pyitd_tpu/ops/pallas_fill.py:1691",
+    "spike_factors": "pyitd_tpu/ops/pallas_spike.py:176",
+    "spike_backsub_eval": "pyitd_tpu/ops/pallas_spike.py:262",
 }
+# The cubic level's f32 baseline against the f64 gather route, as a
+# fraction of max|baseline|: the bar of the JAX tests
+# (tests/test_cubic.py:195, 248-253).
+CUBIC_F64_REL = 2e-6
 MAIN_SHAPE, MAIN_MAX_IT = (8, 1_000_000), 8
 EEG_SHAPE, EEG_MAX_IT = (256, 16384), 8
 TRAIN_MAX_IT, TRAIN_STEPS = 6, 5
@@ -111,8 +139,9 @@ def bitwise_equal(a, b) -> bool:
 
     if a.shape != b.shape or a.dtype != b.dtype:
         return False
-    if a.dtype == torch.float32:
-        same = a.view(torch.int32) == b.view(torch.int32)
+    bits = {torch.float32: torch.int32, torch.float64: torch.int64}
+    if a.dtype in bits:
+        same = a.view(bits[a.dtype]) == b.view(bits[a.dtype])
         return bool((same | (torch.isnan(a) & torch.isnan(b))).all())
     return bool((a == b).all())
 
@@ -172,6 +201,23 @@ def device_ms(fn, reps: int = 5) -> tuple[float, dict]:
             by_name[e.key] = us / 1e3 / reps
     total = sum(by_name.values())
     return (total if total > 0 else float("nan")), by_name
+
+
+def aten_ops(fn) -> int:
+    """The number of ATen operator calls ``fn`` makes (views included):
+    the host's share of a chain of small PyTorch ops."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        calls = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.calls += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.calls
 
 
 def kernel_label(name: str) -> str:
@@ -403,18 +449,20 @@ FAULTS = {
 
 
 @contextlib.contextmanager
-def swapped(fns: dict):
-    """Run with the ``cuda_fill`` functions named in ``fns`` replaced."""
+def swapped(fns: dict, module=None):
+    """Run with the functions named in ``fns`` replaced in ``module``
+    (default ``cuda_fill``)."""
     from pyitd_tpu_torch.ops import cuda_fill as cf
 
-    real = {k: getattr(cf, k) for k in fns}
+    module = cf if module is None else module
+    real = {k: getattr(module, k) for k in fns}
     for k, fn in fns.items():
-        setattr(cf, k, fn)
+        setattr(module, k, fn)
     try:
         yield
     finally:
         for k, fn in real.items():
-            setattr(cf, k, fn)
+            setattr(module, k, fn)
 
 
 def plain_scans():
@@ -441,6 +489,259 @@ def sift_grad(x, max_iteration, **kw):
     return xg.grad
 
 
+# ---- the cubic tier ----
+
+def cubic_cases():
+    """Phase 2's cases, then the cubic tier's own: a row across tiles and
+    SPIKE blocks, short rows, the degenerate rows of
+    tests/test_cubic.py:312-320, and the pass-through guard (each (name,
+    f32 array, min_extrema))."""
+    for name, xn in phase2_cases():
+        yield name, xn, 0
+    rng = np.random.default_rng(4)
+    n = 3 * 4096 + 17
+    t = np.linspace(0, 6 * np.pi, n)
+    yield f"tiles and SPIKE blocks (2, {n})", np.stack([
+        np.sin(40 * t) + 0.3 * rng.normal(size=n),
+        rng.normal(size=n)]).astype(np.float32), 0
+    for n in (64, 300):
+        yield f"short (2, {n})", rng.normal(size=(2, n)).astype(np.float32), 0
+    n = 32
+    tt = np.arange(n, dtype=np.float64)
+    for name, sig in {
+            "tent": np.minimum(tt, n - 1 - tt),
+            "asym_tent": np.where(tt < 9, tt, (n - 1 - tt) * 9.0 / (n - 10)),
+            "monotone": tt * 1.7,
+            "constant": np.ones(n),
+            "two_extrema": np.sin(2 * np.pi * tt / 20),
+            "two_sample": np.array([1.0, 2.0])}.items():
+        yield f"degenerate {name} (1, {sig.size})", \
+            sig[None].astype(np.float32), 0
+    t = np.linspace(0, 6, 256)
+    yield "pass-through guard (2, 256)", np.stack(
+        [np.sin(t), np.sin(40 * t)]).astype(np.float32), 10
+
+
+@contextlib.contextmanager
+def plain_cubic():
+    """The cubic route with every kernel wrapper it calls (the sift
+    pre-pass's too) swapped for its plain version."""
+    from pyitd_tpu_torch.ops import cuda_cubic as cc
+    from pyitd_tpu_torch.ops import cuda_fill as cf
+
+    with swapped({"level_states_cuda": cf.level_states}), \
+            swapped(cc.PLAIN, cc):
+        yield
+
+
+def _tensors(out):
+    return tuple(out) if isinstance(out, tuple) else (out,)
+
+
+@contextlib.contextmanager
+def recorded_cubic(calls: dict):
+    """The cubic kernel wrappers, each holding its output bitwise against
+    its plain version on the same inputs (raises on a difference) and
+    recording ``(args, output, max abs err)`` in ``calls[name]``."""
+    from pyitd_tpu_torch.ops import cuda_cubic as cc
+
+    real = {k: getattr(cc, k) for k in cc.PLAIN}
+
+    def wrap(k):
+        def fn(*args):
+            out = real[k](*args)
+            pairs = list(zip(_tensors(out), _tensors(cc.PLAIN[k](*args))))
+            err = max(max_abs_err(a, b) for a, b in pairs)
+            if not all(bitwise_equal(a, b) for a, b in pairs):
+                raise AssertionError(f"{k}: kernel differs from its plain "
+                                     f"version, max abs err {err}")
+            calls[k] = (args, out, err)
+            return out
+        return fn
+
+    with swapped({k: wrap(k) for k in real}, cc):
+        yield
+
+
+def check_cubic(name, x, min_extrema):
+    """``cubic_baseline_extract(x, n + 2, eval_backend="fills")`` on the
+    card: one launch of each cubic kernel, each bitwise against its plain
+    version, the route bitwise against the plain route.  Returns the
+    route's result."""
+    from pyitd_tpu_torch import cubic_baseline_extract
+    from pyitd_tpu_torch.ops import cuda_cubic as cc
+
+    def run():
+        return cubic_baseline_extract(x, x.shape[-1] + 2,
+                                      min_extrema=min_extrema,
+                                      eval_backend="fills")
+
+    cc.reset_launches()
+    with recorded_cubic({}):
+        got = run()
+    launches = dict(cc.LAUNCHES)
+    if launches != {k: 1 for k in launches}:
+        raise AssertionError(f"cubic {name}: launches {launches}")
+    with plain_cubic():
+        want = run()
+    for f in got._fields:
+        if not bitwise_equal(getattr(got, f), getattr(want, f)):
+            raise AssertionError(
+                f"cubic {name}: {f} differs from the plain route, max abs "
+                f"err {max_abs_err(getattr(got, f), getattr(want, f))}")
+    if got.baseline.dtype != x.dtype or got.rotation.dtype != x.dtype:
+        raise AssertionError(f"cubic {name}: {got.baseline.dtype} out for "
+                             f"{x.dtype} in")
+    return got
+
+
+def phase2_cubic(dev) -> None:
+    """Phase 2's cubic cases on the card."""
+    import torch
+
+    for name, xn, me in cubic_cases():
+        x = torch.from_numpy(xn).to(dev)
+        r = check_cubic(name, x, me)
+        guard = ""
+        if me:
+            held = r.num_extrema < me
+            if not (held.any() and bool(
+                    (r.baseline[held] == x[held]).all())
+                    and bool((r.rotation[held] == 0).all())):
+                raise AssertionError(f"cubic {name}: pass-through guard")
+            guard = f", pass-through on rows {held.nonzero()[:, 0].tolist()}"
+        print(f"[2] cubic {name}: K5-K8 one launch each, each bitwise its "
+              f"plain version, the route bitwise the plain route; "
+              f"num_extrema {r.num_extrema.tolist()}{guard}", flush=True)
+    name, xn = next(phase2_cases())
+    check_cubic(f"{name} f64", torch.from_numpy(xn).double().to(dev), 0)
+    print(f"[2] cubic {name} in f64: f64 out, bitwise the plain route",
+          flush=True)
+
+
+def phase8_cubic(x, card: str):
+    """The cubic level at full size; returns its launches and the calls
+    ``recorded_cubic`` saw (each kernel's inputs and output)."""
+    import torch
+    from pyitd_tpu_torch import cubic_baseline_extract
+    from pyitd_tpu_torch.ops import cuda_cubic as cc
+    from pyitd_tpu_torch.ops import cuda_fill as cf
+
+    rows, n = x.shape
+    cap = n + 2
+
+    def level(xx):
+        return cubic_baseline_extract(xx, cap, min_extrema=0,
+                                      eval_backend="fills")
+
+    torch.cuda.synchronize()
+    cc.reset_launches()
+    cf.reset_launches()
+    res = level(x)
+    torch.cuda.synchronize()
+    launches, sift = dict(cc.LAUNCHES), dict(cf.LAUNCHES)
+    # the sift pre-pass seeds K5 and K6: one level_summaries, one tile_scan
+    want_sift = {k: int(k in ("level_summaries", "tile_scan")) for k in sift}
+    if launches != {k: 1 for k in launches} or sift != want_sift:
+        raise AssertionError(f"cubic 8x1M launches {launches}, sift kernels "
+                             f"{sift}")
+    for f in ("baseline", "rotation"):
+        v = getattr(res, f)
+        if tuple(v.shape) != (rows, n) or not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"cubic 8x1M: {f} not finite or shaped "
+                                 f"{tuple(v.shape)}")
+    calls = {}
+    with recorded_cubic(calls):
+        again = level(x)
+    with plain_cubic():
+        plain = level(x)
+    for f in res._fields:
+        for other, what in ((again, "a second run"), (plain, "the plain "
+                                                      "route")):
+            if not bitwise_equal(getattr(res, f), getattr(other, f)):
+                raise AssertionError(
+                    f"cubic 8x1M: {f} differs from {what}, max abs err "
+                    f"{max_abs_err(getattr(res, f), getattr(other, f))}")
+    del again, plain
+    print(f"[8] cubic 8x1M (capacity n+2, min_extrema=0): launches "
+          f"{launches}, sift pre-pass {sift}; each kernel bitwise its plain "
+          f"version, the route bitwise the plain route; num_extrema "
+          f"{res.num_extrema.tolist()}", flush=True)
+
+    g64 = cubic_baseline_extract(x.double(), cap, min_extrema=0,
+                                 eval_backend="gather")
+    if not torch.equal(g64.num_extrema, res.num_extrema):
+        raise AssertionError("cubic 8x1M: extrema counts differ from the "
+                             "f64 gather route")
+    scale = float(g64.baseline.abs().max())
+    rel = float((res.baseline.double() - g64.baseline).abs().max()) / scale
+    del g64
+    print(f"[8] cubic 8x1M f32 baseline against the f64 gather route: max "
+          f"abs diff {rel!r} of max|baseline| {scale!r} (limit "
+          f"{CUBIC_F64_REL})", flush=True)
+    if not rel <= CUBIC_F64_REL:
+        raise AssertionError("cubic 8x1M: f32 baseline beyond its limit "
+                             "against f64")
+
+    k_ms = cuda_times(lambda: level(x))
+    with plain_cubic():
+        p_ms = cuda_times(lambda: level(x), warmup=1)
+        p_dms, p_by = device_ms(lambda: level(x), reps=3)
+    k_dms, k_by = device_ms(lambda: level(x))
+    for route, times, dms, by_name in (("kernel", k_ms, k_dms, k_by),
+                                       ("plain", p_ms, p_dms, p_by)):
+        ms = statistics.median(times)
+        print(f"[8] cubic 8x1M {route} route: {ms:.4f} ms/level (CUDA "
+              f"events, median of {len(times)}, min {times[0]:.4f}, max "
+              f"{times[-1]:.4f}), {rows * n / ms / 1e3:.2f} Msamp/s; device "
+              f"busy {dms:.4f} ms/level, idle share {1 - dms / ms:.3f}  "
+              f"[{card}]", flush=True)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        print(f"[8]   top device kernels, {route} route (ms/level): "
+              + "; ".join(f"{kernel_label(k)} {v:.4f}" for k, v in top),
+              flush=True)
+    factors = calls["spike_factors_cuda"][1]
+    i_ms = cuda_times(lambda: cc.spike_interface(factors))
+    i_dms, _ = device_ms(lambda: cc.spike_interface(factors))
+    i_ops = aten_ops(lambda: cc.spike_interface(factors))
+    print(f"[8] interface solve alone ({rows} x "
+          f"{factors.shape[-1] // cc.SPIKE_BLK} blocks): "
+          f"{statistics.median(i_ms):.4f} ms (CUDA events, median of "
+          f"{len(i_ms)}), device busy {i_dms:.4f} ms, {i_ops} ATen operator "
+          f"calls  [{card}]", flush=True)
+
+    xg = x.clone().requires_grad_()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    cc.reset_launches()
+    (level(xg).rotation ** 2).sum().backward()
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    grad_launches = dict(cc.LAUNCHES)
+    if grad_launches != launches:
+        raise AssertionError(f"cubic 8x1M gradient launches {grad_launches}")
+    if not bool(torch.isfinite(xg.grad).all()):
+        raise AssertionError("cubic 8x1M: non-finite gradient")
+    g_max = float(xg.grad.abs().max())
+
+    def fwd_bwd():
+        xg.grad = None
+        (level(xg).rotation ** 2).sum().backward()
+
+    fb_ms = cuda_times(fwd_bwd, warmup=1)
+    fb_dms, _ = device_ms(fwd_bwd, reps=3)
+    fb = statistics.median(fb_ms)
+    print(f"[8] cubic 8x1M gradient of sum(rotation^2): finite, max|g| "
+          f"{g_max!r}; forward + backward {fb:.4f} ms (CUDA events, median "
+          f"of {len(fb_ms)}, min {fb_ms[0]:.4f}, max {fb_ms[-1]:.4f}), "
+          f"{fb / statistics.median(k_ms):.2f}x the forward; device busy "
+          f"{fb_dms:.4f} ms, idle share {1 - fb_dms / fb:.3f}; peak memory "
+          f"{peak_gb:.3f} GB, {peak_gb - held_gb:.3f} GB above the "
+          f"{held_gb:.3f} GB held before it  [{card}]", flush=True)
+    return launches, calls
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     """The least time in ms for the work, and what bounds it."""
     t_b, t_f = nbytes / HBM_BPS * 1e3, flops / F32_FLOPS * 1e3
@@ -456,6 +757,7 @@ def main() -> int:
     from pyitd_tpu_torch import ITD, itd_sift, linear_baseline_extract
     from pyitd_tpu_torch.examples import train_through_itd as trainer
     from pyitd_tpu_torch.ops import _build
+    from pyitd_tpu_torch.ops import cuda_cubic as cc
     from pyitd_tpu_torch.ops import cuda_fill as cf
     from pyitd_tpu_torch.ops.fill import shift_left
     from pyitd_tpu_torch.ops.linear_baseline import knot_mask
@@ -577,6 +879,7 @@ def main() -> int:
     print(f"[2] ITD()(numpy float64, 9000): {comps.shape[0]} components in "
           f"f32 on the kernels, bitwise the plain f32 sift; launches "
           f"{itd_launches}", flush=True)
+    phase2_cubic(dev)
 
     # ---- phase 3: the main path at full size ----
     xn = bench_signal(*MAIN_SHAPE)
@@ -921,6 +1224,32 @@ def main() -> int:
           2 * rows * n, grad_launches["segsum"], exact=False)
     print(f"[7] launches: forward sift {launches}; forward + backward "
           f"{grad_launches}", flush=True)
+
+    # ---- phase 8: the cubic level at full size ----
+    cubic_launches, calls = phase8_cubic(x, card)
+
+    # phase 7's rows for the cubic kernels, on the inputs the cubic level
+    # gave them.  Bytes: each input read once, each output written once;
+    # operations counted from the kernels' sources.
+    nt = -(-n // cf.TILE)
+    npad = calls["spike_factors_cuda"][1].shape[-1]
+    rounds = cc.SPIKE_BLK.bit_length() - 1  # PCR rounds per SPIKE block
+    for name, nbytes, flops in (
+            ("cubic_ksite", 8 * rows * n + 32 * rows * nt + 8 * rows,
+             11 * rows * n),
+            ("cubic_neighbors", 32 * rows * n + 16 * rows * nt,
+             2 * rows * n),
+            ("spike_factors", 17 * rows * n + 24 * rows * npad,
+             (68 * rounds + 32) * rows * npad),
+            ("spike_backsub_eval",
+             60 * rows * n + 12 * rows * (npad // cc.SPIKE_BLK) + 16 * rows,
+             31 * rows * n)):
+        key = name + "_cuda"
+        args, _, err = calls[key]
+        entry(name, err, lambda k=key, a=args: getattr(cc, k)(*a),
+              lambda k=key, a=args: cc.PLAIN[k](*a), nbytes, flops,
+              cubic_launches[name])
+    del calls
 
     print(json.dumps({"kernels": entries}))
     print(card)

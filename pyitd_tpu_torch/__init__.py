@@ -1,11 +1,13 @@
 """PyTorch / CUDA port of ``pyitd_tpu``.
 
-The canonical ITD sift with its hand-written Hopper kernels
-(``csrc/sift_level.cu``).  Module names mirror the JAX package's, and the
-public names below are those of ``pyitd_tpu/__init__.py``.  This package
-imports ``torch`` and never ``jax``.
+The canonical ITD sift and the cubic-spline baseline tier, with their
+hand-written Hopper kernels (``csrc/*.cu``).  Module names mirror the JAX
+package's, and the public names below are those of
+``pyitd_tpu/__init__.py``.  This package imports ``torch`` and never
+``jax``.
 """
 from .decomp.itd import ITD, STOP_BUDGET, STOP_FLAT, SiftResult, itd_sift
+from .ops.cubic_baseline import cubic_baseline_extract
 from .ops.extrema import count_extrema, extrema_mask, extrema_masks
 from .ops.linear_baseline import linear_baseline_extract
 from .utils.summation import neumaier_sum, reconstruction_error
@@ -17,6 +19,7 @@ __all__ = [
     "STOP_FLAT",
     "STOP_BUDGET",
     "linear_baseline_extract",
+    "cubic_baseline_extract",
     "extrema_mask",
     "extrema_masks",
     "count_extrema",

@@ -36,8 +36,8 @@ NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry points of csrc/sift_level.cu and csrc/fill_segsum.cu: (name,
-# argtypes); each launcher returns the launch's cudaGetLastError() as an int
+# C entry points of csrc/*.cu: (name, argtypes); each launcher returns the
+# launch's cudaGetLastError() as an int
 _SIGNATURES = {
     "pyitd_tile_size": (),
     "pyitd_level_summaries": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P),
@@ -51,6 +51,14 @@ _SIGNATURES = {
     "pyitd_fill2": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
     "pyitd_fillv": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
     "pyitd_segsum": (_I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    "pyitd_cubic_ksite": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P),
+    "pyitd_cubic_neighbors": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                              _P, _P, _P),
+    "pyitd_spike_block": (),
+    "pyitd_spike_factors": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
+    "pyitd_spike_backsub_eval": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                                 _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _P),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,347 @@
+"""The hand-written CUDA kernels of the cubic-spline baseline tier — port of
+K5 ``pyitd_tpu/ops/pallas_fill.py::cubic_ksite_padded``, K6
+``cubic_neighbors_padded`` (``csrc/cubic.cu``), K7
+``pyitd_tpu/ops/pallas_spike.py::spike_factors_padded`` (``csrc/spike.cu``)
+and K8 ``spike_backsub_eval`` (``csrc/cubic.cu``); see each file's header
+for the design.
+
+The padded-resident route of ``ops/cubic_baseline.py`` runs them in order:
+
+* ``cubic_ksite_cuda(x, states, b_first, b_last)``: the Frei-Osorio knot
+  value ``k_site`` at every sample, seeded by the sift pre-pass
+  (``cuda_fill.level_states_cuda(x)``);
+* ``cubic_neighbors_cuda(x, k_site, states)``: per sample the last two
+  knots at or before it and the strictly-next knot, positions (int32) and
+  ``k_site`` values (:class:`Neighbors`);
+* ``spike_factors_cuda(mask, a, b, c, d)``: the SPIKE local factorization
+  of the not-a-knot moment system on blocks of ``SPIKE_BLK`` cells, six
+  channels ``(6, rows, npad)`` in the order ``xp1, xp2, vl1, vl2, vr1,
+  vr2``;
+* ``spike_backsub_eval_cuda(...)``: the back-substitution with the
+  interface solve's block scalars, the end-moment patches and the
+  closed-form spline; baseline and rotation.
+
+Each wrapper checks its tensors, launches its kernel on PyTorch's current
+stream for a CUDA tensor, and counts the launch in ``LAUNCHES``.  For a CPU
+tensor it runs the plain PyTorch version beside it (``cubic_ksite``,
+``cubic_neighbors``, ``spike_factors``, ``spike_backsub_eval``); those run
+on any device, and a CUDA tensor never reaches them through a wrapper.
+:func:`chained_block_spike` is the drop-in twin of JAX's
+``pallas_spike.chained_block_spike``: K7, the interface solve and a torch
+back-substitution.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .chained_pcr import reduced_interface_solve, shard_spike_factors
+from .cubic_baseline import _fo_knot_values, _segment_eval
+from .cuda_fill import (LevelStates, _check, _check_signal, _lib, _ntiles,
+                        _same, _stream)
+from .fill import backward_fill_scan, forward_fill2_scan, shift_left
+from .linear_baseline import knot_mask
+
+__all__ = [
+    "SPIKE_BLK", "LAUNCHES", "reset_launches", "Neighbors", "spike_pad",
+    "cubic_ksite", "cubic_neighbors", "spike_factors", "spike_backsub_eval",
+    "spike_interface", "chained_block_spike", "PLAIN",
+    "cubic_ksite_cuda", "cubic_neighbors_cuda", "spike_factors_cuda",
+    "spike_backsub_eval_cuda",
+]
+
+SPIKE_BLK = 2048  # cells per SPIKE block; the SB of csrc/spike.cu (checked)
+
+# launches per kernel wrapper, counted where the kernel is launched
+LAUNCHES = {"cubic_ksite": 0, "cubic_neighbors": 0, "spike_factors": 0,
+            "spike_backsub_eval": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+class Neighbors(NamedTuple):
+    """Per sample: positions (int32) of the latest knot at or before it,
+    the one before that, and the first strictly after it, with their
+    ``k_site`` values; 0 where there is none."""
+    p1p: torch.Tensor
+    p2p: torch.Tensor
+    n1p: torch.Tensor
+    kj: torch.Tensor
+    kjm1: torch.Tensor
+    kj1: torch.Tensor
+
+
+def spike_pad(n: int) -> int:
+    """The row length rounded up to whole SPIKE blocks."""
+    return -(-n // SPIKE_BLK) * SPIKE_BLK
+
+
+def _iota(x: torch.Tensor) -> torch.Tensor:
+    return torch.arange(x.shape[-1], dtype=torch.int32,
+                        device=x.device).expand(x.shape)
+
+
+def _strictly_next(it, vals, mask):
+    """Position and value of the first marked sample strictly after each
+    sample; 0 where none."""
+    return backward_fill_scan((shift_left(it, 0), shift_left(vals, 0.0)),
+                              shift_left(mask, False), (0, 0.0))
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def cubic_ksite(x: torch.Tensor, b_first: torch.Tensor,
+                b_last: torch.Tensor) -> torch.Tensor:
+    """Plain version of the ``cubic_ksite`` kernel: the Frei-Osorio value
+    over the knot before the latest at or before each sample and the first
+    knot strictly after it (at a knot: its own knot value), ``b_first`` /
+    ``b_last`` at the ends."""
+    it = _iota(x)
+    m = knot_mask(x)
+    _, (p2p, p2x), _ = forward_fill2_scan((it, x), m, (0, 0.0))
+    n1p, n1x = _strictly_next(it, x, m)
+    return _fo_knot_values(x, it, p2p, p2x, n1p, n1x, b_first, b_last)
+
+
+def cubic_neighbors(x: torch.Tensor, k_site: torch.Tensor) -> Neighbors:
+    """Plain version of the ``cubic_neighbors`` kernel, under the knot mask
+    of ``x``."""
+    it = _iota(x)
+    m = knot_mask(x)
+    (p1p, kj), (p2p, kjm1), _ = forward_fill2_scan((it, k_site), m, (0, 0.0))
+    n1p, kj1 = _strictly_next(it, k_site, m)
+    return Neighbors(p1p, p2p, n1p, kj, kjm1, kj1)
+
+
+def spike_factors(mask, a, b, c, d) -> torch.Tensor:
+    """Plain version of the ``spike_factors`` kernel:
+    ``chained_pcr.shard_spike_factors`` on the same blocks of ``SPIKE_BLK``
+    cells, the row padded with unmarked chain rows (b = 1).  Returns
+    ``(6, rows, npad)``: xp1, xp2, vl1, vl2, vr1, vr2."""
+    rows, n = mask.shape
+    npad = spike_pad(n)
+
+    def blocks(t, fill):
+        if npad > n:
+            t = torch.cat([t, t.new_full((rows, npad - n), fill)], dim=-1)
+        return t.reshape(-1, SPIKE_BLK)
+
+    pairs = shard_spike_factors(blocks(mask, False), blocks(a, 0.0),
+                                blocks(b, 1.0), blocks(c, 0.0),
+                                blocks(d, 0.0))
+    return torch.stack([ch for pair in pairs for ch in pair]).reshape(
+        6, rows, npad)
+
+
+def _block_scalars(v: torch.Tensor, npad: int) -> torch.Tensor:
+    """A per-(row, SPIKE block) scalar at every cell: (rows, npad)."""
+    blk = torch.arange(npad, device=v.device) // SPIKE_BLK
+    return v[:, blk]
+
+
+def spike_backsub_eval(factors, e_prev, f_next, w_first_next, m0, m_last,
+                       b_last, passthrough, nb: Neighbors, x):
+    """Plain version of the ``spike_backsub_eval`` kernel: ``u`` and ``w``
+    from the spike factors and the block scalars, ``m_j1`` the next
+    sample's ``w`` (a block's last cell: the next block's first,
+    ``w_first_next``), the end-moment patches, then
+    ``cubic_baseline._segment_eval``.  Returns ``(baseline, rotation)``."""
+    n = x.shape[-1]
+    npad = factors.shape[-1]
+    xp1, xp2, vl1, vl2, vr1, vr2 = factors
+    ep, fn = _block_scalars(e_prev, npad), _block_scalars(f_next, npad)
+    u = (xp1 + vl1 * ep + vr1 * fn)[:, :n]
+    w = xp2 + vl2 * ep + vr2 * fn
+    it = _iota(x)
+    edge = (it + 1) % SPIKE_BLK == 0
+    w_next = torch.where(edge, _block_scalars(w_first_next, npad)[:, :n],
+                         shift_left(w, 0.0)[:, :n])
+    m_last = m_last[:, None]
+    m_j = torch.where(nb.p1p == 0, m0[:, None], u)
+    m_j1 = torch.where(nb.n1p == n - 1, m_last, w_next)
+    return _segment_eval(x, it, nb, m_j, m_j1, m_last, b_last, passthrough)
+
+
+def spike_interface(factors: torch.Tensor):
+    """The interface solve over SPIKE blocks (torch ops on (rows, nblk)):
+    per block ``e_prev`` (the true ``u`` at the previous block's last
+    cell), ``f_next`` (the true ``w`` at the next block's first cell) and
+    ``w_first_next`` (the true ``w`` at the next block's first cell, as the
+    back-substitution computes it)."""
+    _, rows, npad = factors.shape
+    xp1, xp2, vl1, vl2, vr1, vr2 = factors.reshape(6, rows, -1, SPIKE_BLK)
+    e, f = reduced_interface_solve(-vl1[..., -1], -vl2[..., 0],
+                                   -vr1[..., -1], -vr2[..., 0],
+                                   xp1[..., -1], xp2[..., 0])
+    zero = torch.zeros_like(e[:, :1])
+    e_prev = torch.cat([zero, e[:, :-1]], dim=-1)
+    f_next = torch.cat([f[:, 1:], zero], dim=-1)
+    w_first = xp2[..., 0] + vl2[..., 0] * e_prev + vr2[..., 0] * f_next
+    return e_prev, f_next, torch.cat([w_first[:, 1:], zero], dim=-1)
+
+
+def chained_block_spike(mask, a, b, c, d):
+    """Drop-in twin of ``chained_pcr.chained_block_pcr`` for (rows, n)
+    inputs, in f32, solved by SPIKE: the ``spike_factors`` kernel, the
+    interface solve and a torch back-substitution.  Returns ``(u, w)``."""
+    rows, n = mask.shape
+    f32 = [t.to(torch.float32).contiguous() for t in (a, b, c, d)]
+    factors = spike_factors_cuda(mask.contiguous(), *f32)
+    e_prev, f_next, _ = spike_interface(factors)
+    xp1, xp2, vl1, vl2, vr1, vr2 = factors.reshape(6, rows, -1, SPIKE_BLK)
+    ep, fn = e_prev[..., None], f_next[..., None]
+    u = xp1 + vl1 * ep + vr1 * fn
+    w = xp2 + vl2 * ep + vr2 * fn
+    return u.reshape(rows, -1)[:, :n], w.reshape(rows, -1)[:, :n]
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+# each wrapper's plain version, taking the wrapper's arguments (the seeds
+# are the kernels' alone): swapped in for the wrappers, they run a route on
+# its plain versions on any device
+PLAIN = {
+    "cubic_ksite_cuda": lambda x, states, b_first, b_last: cubic_ksite(
+        x, b_first, b_last),
+    "cubic_neighbors_cuda": lambda x, k_site, states: cubic_neighbors(
+        x, k_site),
+    "spike_factors_cuda": spike_factors,
+    "spike_backsub_eval_cuda": spike_backsub_eval,
+}
+
+
+def _lib_cubic():
+    lib = _lib()
+    if lib.pyitd_spike_block() != SPIKE_BLK:
+        raise RuntimeError(f"csrc/spike.cu blocks by "
+                           f"{lib.pyitd_spike_block()}, cuda_cubic.SPIKE_BLK "
+                           f"is {SPIKE_BLK}")
+    return lib
+
+
+def _check_seeds(x: torch.Tensor, states: LevelStates) -> None:
+    rows, n = x.shape
+    shape = (rows, _ntiles(n), 2)
+    _same(x, states.fpos, states.rpos, dtype=torch.int32, shape=shape)
+    _same(x, states.fval, states.rval, dtype=torch.float32, shape=shape)
+
+
+def cubic_ksite_cuda(x: torch.Tensor, states: LevelStates,
+                     b_first: torch.Tensor,
+                     b_last: torch.Tensor) -> torch.Tensor:
+    """``k_site`` of ``x`` (rows, n) f32; ``states`` from
+    ``cuda_fill.level_states_cuda(x)``, ``b_first``/``b_last`` (rows,)
+    f32."""
+    _check_signal(x)
+    _check_seeds(x, states)
+    rows, n = x.shape
+    _same(x, b_first, b_last, dtype=torch.float32, shape=(rows,))
+    if not x.is_cuda:
+        return cubic_ksite(x, b_first, b_last)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        code = _lib_cubic().pyitd_cubic_ksite(
+            x.data_ptr(), rows, n, _ntiles(n), states.fpos.data_ptr(),
+            states.fval.data_ptr(), states.rpos.data_ptr(),
+            states.rval.data_ptr(), b_first.data_ptr(), b_last.data_ptr(),
+            out.data_ptr(), _stream(x))
+    _check(code, "cubic_ksite")
+    LAUNCHES["cubic_ksite"] += 1
+    return out
+
+
+def cubic_neighbors_cuda(x: torch.Tensor, k_site: torch.Tensor,
+                         states: LevelStates) -> Neighbors:
+    """:class:`Neighbors` of ``x`` (rows, n) f32 with the values of
+    ``k_site`` (rows, n) f32; ``states`` as for :func:`cubic_ksite_cuda`
+    (only its positions are read)."""
+    _check_signal(x)
+    _check_seeds(x, states)
+    rows, n = x.shape
+    _same(x, k_site, dtype=torch.float32, shape=(rows, n))
+    if not x.is_cuda:
+        return cubic_neighbors(x, k_site)
+    pos = torch.empty((3, rows, n), dtype=torch.int32, device=x.device)
+    val = torch.empty((3, rows, n), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        code = _lib_cubic().pyitd_cubic_neighbors(
+            x.data_ptr(), k_site.data_ptr(), rows, n, _ntiles(n),
+            states.fpos.data_ptr(), states.rpos.data_ptr(),
+            pos[0].data_ptr(), pos[1].data_ptr(), pos[2].data_ptr(),
+            val[0].data_ptr(), val[1].data_ptr(), val[2].data_ptr(),
+            _stream(x))
+    _check(code, "cubic_neighbors")
+    LAUNCHES["cubic_neighbors"] += 1
+    return Neighbors(pos[0], pos[1], pos[2], val[0], val[1], val[2])
+
+
+def spike_factors_cuda(mask: torch.Tensor, a, b, c, d) -> torch.Tensor:
+    """The six SPIKE factor channels ``(6, rows, npad)`` of the chained
+    system with interior-knot ``mask`` (rows, n) bool and rows ``a, b, c,
+    d`` (rows, n) f32."""
+    if mask.dim() != 2:
+        raise ValueError(f"expected a (rows, n) mask, got {tuple(mask.shape)}")
+    rows, n = mask.shape
+    _same(a, mask, dtype=torch.bool, shape=(rows, n))
+    _same(mask, a, b, c, d, dtype=torch.float32, shape=(rows, n))
+    if rows < 1 or n < 1 or (mask.is_cuda and rows > 65535):
+        raise ValueError(f"spike_factors takes 1..65535 non-empty rows, got "
+                         f"{tuple(mask.shape)}")
+    if not mask.is_cuda:
+        return spike_factors(mask, a, b, c, d)
+    npad = spike_pad(n)
+    out = torch.empty((6, rows, npad), dtype=torch.float32,
+                      device=mask.device)
+    with torch.cuda.device(mask.device):
+        code = _lib_cubic().pyitd_spike_factors(
+            mask.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+            d.data_ptr(), rows, n, npad, out.data_ptr(), _stream(mask))
+    _check(code, "spike_factors")
+    LAUNCHES["spike_factors"] += 1
+    return out
+
+
+def spike_backsub_eval_cuda(factors, e_prev, f_next, w_first_next, m0,
+                            m_last, b_last, passthrough, nb: Neighbors, x):
+    """Baseline and rotation of ``x`` (rows, n) f32 from the SPIKE
+    ``factors`` (6, rows, npad), the (rows, nblk) block scalars of
+    :func:`spike_interface`, the (rows,) f32 end moments ``m0``/``m_last``
+    and end value ``b_last``, the (rows,) bool ``passthrough`` guard and the
+    :class:`Neighbors` channels."""
+    _check_signal(x)
+    rows, n = x.shape
+    npad = spike_pad(n)
+    nblk = npad // SPIKE_BLK
+    _same(x, factors, dtype=torch.float32, shape=(6, rows, npad))
+    _same(x, e_prev, f_next, w_first_next, dtype=torch.float32,
+          shape=(rows, nblk))
+    _same(x, m0, m_last, b_last, dtype=torch.float32, shape=(rows,))
+    _same(x, passthrough, dtype=torch.bool, shape=(rows,))
+    _same(x, nb.p1p, nb.p2p, nb.n1p, dtype=torch.int32, shape=(rows, n))
+    _same(x, nb.kj, nb.kjm1, nb.kj1, dtype=torch.float32, shape=(rows, n))
+    if not x.is_cuda:
+        return spike_backsub_eval(factors, e_prev, f_next, w_first_next, m0,
+                                  m_last, b_last, passthrough, nb, x)
+    out = torch.empty((2, rows, n), dtype=torch.float32, device=x.device)
+    guard = passthrough.to(torch.int32)
+    with torch.cuda.device(x.device):
+        code = _lib_cubic().pyitd_spike_backsub_eval(
+            factors.data_ptr(), rows, n, npad, nblk, SPIKE_BLK,
+            e_prev.data_ptr(), f_next.data_ptr(), w_first_next.data_ptr(),
+            m0.data_ptr(), m_last.data_ptr(), b_last.data_ptr(),
+            guard.data_ptr(), nb.p1p.data_ptr(), nb.p2p.data_ptr(),
+            nb.n1p.data_ptr(), nb.kj.data_ptr(), nb.kjm1.data_ptr(),
+            nb.kj1.data_ptr(), x.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), _stream(x))
+    _check(code, "spike_backsub_eval")
+    LAUNCHES["spike_backsub_eval"] += 1
+    return out[0], out[1]

@@ -16,7 +16,8 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["ExtremaMasks", "extrema_masks", "extrema_mask", "count_extrema"]
+__all__ = ["ExtremaMasks", "extrema_masks", "extrema_mask", "count_extrema",
+           "compact_indices"]
 
 
 class ExtremaMasks(NamedTuple):
@@ -68,3 +69,22 @@ def count_extrema(x: torch.Tensor) -> torch.Tensor:
     """Number of interior extrema as int32, one per batch element."""
     m = extrema_masks(x)
     return (m.minima.sum(-1) + m.maxima.sum(-1)).to(torch.int32)
+
+
+def compact_indices(mask: torch.Tensor,
+                    capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pack the sorted indices of marked samples into a fixed-capacity
+    buffer: ``(indices[..., capacity], count)``, both int32.  Slots past
+    ``count`` hold ``n - 1`` (clamping gathers to the last sample keeps
+    padded arithmetic finite); marks past ``capacity`` are dropped, while
+    ``count`` counts them all."""
+    n = mask.shape[-1]
+    it = torch.arange(n, dtype=torch.int32, device=mask.device)
+    rank = torch.cumsum(mask.to(torch.int64), dim=-1) - 1
+    count = mask.sum(-1).to(torch.int32)
+    # unmarked samples and marks past capacity go to one spare slot
+    dest = torch.where(mask & (rank < capacity), rank, capacity)
+    out = torch.full(mask.shape[:-1] + (capacity + 1,), n - 1,
+                     dtype=torch.int32, device=mask.device)
+    out.scatter_(-1, dest, it.expand(mask.shape))
+    return out[..., :capacity], count

@@ -10,13 +10,16 @@ across ops.  ``segsum`` is exact on integer-valued inputs and within
 ``segsum_error_bound`` on real ones; the level adjoint on the kernels is
 held against the plain route as ``tests/test_pallas_fill.py:394-404`` holds
 JAX's two routes; the sift gradient against the plain structural route.
+The cubic tier's kernels (K5-K8) are bitwise their plain versions, and its
+``"fills"`` route bitwise the plain route.
 """
 import numpy as np
 import pytest
 import torch
 
-from pyitd_tpu_torch import ITD, itd_sift, linear_baseline_extract
-from pyitd_tpu_torch.ops import cuda_fill
+from pyitd_tpu_torch import (ITD, cubic_baseline_extract, itd_sift,
+                             linear_baseline_extract)
+from pyitd_tpu_torch.ops import cuda_cubic, cuda_fill
 from pyitd_tpu_torch.ops.linear_baseline import (knot_mask,
                                                  structural_level_bwd)
 
@@ -204,3 +207,100 @@ def test_sift_grad_on_kernels_against_plain_structural(device, monkeypatch):
         assert bitwise_equal(torch.isnan(gk), torch.isnan(gp))
         ok = ~torch.isnan(gp)
         assert (gk[ok] - gp[ok]).abs().max() <= 1e-4 * gp[ok].abs().max()
+
+
+# ---- the cubic tier: K5-K8 (csrc/cubic.cu, csrc/spike.cu) ----
+
+def _cubic_cases():
+    yield from CASES
+    rng = np.random.default_rng(4)
+    n = 3 * 4096 + 17   # across tiles and SPIKE blocks
+    t = np.linspace(0, 6 * np.pi, n)
+    yield "12305", np.stack([np.sin(40 * t) + 0.3 * rng.normal(size=n),
+                             rng.normal(size=n)]).astype(np.float32)
+    yield "short", rng.normal(size=(2, 64)).astype(np.float32)
+    tt = np.arange(32.0)
+    yield "tent", np.minimum(tt, 31 - tt)[None].astype(np.float32)
+
+
+CUBIC_CASES = list(_cubic_cases())
+
+
+def _outs(out):
+    return tuple(out) if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.parametrize("name,x", CUBIC_CASES,
+                         ids=[c[0] for c in CUBIC_CASES])
+def test_cubic_kernels_are_bitwise_plain(device, name, x, monkeypatch):
+    """Each kernel against its plain version on the route's own inputs,
+    and the route against the plain route, bitwise; one launch each."""
+    xt = torch.from_numpy(x).to(device)
+    plain = cuda_cubic.PLAIN
+    diffs = []
+
+    def checked(k, real):
+        def fn(*args):
+            out = real(*args)
+            diffs.extend(k for a, b in zip(_outs(out), _outs(plain[k](*args)))
+                         if not bitwise_equal(a, b))
+            return out
+        return fn
+
+    cuda_cubic.reset_launches()
+    with monkeypatch.context() as m:
+        for k in plain:
+            m.setattr(cuda_cubic, k, checked(k, getattr(cuda_cubic, k)))
+        got = cubic_baseline_extract(xt, xt.shape[-1] + 2, min_extrema=0)
+    assert not diffs
+    assert cuda_cubic.LAUNCHES == {k: 1 for k in cuda_cubic.LAUNCHES}
+    with monkeypatch.context() as m:
+        m.setattr(cuda_fill, "level_states_cuda", cuda_fill.level_states)
+        for k, fn in plain.items():
+            m.setattr(cuda_cubic, k, fn)
+        want = cubic_baseline_extract(xt, xt.shape[-1] + 2, min_extrema=0)
+    for f in got._fields:
+        assert bitwise_equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_cubic_f64_guard_and_gradient(device):
+    """f64 in and out on the kernels; the pass-through guard; the gradient
+    (autograd of the gather route) against the gather route's own."""
+    x = torch.from_numpy(CASES[1][1]).to(device)
+    r64 = cubic_baseline_extract(x.double(), x.shape[-1] + 2, min_extrema=0)
+    r32 = cubic_baseline_extract(x, x.shape[-1] + 2, min_extrema=0)
+    assert r64.baseline.dtype == torch.float64
+    assert bitwise_equal(r64.baseline, r32.baseline.double())
+    y = torch.sin(torch.linspace(0, 6, 256, device=device))[None]
+    g = cubic_baseline_extract(y, 258, min_extrema=10)
+    assert torch.equal(g.baseline, y) and not g.rotation.any()
+    xk = x.double().clone().requires_grad_()
+    (cubic_baseline_extract(xk, x.shape[-1] + 2, min_extrema=0).rotation
+     ** 2).sum().backward()
+    xg = x.double().clone().requires_grad_()
+    rg = cubic_baseline_extract(xg, x.shape[-1] + 2, min_extrema=0,
+                                eval_backend="gather")
+    # the gradient's cotangent differs by the f32 forward's rounding
+    (rg.rotation ** 2).sum().backward()
+    ok = ~torch.isnan(xg.grad)
+    assert bitwise_equal(torch.isnan(xk.grad), ~ok)
+    assert (xk.grad[ok] - xg.grad[ok]).abs().max() \
+        <= 1e-4 * xg.grad[ok].abs().max()
+
+
+def test_chained_block_spike_kernel_against_plain(device):
+    rng = np.random.default_rng(11)
+    n = 2 * cuda_cubic.SPIKE_BLK + 1777
+    mask = rng.random((2, n)) < 0.3
+    mask[:, [0, -1]] = False
+    hl, hr = rng.uniform(1, 50, (2, 2, n))
+    d = rng.normal(size=(2, n)) * 10
+    args = [torch.from_numpy(a.astype(np.float32)).to(device)
+            for a in (hl, 2 * (hl + hr), hr, d)]
+    m = torch.from_numpy(mask).to(device)
+    cuda_cubic.reset_launches()
+    got = cuda_cubic.spike_factors_cuda(m, *args)
+    assert cuda_cubic.LAUNCHES["spike_factors"] == 1
+    assert bitwise_equal(got, cuda_cubic.spike_factors(m, *args))
+    u, w = cuda_cubic.chained_block_spike(m, *args)
+    assert u.shape == (2, n) and bool(torch.isfinite(u).all())

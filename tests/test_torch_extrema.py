@@ -57,3 +57,18 @@ def test_one_dimensional_and_short_signals():
     for n in (1, 2):
         m = tx.extrema_masks(torch.zeros(2, n))
         assert not m.minima.any() and not m.maxima.any()
+
+
+@pytest.mark.parametrize("capacity", [4, 40, 132])
+def test_compact_indices_match_jax(capacity):
+    """Sorted marked indices, slots past the count at n - 1, marks past the
+    capacity dropped (the count keeps them), exactly."""
+    rng = np.random.default_rng(5)
+    mask = rng.random((3, 130)) < 0.2
+    mask[1] = False
+    mask[2, [0, 129]] = True
+    jp, jc = jx.compact_indices(jnp.asarray(mask), capacity)
+    tp, tc = tx.compact_indices(torch.from_numpy(mask), capacity)
+    assert tp.dtype == torch.int32 and tc.dtype == torch.int32
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
