@@ -29,7 +29,13 @@ Phases (each raises on failure, so any failure exits non-zero):
    short rows, the degenerate rows, the pass-through guard, f64 in and
    out): each kernel (K5-K8) bitwise against its plain version on the
    route's own inputs, and the route against the plain route (every
-   wrapper swapped for its plain version) bitwise;
+   wrapper swapped for its plain version) bitwise; the sequence-parallel
+   tier on ``sharded_cases`` at 2, 4 and 8 time shards, both endpoint modes,
+   stop A and stop B: ``sharded_itd_sift`` on the shard-aware kernels
+   against the same call with every wrapper swapped for its plain version
+   and against the unsharded kernel sift of the whole signal, all bitwise,
+   and ``sharded_cubic_baseline`` (both methods, f64) against the gather
+   route of the whole signal to 1e-10;
 3. the main path at full size: the bench signal, 8 x 1,000,000 f32,
    ``itd_sift(x, 8, store_baselines=False)`` (10 levels), with every kernel
    launch counted, and the compensated reconstruction
@@ -63,7 +69,22 @@ Phases (each raises on failure, so any failure exits non-zero):
    magnitude; the kernel and plain routes timed (median of 10), device
    busy time, idle share and top device kernels, the interface solve
    alone; the gradient of ``sum(rotation^2)`` (autograd of the gather
-   route), finite, timed forward + backward, and its peak memory.
+   route), finite, timed forward + backward, and its peak memory;
+9. the sequence-parallel tier at full width: the bench signal at
+   8 x 4,194,304 f32, ``max_iteration=8``, over 4 time shards of 1,048,576
+   resident on the one card (``LocalGroup(4)``): launches and collectives
+   counted, every launch of the shard-aware kernels bitwise its plain
+   version on the route's own inputs, the result bitwise the unsharded
+   ``itd_sift`` of the same signal, the compensated reconstruction held to
+   1e-10; the sharded and the unsharded sift timed (median of 10, device
+   busy, idle share, top device kernels), the cross-shard fold alone (host
+   ms, ATen calls); the same signal as one shard of a one-rank NCCL
+   ``DistGroup`` bitwise ``LocalGroup(1)``; the gradient of the sharded
+   kernel route at 8 x 262,144 (the plain sharded route's autograd holds
+   every intermediate: the full width does not fit) against the unsharded
+   plain sift's; one sharded cubic level (``method="spike"``) at 8 x 4M
+   against ``cubic_baseline_extract`` of the whole signal; then phase 7's
+   rows for the shard-aware kernels at these shapes.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -86,6 +107,8 @@ SRC.update({k: "pyitd_tpu_torch/csrc/fill_segsum.cu"
 SRC.update({k: "pyitd_tpu_torch/csrc/cubic.cu"
             for k in ("cubic_ksite", "cubic_neighbors", "spike_backsub_eval")})
 SRC["spike_factors"] = "pyitd_tpu_torch/csrc/spike.cu"
+SIFT_KERNELS = ("level_summaries", "tile_scan", "sift_level")
+SRC.update({"sharded_" + k: SRC[k] for k in SIFT_KERNELS})
 REPLACES = {
     "level_summaries": "pyitd_tpu/ops/pallas_fill.py:1398",
     "tile_scan": "pyitd_tpu/ops/pallas_fill.py:1398",
@@ -98,6 +121,9 @@ REPLACES = {
     "spike_factors": "pyitd_tpu/ops/pallas_spike.py:176",
     "spike_backsub_eval": "pyitd_tpu/ops/pallas_spike.py:262",
 }
+# K9: the three sift kernels with the shard arguments compiled in
+REPLACES.update({"sharded_" + k: "pyitd_tpu/ops/pallas_fill_sharded.py:199"
+                 for k in SIFT_KERNELS})
 # The cubic level's f32 baseline against the f64 gather route, as a
 # fraction of max|baseline|: the bar of the JAX tests
 # (tests/test_cubic.py:195, 248-253).
@@ -105,6 +131,9 @@ CUBIC_F64_REL = 2e-6
 MAIN_SHAPE, MAIN_MAX_IT = (8, 1_000_000), 8
 EEG_SHAPE, EEG_MAX_IT = (256, 16384), 8
 TRAIN_MAX_IT, TRAIN_STEPS = 6, 5
+# the sequence-parallel tier: 4 time shards of the main path's row length;
+# its gradient at the largest size whose plain-route autograd fits the card
+SHARD_SHAPE, SHARD_SEQ, SHARD_GRAD_SHAPE = (8, 4_194_304), 4, (8, 262_144)
 # the card's data-sheet peaks (H100 SXM): HBM bytes/s, f32 FLOP/s outside
 # the tensor cores
 HBM_BPS, F32_FLOPS = 3.35e12, 67e12
@@ -265,6 +294,42 @@ def phase2_cases():
             size=(rows, n))).astype(np.float32)
     yield "constant (2, 8192)", np.ones((2, 8192), np.float32)
     yield "monotone (2, 9000)", np.stack([t, t ** 2]).astype(np.float32)
+
+
+def sharded_cases():
+    """The shapes that break a time-sharded sift first, each (name, f32
+    array): shard lengths around the kernels' tile of 4096, shards shorter
+    than a tile, shards that hold no knot, knots / plateaus / NaNs on the
+    edges of 2, 4 and 8 shards, a row that stops while its neighbour runs
+    on, lengths that no shard count divides."""
+    rng = np.random.default_rng(7)
+
+    def noisy(rows, n, f=9):
+        t = np.linspace(0, 2 * np.pi, n)
+        return (np.sin(f * t)[None] + 0.3 * rng.normal(size=(rows, n))
+                ).astype(np.float32)
+
+    yield "n_loc 4097 at 2 shards (2, 8194)", noisy(2, 8194)
+    yield "n_loc 8193 at 2 shards (2, 16386)", noisy(2, 16386)
+    yield "shards shorter than a tile (3, 1024)", noisy(3, 1024)
+    x = noisy(2, 4096)
+    x[:, 512:3584] = np.linspace(-3, 3, 3072, dtype=np.float32)
+    yield "shards without a knot (2, 4096)", x
+    x = noisy(2, 2048)
+    for b in (256, 512, 1024, 1536):
+        x[0, b], x[1, b - 1] = 5.0, -5.0
+    yield "knots on shard edges (2, 2048)", x
+    x = noisy(2, 2048)
+    x[0, 1022:1026], x[0, 255:257], x[1, 510:514] = 4.0, 4.0, -4.0
+    yield "plateaus across shard edges (2, 2048)", x
+    x = noisy(2, 2048)
+    x[0, 1023:1025], x[1, 512], x[1, 255] = np.nan, np.nan, np.nan
+    yield "NaN at shard edges (2, 2048)", x
+    t = np.linspace(0, 2 * np.pi, 2048)
+    yield "stop A beside a running row (2, 2048)", np.stack(
+        [np.sin(1.5 * t).astype(np.float32), noisy(1, 2048)[0]])
+    yield "length no shard count divides (2, 1003)", noisy(2, 1003)
+    yield "length no shard count divides (2, 9001)", noisy(2, 9001)
 
 
 def sift_loss(r):
@@ -742,6 +807,323 @@ def phase8_cubic(x, card: str):
     return launches, calls
 
 
+# ---- the sequence-parallel tier ----
+
+def plain_sift_kernels():
+    """The three sift kernel wrappers swapped for their plain versions."""
+    from pyitd_tpu_torch.ops import cuda_fill as cf
+
+    return swapped({k + "_cuda": getattr(cf, k) for k in SIFT_KERNELS})
+
+
+@contextlib.contextmanager
+def recorded_sift(calls: dict, keep: int = 1):
+    """The three sift kernel wrappers, each holding its output bitwise
+    against its plain version on the same inputs (raises on a difference)
+    and recording ``(args, kwargs, max abs err)`` of every call in
+    ``calls[name]``; only call number ``keep`` (trip 1: the first with the
+    bookkeeping) keeps its tensors, the others record None."""
+    import torch
+    from pyitd_tpu_torch.ops import cuda_fill as cf
+
+    def flat(out):
+        parts = out if type(out) is tuple else (out,)
+        return [t for part in parts for t in part if t is not None]
+
+    def wrap(k):
+        real, plain = getattr(cf, k + "_cuda"), getattr(cf, k)
+
+        def fn(*args, **kw):
+            out = real(*args, **kw)
+            pkw = dict(kw)
+            if kw.get("out_row") is not None:
+                pkw["out_row"] = torch.empty_like(kw["out_row"])
+            pairs = list(zip(flat(out), flat(plain(*args, **pkw))))
+            if "out_row" in pkw:
+                pairs.append((kw["out_row"], pkw["out_row"]))
+            err = max(max_abs_err(a, b) for a, b in pairs)
+            if not all(bitwise_equal(a, b) for a, b in pairs):
+                raise AssertionError(f"{k}: kernel differs from its plain "
+                                     f"version, max abs err {err}")
+            seen = calls.setdefault(k, [])
+            seen.append((args, kw, err) if len(seen) == keep
+                        else (None, None, err))
+            return out
+        return fn
+
+    with swapped({k + "_cuda": wrap(k) for k in SIFT_KERNELS}):
+        yield
+
+
+def sift_tuple(r):
+    """A ``SiftResult`` as ``sharded_itd_sift`` returns its own."""
+    return r.rotations, r.num_components, r.stop_reason, r.correction
+
+
+def same_sift(got, want, what) -> None:
+    for f, a, b in zip(("rotations", "num_components", "stop_reason",
+                        "correction"), got, want):
+        if not bitwise_equal(a, b):
+            raise AssertionError(f"{what}: {f} differs, max abs err "
+                                 f"{max_abs_err(a, b)}")
+
+
+def phase2_sharded(dev) -> None:
+    """Phase 2's sequence-parallel cases on the card."""
+    import torch
+    from pyitd_tpu_torch import cubic_baseline_extract, itd_sift
+    from pyitd_tpu_torch.ops import cuda_fill as cf
+    from pyitd_tpu_torch.parallel import (LocalGroup, sharded_cubic_baseline,
+                                          sharded_itd_sift)
+
+    for name, xn in sharded_cases():
+        x = torch.from_numpy(xn).to(dev)
+        reasons = set()
+        for seq in (2, 4, 8):
+            for mode, mi in (("reference", 6), ("natural", 6),
+                             ("reference", 2), ("natural", 2)):
+                what = f"sharded sift {name}, {seq} shards, {mode}, " \
+                    f"max_iteration={mi}"
+                group = LocalGroup(seq)
+                cf.reset_launches()
+                got = sharded_itd_sift(x, group, mi, endpoint_mode=mode,
+                                       backend="kernel")
+                trips = mi + 3
+                want_l = {k: trips if k in SIFT_KERNELS else 0
+                          for k in cf.LAUNCHES}
+                want_c = {"halo": 2 * trips, "all_gather": trips,
+                          "all_reduce_sum": trips, "all_reduce_min": 0}
+                if dict(cf.LAUNCHES) != want_l or group.calls != want_c:
+                    raise AssertionError(f"{what}: launches "
+                                         f"{dict(cf.LAUNCHES)}, collectives "
+                                         f"{group.calls}")
+                with plain_sift_kernels():
+                    plain = sharded_itd_sift(x, LocalGroup(seq), mi,
+                                             endpoint_mode=mode,
+                                             backend="kernel")
+                same_sift(got, plain, what + " against plain versions")
+                same_sift(got, sift_tuple(itd_sift(
+                    x, mi, endpoint_mode=mode, store_baselines=False,
+                    backend="kernel")), what + " against the unsharded sift")
+                reasons.update(got[2].tolist())
+        cub = ""
+        if not bool(torch.isnan(x).any()):
+            x64 = x.double()
+            ref = cubic_baseline_extract(x64, x.shape[-1] + 2, min_extrema=0,
+                                         eval_backend="gather")
+            worst = 0.0
+            for seq in (2, 4, 8):
+                for method in ("spike", "gather"):
+                    _, base, nex = sharded_cubic_baseline(
+                        x64, LocalGroup(seq), method=method, min_extrema=0)
+                    if not torch.equal(nex, ref.num_extrema):
+                        raise AssertionError(f"sharded cubic {name} {method} "
+                                             f"{seq} shards: extrema counts")
+                    worst = max(worst, max_abs_err(base, ref.baseline))
+            if not worst <= 1e-10:
+                raise AssertionError(f"sharded cubic {name}: max abs diff "
+                                     f"{worst} from the gather route")
+            cub = (f"; sharded cubic (spike, gather) f64 within {worst!r} of "
+                   f"the gather route")
+        print(f"[2] sharded {name}: 2, 4, 8 shards x both endpoint modes x "
+              f"max_iteration 2, 6: kernel route == plain versions == "
+              f"unsharded kernel sift bitwise, stop reasons seen "
+              f"{sorted(reasons)}{cub}", flush=True)
+
+
+def phase9_sharded(dev, card: str):
+    """The sequence-parallel tier at full width; returns the launches of
+    its main-path run and the recorded calls of the shard-aware kernels."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from pyitd_tpu_torch import cubic_baseline_extract, itd_sift
+    from pyitd_tpu_torch.ops import cuda_fill as cf
+    from pyitd_tpu_torch.parallel import (DistGroup, LocalGroup,
+                                          sharded_cubic_baseline,
+                                          sharded_itd_sift)
+    from pyitd_tpu_torch.parallel.sharded import _fold_states_both
+
+    rows, n = SHARD_SHAPE
+    seq, mi = SHARD_SEQ, MAIN_MAX_IT
+    levels, trips = mi + 2, mi + 3
+    label = f"{rows}x{n} over {seq} shards of {n // seq}"
+    x = torch.from_numpy(bench_signal(rows, n)).to(dev)
+    group = LocalGroup(seq)
+
+    def sharded():
+        return sharded_itd_sift(x, group, mi)
+
+    def whole():
+        return itd_sift(x, mi, store_baselines=False)
+
+    torch.cuda.synchronize()
+    cf.reset_launches()
+    group.reset_calls()
+    res = sharded()
+    torch.cuda.synchronize()
+    launches, calls_c = dict(cf.LAUNCHES), dict(group.calls)
+    want_l = {k: trips if k in SIFT_KERNELS else 0 for k in launches}
+    want_c = {"halo": 2 * trips, "all_gather": trips, "all_reduce_sum": trips,
+              "all_reduce_min": 0}
+    if launches != want_l or calls_c != want_c:
+        raise AssertionError(f"sharded {label}: launches {launches}, "
+                             f"collectives {calls_c}")
+    if tuple(res[0].shape) != (levels, rows, n) or not bool(
+            torch.isfinite(res[0]).all()):
+        raise AssertionError(f"sharded {label}: rotations not finite or "
+                             f"shaped {tuple(res[0].shape)}")
+    recon = 0.0
+    for r in range(rows):  # row by row: the f64 copies are large
+        recon = max(recon, float((res[0][:, r].double().sum(0)
+                                  + res[3][r].double()
+                                  - x[r].double()).abs().max()))
+    if not recon <= 1e-10:
+        raise AssertionError(f"sharded {label}: compensated reconstruction "
+                             f"error {recon}")
+    ref = whole()
+    same_sift(res, sift_tuple(ref), f"sharded {label} against the unsharded "
+              f"sift")
+    del ref
+    calls = {}
+    with recorded_sift(calls):
+        again = sharded()
+    same_sift(res, again, f"sharded {label} against a second run")
+    del again
+    print(f"[9] sharded sift {label}, max_iteration={mi}: launches "
+          f"{launches}; collectives {calls_c} ({trips} trips: 2 halo "
+          f"exchanges, 1 gather, 1 sum each); every launch bitwise its plain "
+          f"version; bitwise the unsharded kernel sift; num_components "
+          f"{res[1].tolist()}, stop_reason {res[2].tolist()}; compensated "
+          f"reconstruction error {recon!r}", flush=True)
+    del res
+
+    for what, fn in (("sharded", sharded), ("unsharded", whole)):
+        times = cuda_times(fn)
+        dms, by_name = device_ms(fn)
+        ms = statistics.median(times)
+        print(f"[9] {what} sift {rows}x{n}: {ms:.4f} ms/sift (CUDA events, "
+              f"median of {len(times)}, min {times[0]:.4f}, max "
+              f"{times[-1]:.4f}), {rows * n / ms / 1e3:.2f} Msamp/s; device "
+              f"busy {dms:.4f} ms/sift, idle share {1 - dms / ms:.3f}  "
+              f"[{card}]", flush=True)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        print(f"[9]   top device kernels, {what} (ms/sift): " + "; ".join(
+            f"{kernel_label(k)} {v:.4f}" for k, v in top), flush=True)
+
+    # the comm layer alone: the cross-shard fold of one trip's totals
+    args, kw, _ = calls["level_summaries"][1]
+    _, tot = cf.tile_scan_cuda(cf.level_summaries_cuda(*args, **kw),
+                               totals=True)
+    f_ms = cuda_times(lambda: _fold_states_both(tot, group, seq))
+    f_dms, _ = device_ms(lambda: _fold_states_both(tot, group, seq))
+    f_ops = aten_ops(lambda: _fold_states_both(tot, group, seq))
+    t_ops = aten_ops(sharded)
+    print(f"[9] cross-shard fold alone ({seq} shards x {rows} rows): "
+          f"{statistics.median(f_ms):.4f} ms (CUDA events, median of "
+          f"{len(f_ms)}), device busy {f_dms:.4f} ms, {f_ops} ATen operator "
+          f"calls; the whole sharded sift makes {t_ops} ATen calls, "
+          f"{t_ops / trips:.1f} per trip  [{card}]", flush=True)
+
+    # one rank of a torch.distributed group on the card: the same signal as
+    # one shard over NCCL, against LocalGroup(1)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1, device_id=dev)
+        try:
+            dgroup = DistGroup()
+            got = sharded_itd_sift(x, dgroup, mi)
+            torch.cuda.synchronize()
+            d_calls = dict(dgroup.calls)
+            d_ms = cuda_times(lambda: sharded_itd_sift(x, dgroup, mi), reps=5)
+        finally:
+            dist.destroy_process_group()
+    same_sift(got, sharded_itd_sift(x, LocalGroup(1), mi),
+              "DistGroup of one rank against LocalGroup(1)")
+    del got
+    print(f"[9] DistGroup (NCCL, one rank, FileStore) {rows}x{n} as one "
+          f"shard: bitwise LocalGroup(1); collectives {d_calls}; "
+          f"{statistics.median(d_ms):.4f} ms/sift (CUDA events, median of "
+          f"{len(d_ms)})  [{card}]", flush=True)
+
+    # the gradient: the kernel route's backward differentiates the plain
+    # sharded route, whose autograd holds every level's intermediates
+    g_rows, g_n = SHARD_GRAD_SHAPE
+    xs = x[:g_rows, :g_n].contiguous()
+
+    def loss4(out):
+        return (out[0] ** 2).sum() + 0.7 * out[3].sum()
+
+    xg = xs.clone().requires_grad_()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    loss4(sharded_itd_sift(xg, LocalGroup(seq), mi)).backward()
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    g = xg.grad.detach().clone()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError("sharded gradient: not finite")
+    xp = xs.clone().requires_grad_()
+    sift_loss(itd_sift(xp, mi, store_baselines=False, backend="torch")
+              ).backward()
+    gap = grad_gap(g, xp.grad)
+    del xp
+
+    def fwd_bwd():
+        xg.grad = None
+        loss4(sharded_itd_sift(xg, LocalGroup(seq), mi)).backward()
+
+    fb_ms = cuda_times(fwd_bwd, reps=5, warmup=1)
+    print(f"[9] sharded gradient at {g_rows}x{g_n} over {seq} shards (the "
+          f"plain sharded route's autograd does not fit at {rows}x{n}): "
+          f"finite; against the unsharded plain sift's gradient max|diff| "
+          f"{gap[0]!r} and rms {gap[1]!r} of max|g| {gap[2]!r} (limits "
+          f"{GRAD_LIMITS['8x1M']}); forward + backward "
+          f"{statistics.median(fb_ms):.4f} ms (CUDA events, median of "
+          f"{len(fb_ms)}, min {fb_ms[0]:.4f}, max {fb_ms[-1]:.4f}); peak "
+          f"memory {peak_gb:.3f} GB, {peak_gb - held_gb:.3f} GB above the "
+          f"{held_gb:.3f} GB held before it  [{card}]", flush=True)
+    if not within(gap, GRAD_LIMITS["8x1M"]):
+        raise AssertionError("sharded gradient beyond its limits against "
+                             "the unsharded plain sift's")
+    del xg, g
+
+    # one sharded cubic level (plain PyTorch on the card, as it is plain
+    # XLA in JAX) against the kernel route of the whole signal
+    def cubic():
+        return sharded_cubic_baseline(x, group, method="spike",
+                                      min_extrema=0)
+
+    ref = cubic_baseline_extract(x, n + 2, min_extrema=0,
+                                 eval_backend="fills")
+    group.reset_calls()
+    _, base, nex = cubic()
+    cubic_calls = dict(group.calls)
+    if not torch.equal(nex, ref.num_extrema):
+        raise AssertionError("sharded cubic: extrema counts differ")
+    scale = float(ref.baseline.abs().max())
+    rel = max_abs_err(base, ref.baseline) / scale
+    del base, ref
+    c_ms = cuda_times(cubic, reps=5, warmup=1)
+    c_dms, _ = device_ms(cubic, reps=2)
+    c = statistics.median(c_ms)
+    print(f"[9] sharded cubic level (spike) {label}: against "
+          f"cubic_baseline_extract of the whole signal max abs diff {rel!r} "
+          f"of max|baseline| {scale!r} (limit {CUBIC_F64_REL}); collectives "
+          f"{cubic_calls}; {c:.4f} ms/level (CUDA events, median of "
+          f"{len(c_ms)}, min {c_ms[0]:.4f}, max {c_ms[-1]:.4f}), device busy "
+          f"{c_dms:.4f} ms, idle share {1 - c_dms / c:.3f}  [{card}]",
+          flush=True)
+    if not rel <= CUBIC_F64_REL:
+        raise AssertionError("sharded cubic beyond its limit against the "
+                             "unsharded level")
+    return launches, calls
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     """The least time in ms for the work, and what bounds it."""
     t_b, t_f = nbytes / HBM_BPS * 1e3, flops / F32_FLOPS * 1e3
@@ -880,6 +1262,7 @@ def main() -> int:
           f"f32 on the kernels, bitwise the plain f32 sift; launches "
           f"{itd_launches}", flush=True)
     phase2_cubic(dev)
+    phase2_sharded(dev)
 
     # ---- phase 3: the main path at full size ----
     xn = bench_signal(*MAIN_SHAPE)
@@ -1119,7 +1502,7 @@ def main() -> int:
     entries = []
 
     def entry(name, err, kernel_fn, plain_fn, nbytes, flops, count,
-              exact=True):
+              exact=True, shape="8x1M"):
         if exact and err != 0.0:
             raise AssertionError(f"{name}: kernel differs from its plain "
                                  f"version, max abs err {err}")
@@ -1132,7 +1515,7 @@ def main() -> int:
             method = "CUDA events"
         b_ms, b_by = bound(nbytes, flops)
         print(f"[7] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per "
-              f"call at 8x1M ({method}; max abs err {err!r}); bound "
+              f"call at {shape} ({method}; max abs err {err!r}); bound "
               f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, "
               f"{flops / 1e6:.1f} MFLOP); {count} launches  [{card}]",
               flush=True)
@@ -1249,6 +1632,38 @@ def main() -> int:
         entry(name, err, lambda k=key, a=args: getattr(cc, k)(*a),
               lambda k=key, a=args: cc.PLAIN[k](*a), nbytes, flops,
               cubic_launches[name])
+    del calls, x
+
+    # ---- phase 9: the sequence-parallel tier at full width ----
+    shard_launches, calls = phase9_sharded(dev, card)
+
+    # phase 7's rows for the shard-aware kernels on trip 1's inputs: each
+    # kernel row is one (shard, row) pair of 1,048,576 samples
+    (xs, sh), _, s_err = calls["level_summaries"][1]
+    rows, n = xs.shape
+    nt = -(-n // cf.TILE)
+    shape = f"{rows}x{n} shard rows"
+    entry("sharded_level_summaries", s_err,
+          lambda: cf.level_summaries_cuda(xs, sh),
+          lambda: cf.level_summaries(xs, sh),
+          rows * n * 4 + rows * nt * 36 + rows * 12, 2 * rows * n,
+          shard_launches["level_summaries"], shape=shape)
+    (summ,), kw, t_err = calls["tile_scan"][1]
+    entry("sharded_tile_scan", t_err,
+          lambda: cf.tile_scan_cuda(summ, **kw),
+          lambda: cf.tile_scan(summ, **kw),
+          rows * nt * (36 + 32) + rows * (8 + 32), 0,
+          shard_launches["tile_scan"], shape=shape)
+    (xs, states), kw, l_err = calls["sift_level"][1]
+    fl = states.flags
+    n_rp = int(((fl & (cf.CONT | cf.STOP_B)) != 0).sum())
+    n_pb = int(((fl & cf.STOP_A) != 0).sum())
+    plain_kw = dict(kw, out_row=torch.empty_like(kw["out_row"]))
+    entry("sharded_sift_level", l_err,
+          lambda: cf.sift_level_cuda(xs, states, **kw),
+          lambda: cf.sift_level(xs, states, **plain_kw),
+          4 * n * (7 * rows + 2 * n_rp + n_pb) + rows * nt * 32 + rows * 56,
+          40 * rows * n, shard_launches["sift_level"], shape=shape)
     del calls
 
     print(json.dumps({"kernels": entries}))

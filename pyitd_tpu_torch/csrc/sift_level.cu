@@ -5,7 +5,9 @@
 // XLA pre-pass level_block_states_fwd, the two-kernel emit tier
 // sift_level_emit_padded, and, with the bookkeeping compiled out, the
 // level pair _linear_fill2_padded + _linear_baseline_padded behind
-// linear_level_pallas (K2a/K2b).
+// linear_level_pallas (K2a/K2b); and, with the shard arguments compiled in
+// (SHARD), pyitd_tpu/ops/pallas_fill_sharded.py::sharded_sift_level_fused
+// (K9) and the pre-pass inside parallel/sharded.py::_sift_local_pallas.
 //
 // What bounds it: bytes.  At 8 x 1M f32 with 10 levels the sift moves about
 // 3.7 GB: ten trips x (5 reads + 5 writes of 32 MB), the initial
@@ -37,6 +39,19 @@
 // f32 once.  Built with -fmad=false and no fast-math, so every formula
 // rounds as PyTorch's eager elementwise kernels do; the kernels agree with
 // the plain PyTorch versions in ops/cuda_fill.py bit for bit.
+//
+// One time shard of a longer signal (K9).  The TPU kernel walks a shard's
+// blocks in reverse and seeds its carry once from the cross-shard suffix;
+// here every tile is seeded in both directions, so the cross-shard states
+// enter where the tile seeds are loaded.  A kernel row is one (shard, row)
+// pair and every shard argument is a per-row array (tile_fill.cuh::Shard),
+// so one launch serves every shard on the card.  level_summaries tests and
+// numbers knots by global position, with the neighbours' edge samples in the
+// two halo cells; tile_scan also writes the shard's inclusive totals, which
+// the caller folds across shards (a gather) and whose counts it sums before
+// it decides the stop flags; sift_level combines the shard's prefix and
+// suffix into each tile's seeds and takes the global end-knot values as
+// arguments.  With SHARD off the code is what it was.
 
 // The tile-local fills (staging, knot bits, block scans) live in
 // tile_fill.cuh, shared with the cubic tier's kernels in cubic.cu.
@@ -47,19 +62,25 @@ namespace {
 constexpr int STOP_A = 1, STOP_B = 2, CONT = 4;
 
 // ---------------------------------------------------------------- kernel 1
+template <bool SHARD>
 __global__ void __launch_bounds__(NT) level_summaries_kernel(
-    const float* __restrict__ x, int n, int ntiles, int* __restrict__ fpos,
-    float* __restrict__ fval, int* __restrict__ rpos, float* __restrict__ rval,
-    int* __restrict__ cnt) {
+    const float* __restrict__ x, int n, int ntiles, Shard sh,
+    int* __restrict__ fpos, float* __restrict__ fval, int* __restrict__ rpos,
+    float* __restrict__ rval, int* __restrict__ cnt) {
   __shared__ float s_x[SX_LEN];
   __shared__ Fwd sw_f[NWARP];
   __shared__ Rev sw_r[NWARP];
   __shared__ int s_cnt[NWARP];
   const int tile = blockIdx.x, row = blockIdx.y, base = tile * TILE;
-  stage_tile(x + (size_t)row * n, n, base, s_x);
+  const int off = SHARD ? sh.offset[row] : 0;
+  if (SHARD)
+    stage_tile(x + (size_t)row * n, n, base, s_x, sh.halo_l[row],
+               sh.halo_r[row]);
+  else
+    stage_tile(x + (size_t)row * n, n, base, s_x);
   __syncthreads();
   Run run;
-  load_run(s_x, n, base, run);
+  load_run(s_x, n, base, run, off, SHARD ? sh.n_global : n);
   const Fwd fex = block_excl_fwd(run.f, fwd_none(), sw_f);
   const Rev rex = block_excl_rev(run.r, rev_none(), sw_r);
   const int c = warp_sum(__popc(run.bits));
@@ -82,7 +103,9 @@ __global__ void __launch_bounds__(NT) level_summaries_kernel(
 // ---------------------------------------------------------------- kernel 2
 // One warp per row.  Lane l owns a contiguous run of tiles; a lane-serial
 // fold, a warp-shuffle exclusive scan of the lane folds, then a serial
-// re-walk that writes each tile's exclusive prefix / suffix.
+// re-walk that writes each tile's exclusive prefix / suffix.  With ftot_pos
+// it also writes the row's inclusive totals (the last two and the first two
+// knots of the whole row): a time shard's side of the cross-shard fold.
 __global__ void tile_scan_kernel(
     int ntiles, const int* __restrict__ fpos, const float* __restrict__ fval,
     const int* __restrict__ rpos, const float* __restrict__ rval,
@@ -90,7 +113,9 @@ __global__ void tile_scan_kernel(
     float* __restrict__ fval_ex, int* __restrict__ rpos_ex,
     float* __restrict__ rval_ex, int* __restrict__ nex, int* __restrict__ flags,
     int* __restrict__ done, int* __restrict__ reason, int* __restrict__ ncomp,
-    int trip, int max_iteration) {
+    int trip, int max_iteration, int* __restrict__ ftot_pos,
+    float* __restrict__ ftot_val, int* __restrict__ rtot_pos,
+    float* __restrict__ rtot_val) {
   const int row = blockIdx.x, lane = threadIdx.x;
   const int per = (ntiles + 31) / 32;
   const int k0 = min(lane * per, ntiles), k1 = min(k0 + per, ntiles);
@@ -117,6 +142,17 @@ __global__ void tile_scan_kernel(
     if (lane >= o) finc = fwd_combine(u, finc);
     const Rev v = shfl_down(rinc, o);
     if (lane + o < 32) rinc = rev_combine(rinc, v);
+  }
+  if (ftot_pos != nullptr) {
+    const size_t o = (size_t)row * 2;
+    if (lane == 31) {
+      ftot_pos[o] = finc.p1; ftot_val[o] = finc.v1;
+      ftot_pos[o + 1] = finc.p2; ftot_val[o + 1] = finc.v2;
+    }
+    if (lane == 0) {
+      rtot_pos[o] = rinc.q1; rtot_val[o] = rinc.w1;
+      rtot_pos[o + 1] = rinc.q2; rtot_val[o + 1] = rinc.w2;
+    }
   }
   Fwd facc = shfl_up(finc, 1);
   if (lane == 0) facc = fwd_none();
@@ -160,9 +196,9 @@ __global__ void tile_scan_kernel(
 }
 
 // ---------------------------------------------------------------- kernel 3
-template <bool BOOK, bool REF_END>
+template <bool BOOK, bool REF_END, bool SHARD>
 __global__ void __launch_bounds__(NT) sift_level_kernel(
-    const float* __restrict__ x, int n, int ntiles,
+    const float* __restrict__ x, int n, int ntiles, Shard sh,
     const int* __restrict__ fpos, const float* __restrict__ fval,
     const int* __restrict__ rpos, const float* __restrict__ rval,
     const int* __restrict__ flags, const float* __restrict__ rotp,
@@ -176,14 +212,26 @@ __global__ void __launch_bounds__(NT) sift_level_kernel(
   __shared__ Rev sw_r[NWARP];
   const int tile = blockIdx.x, row = blockIdx.y, base = tile * TILE;
   const float* xr = x + (size_t)row * n;
-  stage_tile(xr, n, base, s_x);
+  // the row's first position and the length of the signal it is part of
+  const int off = SHARD ? sh.offset[row] : 0;
+  const int ng = SHARD ? sh.n_global : n;
+  const int gbase = off + base;
+  if (SHARD) stage_tile(xr, n, base, s_x, sh.halo_l[row], sh.halo_r[row]);
+  else stage_tile(xr, n, base, s_x);
   __syncthreads();
 
   Run run;
-  load_run(s_x, n, base, run);
+  load_run(s_x, n, base, run, off, ng);
   const size_t so = ((size_t)row * ntiles + tile) * 2;
-  const Fwd fseed{fpos[so], fval[so], fpos[so + 1], fval[so + 1]};
-  const Rev rseed{rpos[so], rval[so], rpos[so + 1], rval[so + 1]};
+  Fwd fseed{fpos[so], fval[so], fpos[so + 1], fval[so + 1]};
+  Rev rseed{rpos[so], rval[so], rpos[so + 1], rval[so + 1]};
+  if (SHARD) {  // the knots of the shards before / after: farther than any
+    const size_t ho = (size_t)row * 2;  // of this shard's, so local ones win
+    fseed = fwd_combine(Fwd{sh.pre_pos[ho], sh.pre_val[ho], sh.pre_pos[ho + 1],
+                            sh.pre_val[ho + 1]}, fseed);
+    rseed = rev_combine(rseed, Rev{sh.suf_pos[ho], sh.suf_val[ho],
+                                   sh.suf_pos[ho + 1], sh.suf_val[ho + 1]});
+  }
   const Fwd fex = block_excl_fwd(run.f, fseed, sw_f);
   const Rev rex = block_excl_rev(run.r, rseed, sw_r);
 
@@ -195,37 +243,39 @@ __global__ void __launch_bounds__(NT) sift_level_kernel(
 #pragma unroll
   for (int k = SPT - 1; k >= 0; --k) {
     n1p[k] = S.q1; n1x[k] = S.w1; n2p[k] = S.q2; n2x[k] = S.w2;
-    if ((run.bits >> k) & 1u) S = {base + j0 + k, run.xv[k], S.q1, S.w1};
+    if ((run.bits >> k) & 1u) S = {gbase + j0 + k, run.xv[k], S.q1, S.w1};
   }
 
-  const float b_first = 0.5f * (xr[0] + xr[1]);
-  const float b_last = 0.5f * (xr[n - 2] + xr[n - 1]);
+  const float b_first = SHARD ? sh.b_first[row] : 0.5f * (xr[0] + xr[1]);
+  const float b_last =
+      SHARD ? sh.b_last[row] : 0.5f * (xr[n - 2] + xr[n - 1]);
   // forward walk: the last two knots at or before each sample, then the
   // epilogue of _fused_scans_and_epilogue in the order of the gather form
   Fwd P = fex;
 #pragma unroll
   for (int k = 0; k < SPT; ++k) {
-    const int t = base + j0 + k;
+    const int t = base + j0 + k;  // index in the row
+    const int g = gbase + j0 + k;  // position in the signal
     const float xt = run.xv[k];
-    if ((run.bits >> k) & 1u) P = {t, xt, P.p1, P.v1};
+    if ((run.bits >> k) & 1u) P = {g, xt, P.p1, P.v1};
     float b = 0.f;
     if (t < n) {
       int q1 = n1p[k];
       float w1 = n1x[k];
-      if (t == n - 1) {  // no knot after: the gather form clips to n-1
-        q1 = n - 1;
+      if (g == ng - 1) {  // no knot after: the gather form clips to the end
+        q1 = ng - 1;
         w1 = xt;
       }
       float b_l;
-      if (P.p1 == n - 1) b_l = b_last;
+      if (P.p1 == ng - 1) b_l = b_last;
       else if (P.p1 == 0) b_l = b_first;
       else b_l = knot_value(P.p1, P.v1, P.p2, P.v2, q1, w1);
-      const float b_r = (q1 == n - 1)
+      const float b_r = (q1 == ng - 1)
           ? b_last : knot_value(q1, w1, P.p1, P.v1, n2p[k], n2x[k]);
       const float den = w1 - P.v1;
       const float slope = (den == 0.f) ? 0.f : (b_r - b_l) / den;
       b = b_l + slope * (xt - P.v1);
-      if (REF_END && t == n - 1) b = 0.f;
+      if (REF_END && g == ng - 1) b = 0.f;
     }
     s_b[padi(j0 + k)] = b;
   }
@@ -273,12 +323,24 @@ const char* pyitd_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+// offset == nullptr: whole rows.  Otherwise each row is a time shard that
+// starts at offset[row] of a signal of n_global samples, between the samples
+// halo_l[row] and halo_r[row].
 int pyitd_level_summaries(const float* x, int rows, int n, int ntiles,
-                          int* fpos, float* fval, int* rpos, float* rval,
-                          int* cnt, void* stream) {
+                          int n_global, const int* offset, const float* halo_l,
+                          const float* halo_r, int* fpos, float* fval,
+                          int* rpos, float* rval, int* cnt, void* stream) {
   const dim3 grid(ntiles, rows);
-  level_summaries_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
-      x, n, ntiles, fpos, fval, rpos, rval, cnt);
+  cudaStream_t s = (cudaStream_t)stream;
+  Shard sh{};
+  sh.n_global = n_global; sh.offset = offset;
+  sh.halo_l = halo_l; sh.halo_r = halo_r;
+  if (offset != nullptr)
+    level_summaries_kernel<true><<<grid, NT, 0, s>>>(
+        x, n, ntiles, sh, fpos, fval, rpos, rval, cnt);
+  else
+    level_summaries_kernel<false><<<grid, NT, 0, s>>>(
+        x, n, ntiles, sh, fpos, fval, rpos, rval, cnt);
   return (int)cudaGetLastError();
 }
 
@@ -286,10 +348,13 @@ int pyitd_tile_scan(int rows, int ntiles, const int* fpos, const float* fval,
                     const int* rpos, const float* rval, const int* cnt,
                     int* fpos_ex, float* fval_ex, int* rpos_ex, float* rval_ex,
                     int* nex, int* flags, int* done, int* reason, int* ncomp,
-                    int trip, int max_iteration, void* stream) {
+                    int trip, int max_iteration, int* ftot_pos,
+                    float* ftot_val, int* rtot_pos, float* rtot_val,
+                    void* stream) {
   tile_scan_kernel<<<rows, 32, 0, (cudaStream_t)stream>>>(
       ntiles, fpos, fval, rpos, rval, cnt, fpos_ex, fval_ex, rpos_ex, rval_ex,
-      nex, flags, done, reason, ncomp, trip, max_iteration);
+      nex, flags, done, reason, ncomp, trip, max_iteration, ftot_pos,
+      ftot_val, rtot_pos, rtot_val);
   return (int)cudaGetLastError();
 }
 
@@ -299,20 +364,30 @@ int pyitd_sift_level(const float* x, int rows, int n, int ntiles,
                      const float* pbase, const float* perr, const float* comp,
                      float* base, float* rot, float* err, float* row_out,
                      float* comp_out, int bookkeeping, int ref_end,
-                     void* stream) {
+                     int n_global, const int* offset, const float* halo_l,
+                     const float* halo_r, const float* b_first,
+                     const float* b_last, const int* pre_pos,
+                     const float* pre_val, const int* suf_pos,
+                     const float* suf_val, void* stream) {
   const dim3 grid(ntiles, rows);
   cudaStream_t s = (cudaStream_t)stream;
-#define PYITD_LAUNCH(B, R)                                                   \
-  sift_level_kernel<B, R><<<grid, NT, 0, s>>>(                              \
-      x, n, ntiles, fpos, fval, rpos, rval, flags, rotp, pbase, perr, comp, \
-      base, rot, err, row_out, comp_out)
-  if (bookkeeping) {
-    if (ref_end) PYITD_LAUNCH(true, true);
-    else PYITD_LAUNCH(true, false);
+  const Shard sh{n_global, offset, halo_l, halo_r, b_first,
+                 b_last,   pre_pos, pre_val, suf_pos, suf_val};
+#define PYITD_LAUNCH(B, R, S)                                                \
+  sift_level_kernel<B, R, S><<<grid, NT, 0, s>>>(                           \
+      x, n, ntiles, sh, fpos, fval, rpos, rval, flags, rotp, pbase, perr,   \
+      comp, base, rot, err, row_out, comp_out)
+#define PYITD_LAUNCH_END(B, S)           \
+  if (ref_end) PYITD_LAUNCH(B, true, S); \
+  else PYITD_LAUNCH(B, false, S)
+  if (offset != nullptr) {  // time shards
+    if (bookkeeping) { PYITD_LAUNCH_END(true, true); }
+    else { PYITD_LAUNCH_END(false, true); }
   } else {
-    if (ref_end) PYITD_LAUNCH(false, true);
-    else PYITD_LAUNCH(false, false);
+    if (bookkeeping) { PYITD_LAUNCH_END(true, false); }
+    else { PYITD_LAUNCH_END(false, false); }
   }
+#undef PYITD_LAUNCH_END
 #undef PYITD_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -8,6 +8,11 @@
 // state before (forward) or after (reverse) each run, seeded with the
 // state of everything before / after the tile.  Knot positions are int32
 // indices within the row, -1 for none with value 0.
+//
+// A row may be one time shard of a longer signal (struct Shard): the knot
+// test then runs on the global position offset + t against the global
+// length, the two cells beside the shard hold its neighbours' edge samples,
+// and every knot position is global.  Shared-memory indices stay local.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -33,6 +38,23 @@ constexpr int SB_LEN = TILE + TILE / 32 + 1;
 struct Fwd { int p1; float v1; int p2; float v2; };
 // first two knots at or after a point (q1 the earliest); -1 = none, value 0
 struct Rev { int q1; float w1; int q2; float w2; };
+
+// Per-row arguments of a time shard (the port of the shard arguments of
+// pallas_fill_sharded.py::sharded_sift_level_fused): where the row starts in
+// the global signal, the neighbour shards' edge samples, the global end-knot
+// values, and the last two knots before / first two after the shard.
+struct Shard {
+  int n_global;
+  const int* offset;     // (rows)
+  const float* halo_l;   // (rows) sample before the shard's first
+  const float* halo_r;   // (rows) sample after the shard's last
+  const float* b_first;  // (rows) global end-knot values (sift_level only)
+  const float* b_last;
+  const int* pre_pos;    // (rows, 2) last two knots before the shard
+  const float* pre_val;
+  const int* suf_pos;    // (rows, 2) first two knots after the shard
+  const float* suf_val;
+};
 
 __device__ __forceinline__ Fwd fwd_none() { return {-1, 0.f, -1, 0.f}; }
 __device__ __forceinline__ Rev rev_none() { return {-1, 0.f, -1, 0.f}; }
@@ -75,11 +97,14 @@ __device__ __forceinline__ Rev shfl_down(const Rev& s, int o) {
 
 // ITD knot mask at sample t (pallas_fill.py::_knot_mask_flat): canonical
 // extrema with the plateau-rightmost rule, NaN differences as +inf, no
-// extremum within one sample of a NaN, both endpoints always, padding never
+// extremum within one sample of a NaN, both endpoints always, padding never.
+// t is the sample's index in its row of n samples, g its position in the
+// signal of ng samples (pallas_fill_sharded.py::_knot_state_sharded): a
+// sample past either end is padding.
 __device__ __forceinline__ bool knot_at(float xm1, float x0, float xp1, int t,
-                                        int n) {
-  if (t >= n) return false;
-  if (t == 0 || t == n - 1) return true;
+                                        int n, int g, int ng) {
+  if (t >= n || g >= ng) return false;
+  if (g == 0 || g == ng - 1) return true;
   float dxb = x0 - xm1;
   float dxf = xp1 - x0;
   if (isnan(dxb)) dxb = INFINITY;
@@ -90,6 +115,11 @@ __device__ __forceinline__ bool knot_at(float xm1, float x0, float xp1, int t,
   return (is_min || is_max) && !near_nan;
 }
 
+__device__ __forceinline__ bool knot_at(float xm1, float x0, float xp1, int t,
+                                        int n) {
+  return knot_at(xm1, x0, xp1, t, n, t, n);
+}
+
 // Frei-Osorio knot value (linear_baseline.py::knot_value), alpha = 0.5
 __device__ __forceinline__ float knot_value(int kpos, float kval, int lpos,
                                             float lval, int rpos, float rval) {
@@ -98,13 +128,21 @@ __device__ __forceinline__ float knot_value(int kpos, float kval, int lpos,
   return 0.5f * (lval + w * (rval - lval)) + 0.5f * kval;
 }
 
-// x[base-1 .. base+TILE] of one row into shared memory; zeros off the row
+// x[base-1 .. base+TILE] of one row into shared memory; lo for x[-1], hi
+// for x[n], zeros further off the row
 __device__ __forceinline__ void stage_tile(const float* __restrict__ xr, int n,
-                                           int base, float* s) {
+                                           int base, float* s, float lo,
+                                           float hi) {
   for (int k = threadIdx.x; k < TILE + 2; k += NT) {
     const int g = base - 1 + k;
-    s[padi(k)] = (g >= 0 && g < n) ? xr[g] : 0.f;
+    s[padi(k)] = (g >= 0 && g < n) ? xr[g]
+                                   : (g == -1 ? lo : (g == n ? hi : 0.f));
   }
+}
+
+__device__ __forceinline__ void stage_tile(const float* __restrict__ xr, int n,
+                                           int base, float* s) {
+  stage_tile(xr, n, base, s, 0.f, 0.f);
 }
 
 // This thread's run of SPT samples: knot bits, values, and the run's own
@@ -116,9 +154,10 @@ struct Run {
   Rev r;
 };
 
-// the run's knot bits and signal values from the staged tile
+// the run's knot bits and signal values from the staged tile; the row
+// starts at position off of a signal of ng samples
 __device__ __forceinline__ void load_bits(const float* s, int n, int base,
-                                          Run& run) {
+                                          Run& run, int off, int ng) {
   const int j0 = threadIdx.x * SPT;
   run.bits = 0u;
 #pragma unroll
@@ -126,11 +165,17 @@ __device__ __forceinline__ void load_bits(const float* s, int n, int base,
     const int j = j0 + k;
     const float a = s[padi(j)], b = s[padi(j + 1)], c = s[padi(j + 2)];
     run.xv[k] = b;
-    if (knot_at(a, b, c, base + j, n)) run.bits |= 1u << k;
+    if (knot_at(a, b, c, base + j, n, off + base + j, ng)) run.bits |= 1u << k;
   }
 }
 
-// the run's own last-two and first-two knots, with the values in run.xv
+__device__ __forceinline__ void load_bits(const float* s, int n, int base,
+                                          Run& run) {
+  load_bits(s, n, base, run, 0, n);
+}
+
+// the run's own last-two and first-two knots, with the values in run.xv;
+// base is the position of the tile's first sample
 __device__ __forceinline__ void run_states(int base, Run& run) {
   const int j0 = threadIdx.x * SPT;
   run.f = fwd_none();
@@ -144,9 +189,14 @@ __device__ __forceinline__ void run_states(int base, Run& run) {
 }
 
 __device__ __forceinline__ void load_run(const float* s, int n, int base,
+                                         Run& run, int off, int ng) {
+  load_bits(s, n, base, run, off, ng);
+  run_states(off + base, run);
+}
+
+__device__ __forceinline__ void load_run(const float* s, int n, int base,
                                          Run& run) {
-  load_bits(s, n, base, run);
-  run_states(base, run);
+  load_run(s, n, base, run, 0, n);
 }
 
 // Exclusive forward scan of the threads' states in thread order, seeded by

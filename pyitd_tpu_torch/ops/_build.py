@@ -40,11 +40,13 @@ _I = ctypes.c_int
 # launch's cudaGetLastError() as an int
 _SIGNATURES = {
     "pyitd_tile_size": (),
-    "pyitd_level_summaries": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P),
+    "pyitd_level_summaries": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                              _P, _P),
     "pyitd_tile_scan": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _P, _P, _P, _I, _I, _P),
+                        _P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
     "pyitd_sift_level": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _P, _P, _P, _P, _P, _I, _I, _P),
+                         _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                         _P, _P, _P, _P, _P),
     "pyitd_error_string": (_I,),
     "pyitd_scan_tile_size": (),
     "pyitd_scan_state_bytes": (_I,),

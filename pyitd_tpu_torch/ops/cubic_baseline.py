@@ -159,11 +159,13 @@ def _fo_knot_values(xv, it, p2p, p2x, n1p, n1x, b_first, b_last):
     return torch.where(it == xv.shape[-1] - 1, b_last[..., None], k)
 
 
-def _end_knot_positions(mask: torch.Tensor, big: int):
+def _end_knot_positions(mask: torch.Tensor, big: int, pos=None):
     """``(last1, last2, first1, first2)``: the last two and the first two
     marked positions per row (masked top-2 reductions); empty slots are -1
-    (last) and ``big`` (first)."""
-    it = torch.arange(mask.shape[-1], device=mask.device)
+    (last) and ``big`` (first).  ``pos`` gives the samples' positions where
+    they are not their indices (a time shard's global positions)."""
+    it = torch.arange(mask.shape[-1], device=mask.device) if pos is None \
+        else pos
     lp = torch.where(mask, it, -1)
     l1 = lp.amax(-1)
     l2 = torch.where(lp < l1[..., None], lp, -1).amax(-1)

@@ -28,6 +28,16 @@ per-row scan over tiles, the seeded apply pass):
 * ``segsum_cuda(vals, flags, reverse)``: segmented inclusive running sums
   of one or two channels that reset at flagged samples.
 
+The three sift kernels also run on time shards of a longer signal (the
+port of K9, ``pyitd_tpu/ops/pallas_fill_sharded.py``): with a
+:class:`ShardArgs`, a kernel row is one (shard, row) pair that starts at
+``offset`` of a signal of ``n_global`` samples, knots are tested and
+numbered by global position, the cells beside the row hold the neighbour
+shards' edge samples, and ``sift_level_cuda`` combines the knots before and
+after the shard into every tile's seeds.  ``tile_scan_cuda(totals=True)``
+also returns each row's inclusive totals, which ``parallel/sharded.py``
+folds across the shards.
+
 Each wrapper checks its tensors, launches its kernel on PyTorch's current
 stream for a CUDA tensor, and counts the launch in ``LAUNCHES``.  For a CPU
 tensor it runs the plain PyTorch version beside it (``level_summaries``,
@@ -45,11 +55,13 @@ import torch
 from .fill import (backward_fill2_scan, backward_fill_scan,
                    forward_fill2_scan, forward_fill_scan, prev_index,
                    shift_left, shift_right)
-from .linear_baseline import interp, knot_mask, knot_value, two_sum_err
+from .linear_baseline import (interp, knot_mask, knot_mask_at, knot_value,
+                              two_sum_err)
 
 __all__ = [
     "TILE", "STOP_A", "STOP_B", "CONT", "LAUNCHES", "reset_launches",
-    "TileSummaries", "LevelStates", "SiftCarry", "LevelOut",
+    "TileSummaries", "LevelStates", "SiftCarry", "LevelOut", "ShardArgs",
+    "ShardTotals",
     "level_summaries", "tile_scan", "level_states", "sift_level",
     "stop_flags", "emit_row", "fill2", "fillv", "segsum",
     "segsum_error_bound",
@@ -107,6 +119,37 @@ class SiftCarry(NamedTuple):
         return cls(*z)
 
 
+class ShardArgs(NamedTuple):
+    """What makes each row one time shard of a longer signal, per row:
+    ``offset`` is the global position of the row's first sample, ``halo_l``
+    / ``halo_r`` the samples just before and after the row (at the global
+    ends any finite value: those samples are knots whatever their
+    neighbours).  ``sift_level`` also needs the global end-knot values
+    ``b_first`` / ``b_last`` and the last two knots before the shard
+    (``pre_pos``/``pre_val``, latest first) and the first two after it
+    (``suf_pos``/``suf_val``, earliest first), -1 and 0 for none."""
+    n_global: int
+    offset: torch.Tensor   # (rows,) int32
+    halo_l: torch.Tensor   # (rows,) x.dtype
+    halo_r: torch.Tensor
+    b_first: torch.Tensor | None = None  # (rows,) x.dtype
+    b_last: torch.Tensor | None = None
+    pre_pos: torch.Tensor | None = None  # (rows, 2) int32
+    pre_val: torch.Tensor | None = None  # (rows, 2) x.dtype
+    suf_pos: torch.Tensor | None = None
+    suf_val: torch.Tensor | None = None
+
+
+class ShardTotals(NamedTuple):
+    """Per row, the last two (``fpos``/``fval``) and the first two
+    (``rpos``/``rval``) knots of the whole row, as in
+    :class:`TileSummaries`."""
+    fpos: torch.Tensor  # (rows, 2) int32
+    fval: torch.Tensor
+    rpos: torch.Tensor
+    rval: torch.Tensor
+
+
 class LevelOut(NamedTuple):
     baseline: torch.Tensor
     rotation: torch.Tensor
@@ -136,14 +179,33 @@ def _positions(ntiles: int, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def level_summaries(x: torch.Tensor) -> TileSummaries:
+_FAR = 1 << 40  # past every position, for the first-knot minima
+
+
+def _shard_frame(x: torch.Tensor, shard: ShardArgs | None, nt: int):
+    """``(knot mask, positions, first position, signal length)`` of rows
+    that are whole signals or, with ``shard``, time shards: the mask and
+    the positions tiled to (rows, ntiles, TILE), positions global."""
+    rows, n = x.shape
+    pos = _positions(nt, x.device)
+    if shard is None:
+        return (_tiled(knot_mask(x), False, nt), pos.expand(rows, nt, TILE),
+                0, n)
+    off = shard.offset.long()
+    gpos = off[:, None] + torch.arange(n, device=x.device)
+    knots = knot_mask_at(x, shard.halo_l, shard.halo_r, gpos, shard.n_global)
+    return (_tiled(knots, False, nt), pos + off[:, None, None],
+            off[:, None], shard.n_global)
+
+
+def level_summaries(x: torch.Tensor,
+                    shard: ShardArgs | None = None) -> TileSummaries:
     """Plain version of the ``level_summaries`` kernel."""
     rows, n = x.shape
     nt = _ntiles(n)
-    m = _tiled(knot_mask(x), False, nt)
+    m, pos, off, _ = _shard_frame(x, shard, nt)
     flat = _tiled(x, 0.0, nt).reshape(rows, -1)
-    pos = _positions(nt, x.device)
-    big = nt * TILE
+    big = _FAR
 
     lp = torch.where(m, pos, -1)
     p1 = lp.amax(-1)
@@ -155,7 +217,7 @@ def level_summaries(x: torch.Tensor) -> TileSummaries:
     q2 = torch.where(q2 == big, -1, q2)
 
     def val(p):
-        v = torch.gather(flat, 1, p.clamp(min=0).reshape(rows, -1))
+        v = torch.gather(flat, 1, (p - off).clamp(min=0).reshape(rows, -1))
         return torch.where(p >= 0, v.reshape(p.shape), 0.0)
 
     return TileSummaries(
@@ -186,7 +248,8 @@ def _rev_combine(a, b):
 
 
 def _exclusive(pos, val, combine, reverse):
-    """Per-tile exclusive scan of (rows, ntiles, 2) states over tiles."""
+    """Per-tile exclusive scan of (rows, ntiles, 2) states over tiles, and
+    the inclusive total ``(p1, v1, p2, v2)``."""
     ntiles = pos.shape[1]
     acc = (torch.full_like(pos[:, 0, 0], -1), torch.zeros_like(val[:, 0, 0]),
            torch.full_like(pos[:, 0, 0], -1), torch.zeros_like(val[:, 0, 0]))
@@ -197,7 +260,7 @@ def _exclusive(pos, val, combine, reverse):
         out_pos[:, k, 1], out_val[:, k, 1] = acc[2], acc[3]
         t = (pos[:, k, 0], val[:, k, 0], pos[:, k, 1], val[:, k, 1])
         acc = combine(t, acc) if reverse else combine(acc, t)
-    return out_pos, out_val
+    return out_pos, out_val, acc
 
 
 def stop_flags(nex, carry: SiftCarry | None, trip: int, max_iteration: int):
@@ -220,13 +283,19 @@ def stop_flags(nex, carry: SiftCarry | None, trip: int, max_iteration: int):
 
 
 def tile_scan(summ: TileSummaries, carry: SiftCarry | None = None,
-              trip: int = 0, max_iteration: int = 0) -> LevelStates:
-    """Plain version of the ``tile_scan`` kernel."""
-    fpos, fval = _exclusive(summ.fpos, summ.fval, _fwd_combine, False)
-    rpos, rval = _exclusive(summ.rpos, summ.rval, _rev_combine, True)
+              trip: int = 0, max_iteration: int = 0, totals: bool = False):
+    """Plain version of the ``tile_scan`` kernel: the :class:`LevelStates`,
+    and with ``totals`` also the rows' :class:`ShardTotals`."""
+    fpos, fval, ft = _exclusive(summ.fpos, summ.fval, _fwd_combine, False)
+    rpos, rval, rt = _exclusive(summ.rpos, summ.rval, _rev_combine, True)
     nex = (summ.cnt.sum(-1) - 2).to(torch.int32)
     flags = stop_flags(nex, carry, trip, max_iteration)
-    return LevelStates(nex, flags, fpos, fval, rpos, rval)
+    states = LevelStates(nex, flags, fpos, fval, rpos, rval)
+    if not totals:
+        return states
+    return states, ShardTotals(
+        torch.stack([ft[0], ft[2]], -1), torch.stack([ft[1], ft[3]], -1),
+        torch.stack([rt[0], rt[2]], -1), torch.stack([rt[1], rt[3]], -1))
 
 
 def level_states(x: torch.Tensor, carry: SiftCarry | None = None,
@@ -256,25 +325,38 @@ def emit_row(rotation, baseline, prev_base, pending_err, comp, stop_a,
 
 def sift_level(x: torch.Tensor, states: LevelStates, *,
                endpoint_mode: str = "reference", rotp=None, pbase=None,
-               perr=None, comp=None, out_row=None) -> LevelOut:
+               perr=None, comp=None, out_row=None,
+               shard: ShardArgs | None = None) -> LevelOut:
     """Plain version of the ``sift_level`` kernel: tile-local fills seeded
     from ``states``, the epilogue in the order of the gather form, and,
-    when ``rotp`` is given, the bookkeeping (row into ``out_row``)."""
+    when ``rotp`` is given, the bookkeeping (row into ``out_row``).  With
+    ``shard`` the rows are time shards: positions are global, the seeds
+    take in the knots of the shards before and after, and the end-knot
+    values are the global ones."""
     rows, n = x.shape
     nt = _ntiles(n)
-    m = _tiled(knot_mask(x), False, nt)
+    m, pos, _, ng = _shard_frame(x, shard, nt)
     xt = _tiled(x, 0.0, nt)
-    pos = _positions(nt, x.device).expand(rows, nt, TILE)
     tbase = pos[..., :1]
-    big = nt * TILE
+    big = _FAR
 
     def xval(p):  # value at an in-tile position
         return torch.gather(xt, -1, (p - tbase).clamp(0, TILE - 1))
 
-    sp1, sp2 = (states.fpos[..., i:i + 1].long() for i in (0, 1))
-    sv1, sv2 = (states.fval[..., i:i + 1] for i in (0, 1))
-    sq1, sq2 = (states.rpos[..., i:i + 1].long() for i in (0, 1))
-    sw1, sw2 = (states.rval[..., i:i + 1] for i in (0, 1))
+    fseed = (states.fpos[..., 0], states.fval[..., 0],
+             states.fpos[..., 1], states.fval[..., 1])
+    rseed = (states.rpos[..., 0], states.rval[..., 0],
+             states.rpos[..., 1], states.rval[..., 1])
+    if shard is not None:  # farther than any of the shard's own knots
+        fseed = _fwd_combine(
+            (shard.pre_pos[:, :1], shard.pre_val[:, :1],
+             shard.pre_pos[:, 1:], shard.pre_val[:, 1:]), fseed)
+        rseed = _rev_combine(
+            rseed, (shard.suf_pos[:, :1], shard.suf_val[:, :1],
+                    shard.suf_pos[:, 1:], shard.suf_val[:, 1:]))
+    sp1, sv1, sp2, sv2 = (a[..., None] for a in fseed)
+    sq1, sw1, sq2, sw2 = (a[..., None] for a in rseed)
+    sp1, sp2, sq1, sq2 = sp1.long(), sp2.long(), sq1.long(), sq2.long()
 
     # last two knots at or before t
     f1 = torch.cummax(torch.where(m, pos, -1), -1).values
@@ -298,17 +380,23 @@ def sift_level(x: torch.Tensor, states: LevelStates, *,
     q2 = torch.where(jn2, r2, torch.where(jn1, sq1, sq2))
     w2 = torch.where(jn2, xval(r2), torch.where(jn1, sw1, sw2))
 
-    # the sample after n-1 does not exist: the gather form clips to n-1
-    last = pos == n - 1
-    q1 = torch.where(last, n - 1, q1)
+    # the sample after the signal's last does not exist: the gather form
+    # clips to the last
+    last = pos == ng - 1
+    q1 = torch.where(last, ng - 1, q1)
     w1 = torch.where(last, xt, w1)
 
-    b_first = (0.5 * (x[:, 0] + x[:, 1]))[:, None, None]
-    b_last = (0.5 * (x[:, n - 2] + x[:, n - 1]))[:, None, None]
-    b_l = torch.where(p1 == n - 1, b_last, torch.where(
+    if shard is None:
+        b_first = 0.5 * (x[:, 0] + x[:, 1])
+        b_last = 0.5 * (x[:, n - 2] + x[:, n - 1])
+    else:
+        b_first, b_last = shard.b_first, shard.b_last
+    b_first, b_last = b_first[:, None, None], b_last[:, None, None]
+    b_l = torch.where(p1 == ng - 1, b_last, torch.where(
         p1 == 0, b_first, knot_value(p1, v1, p2, v2, q1, w1)))
-    b_r = torch.where(q1 == n - 1, b_last, knot_value(q1, w1, p1, v1, q2, w2))
-    baseline = interp(xt, pos, n, b_l, v1, b_r, w1, endpoint_mode)
+    b_r = torch.where(q1 == ng - 1, b_last,
+                      knot_value(q1, w1, p1, v1, q2, w2))
+    baseline = interp(xt, pos, ng, b_l, v1, b_r, w1, endpoint_mode)
     baseline = baseline.reshape(rows, -1)[:, :n].contiguous()
 
     rotation = x - baseline
@@ -432,7 +520,10 @@ def _check(code: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
 
 
-def _check_signal(x: torch.Tensor) -> None:
+def _check_signal(x: torch.Tensor, shard: ShardArgs | None = None,
+                  seeds: bool = False) -> None:
+    """Refuse what the sift kernels do not take; with ``shard`` the rows
+    are time shards (``seeds``: with the ``sift_level`` fields)."""
     if x.dim() != 2:
         raise ValueError(f"expected a (rows, n) signal, got {tuple(x.shape)}")
     if x.dtype != torch.float32:
@@ -440,13 +531,26 @@ def _check_signal(x: torch.Tensor) -> None:
     if not x.is_contiguous():
         raise ValueError("the sift kernels need a contiguous signal")
     rows, n = x.shape
-    if n < 2:
-        raise ValueError(f"a signal needs at least 2 samples (got n={n})")
+    length = n if shard is None else shard.n_global
+    if length < 2 or n < 1:
+        raise ValueError(f"a signal needs at least 2 samples (got n={length}"
+                         f", {n} in a row)")
     if x.is_cuda and not 0 < rows <= 65535:
         raise ValueError(f"the sift kernels take 1..65535 rows, got {rows}")
-    if n > 2**31 - 1 - TILE:  # int32 positions in the kernels
+    if max(n, length) > 2**31 - 1 - TILE:  # int32 positions in the kernels
         raise ValueError(f"the sift kernels take n < 2^31 - {TILE + 1}, "
-                         f"got {n}")
+                         f"got {max(n, length)}")
+    if shard is None:
+        return
+    _same(x, shard.offset, dtype=torch.int32, shape=(rows,))
+    _same(x, shard.halo_l, shard.halo_r, dtype=torch.float32, shape=(rows,))
+    if seeds:
+        _same(x, shard.b_first, shard.b_last, dtype=torch.float32,
+              shape=(rows,))
+        _same(x, shard.pre_pos, shard.suf_pos, dtype=torch.int32,
+              shape=(rows, 2))
+        _same(x, shard.pre_val, shard.suf_val, dtype=torch.float32,
+              shape=(rows, 2))
 
 
 def _same(x: torch.Tensor, *tensors, dtype=None, shape=None) -> None:
@@ -466,29 +570,43 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def level_summaries_cuda(x: torch.Tensor) -> TileSummaries:
-    """Per-tile knot summaries of ``x`` (rows, n) f32."""
-    _check_signal(x)
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def level_summaries_cuda(x: torch.Tensor,
+                         shard: ShardArgs | None = None) -> TileSummaries:
+    """Per-tile knot summaries of ``x`` (rows, n) f32; with ``shard`` of
+    rows that are time shards (``offset``, ``halo_l``, ``halo_r``,
+    ``n_global``)."""
+    _check_signal(x, shard)
     if not x.is_cuda:
-        return level_summaries(x)
+        return level_summaries(x, shard)
     rows, n = x.shape
+    sh = (0, None, None, None) if shard is None else (
+        shard.n_global, shard.offset.data_ptr(), shard.halo_l.data_ptr(),
+        shard.halo_r.data_ptr())
     nt = _ntiles(n)
     pos = torch.empty((2, rows, nt, 2), dtype=torch.int32, device=x.device)
     val = torch.empty((2, rows, nt, 2), dtype=torch.float32, device=x.device)
     cnt = torch.empty((rows, nt), dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         code = _lib().pyitd_level_summaries(
-            x.data_ptr(), rows, n, nt, pos[0].data_ptr(), val[0].data_ptr(),
-            pos[1].data_ptr(), val[1].data_ptr(), cnt.data_ptr(), _stream(x))
+            x.data_ptr(), rows, n, nt, *sh, pos[0].data_ptr(),
+            val[0].data_ptr(), pos[1].data_ptr(), val[1].data_ptr(),
+            cnt.data_ptr(), _stream(x))
     _check(code, "level_summaries")
     LAUNCHES["level_summaries"] += 1
     return TileSummaries(pos[0], val[0], pos[1], val[1], cnt)
 
 
 def tile_scan_cuda(summ: TileSummaries, carry: SiftCarry | None = None,
-                   trip: int = 0, max_iteration: int = 0) -> LevelStates:
+                   trip: int = 0, max_iteration: int = 0,
+                   totals: bool = False):
     """Exclusive per-tile seeds, extrema counts and (with ``carry``) the
-    trip's stop flags; ``carry`` is updated in place."""
+    trip's stop flags; ``carry`` is updated in place.  With ``totals`` the
+    result is ``(LevelStates, ShardTotals)``: also each row's last two and
+    first two knots."""
     rows, nt = summ.cnt.shape
     ref = summ.fval
     _same(ref, summ.fpos, summ.rpos, summ.cnt, dtype=torch.int32)
@@ -496,9 +614,17 @@ def tile_scan_cuda(summ: TileSummaries, carry: SiftCarry | None = None,
     if carry is not None:
         _same(ref, *carry, dtype=torch.int32, shape=(rows,))
     if not ref.is_cuda:
-        return tile_scan(summ, carry, trip, max_iteration)
+        return tile_scan(summ, carry, trip, max_iteration, totals)
     pos = torch.empty((2, rows, nt, 2), dtype=torch.int32, device=ref.device)
     val = torch.empty((2, rows, nt, 2), dtype=torch.float32, device=ref.device)
+    tpos = tval = None
+    if totals:
+        tpos = torch.empty((2, rows, 2), dtype=torch.int32, device=ref.device)
+        tval = torch.empty((2, rows, 2), dtype=torch.float32,
+                           device=ref.device)
+    tot = (None,) * 4 if not totals else (
+        tpos[0].data_ptr(), tval[0].data_ptr(), tpos[1].data_ptr(),
+        tval[1].data_ptr())
     nex = torch.empty(rows, dtype=torch.int32, device=ref.device)
     flags = torch.empty(rows, dtype=torch.int32, device=ref.device)
     done, reason, ncomp = (None, None, None) if carry is None else (
@@ -509,10 +635,13 @@ def tile_scan_cuda(summ: TileSummaries, carry: SiftCarry | None = None,
             summ.rpos.data_ptr(), summ.rval.data_ptr(), summ.cnt.data_ptr(),
             pos[0].data_ptr(), val[0].data_ptr(), pos[1].data_ptr(),
             val[1].data_ptr(), nex.data_ptr(), flags.data_ptr(), done,
-            reason, ncomp, trip, max_iteration, _stream(ref))
+            reason, ncomp, trip, max_iteration, *tot, _stream(ref))
     _check(code, "tile_scan")
     LAUNCHES["tile_scan"] += 1
-    return LevelStates(nex, flags, pos[0], val[0], pos[1], val[1])
+    states = LevelStates(nex, flags, pos[0], val[0], pos[1], val[1])
+    if not totals:
+        return states
+    return states, ShardTotals(tpos[0], tval[0], tpos[1], tval[1])
 
 
 def level_states_cuda(x: torch.Tensor, carry: SiftCarry | None = None,
@@ -524,14 +653,17 @@ def level_states_cuda(x: torch.Tensor, carry: SiftCarry | None = None,
 
 def sift_level_cuda(x: torch.Tensor, states: LevelStates, *,
                     endpoint_mode: str = "reference", rotp=None, pbase=None,
-                    perr=None, comp=None, out_row=None) -> LevelOut:
+                    perr=None, comp=None, out_row=None,
+                    shard: ShardArgs | None = None) -> LevelOut:
     """One extraction of ``x`` (rows, n) f32 seeded by ``states``.  With
     ``rotp`` (and ``pbase``, ``perr``, ``comp``, ``out_row``, all (rows, n)
     f32) it also writes the previous extraction's output row into
-    ``out_row`` and returns the updated compensation."""
+    ``out_row`` and returns the updated compensation.  With ``shard`` (every
+    field set) the rows are time shards and ``states`` the seeds from the
+    shard's own tiles."""
     if endpoint_mode not in ("reference", "natural"):
         raise ValueError(f"unknown endpoint_mode: {endpoint_mode!r}")
-    _check_signal(x)
+    _check_signal(x, shard, seeds=True)
     rows, n = x.shape
     nt = _ntiles(n)
     book = rotp is not None
@@ -544,22 +676,22 @@ def sift_level_cuda(x: torch.Tensor, states: LevelStates, *,
               shape=(rows, n))
     if not x.is_cuda:
         return sift_level(x, states, endpoint_mode=endpoint_mode, rotp=rotp,
-                          pbase=pbase, perr=perr, comp=comp, out_row=out_row)
+                          pbase=pbase, perr=perr, comp=comp, out_row=out_row,
+                          shard=shard)
     base, rot, err = torch.empty((3, rows, n), dtype=torch.float32,
                                  device=x.device)
     comp_out = torch.empty_like(x) if book else None
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
+    sh = (0,) + (None,) * 9 if shard is None else (
+        shard.n_global,) + tuple(t.data_ptr() for t in shard[1:])
 
     with torch.cuda.device(x.device):
         code = _lib().pyitd_sift_level(
             x.data_ptr(), rows, n, nt, states.fpos.data_ptr(),
             states.fval.data_ptr(), states.rpos.data_ptr(),
-            states.rval.data_ptr(), ptr(states.flags if book else None),
-            ptr(rotp), ptr(pbase), ptr(perr), ptr(comp), base.data_ptr(),
-            rot.data_ptr(), err.data_ptr(), ptr(out_row), ptr(comp_out),
-            int(book), int(endpoint_mode == "reference"), _stream(x))
+            states.rval.data_ptr(), _ptr(states.flags if book else None),
+            _ptr(rotp), _ptr(pbase), _ptr(perr), _ptr(comp), base.data_ptr(),
+            rot.data_ptr(), err.data_ptr(), _ptr(out_row), _ptr(comp_out),
+            int(book), int(endpoint_mode == "reference"), *sh, _stream(x))
     _check(code, "sift_level")
     LAUNCHES["sift_level"] += 1
     return LevelOut(base, rot, err, comp_out)

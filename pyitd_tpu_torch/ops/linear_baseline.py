@@ -39,7 +39,7 @@ from .fill import (backward_fill2_scan, backward_fill_scan,
                    shift_right, take_last_axis)
 
 __all__ = ["linear_baseline_extract", "LinearBaselineResult", "two_sum_err",
-           "knot_mask", "structural_level_bwd",
+           "knot_mask", "knot_mask_at", "structural_level_bwd",
            "linear_baseline_extract_structural"]
 
 ENDPOINT_MODES = ("reference", "natural")
@@ -65,6 +65,26 @@ def knot_mask(x: torch.Tensor) -> torch.Tensor:
     n = x.shape[-1]
     it = torch.arange(n, device=x.device)
     return extrema_mask(x) | (it == 0) | (it == n - 1)
+
+
+def knot_mask_at(x: torch.Tensor, halo_l: torch.Tensor, halo_r: torch.Tensor,
+                 gpos: torch.Tensor, n_global: int) -> torch.Tensor:
+    """:func:`knot_mask` of rows that are pieces of a signal of ``n_global``
+    samples (``pyitd_tpu/parallel/sharded.py:180-197``): ``gpos`` holds each
+    sample's position in the signal, ``halo_l`` / ``halo_r`` (one per row)
+    the samples just before and after the piece.  A sample at or past
+    ``n_global`` is padding and never a knot."""
+    inf = torch.full_like(x, float("inf"))
+    x_m1 = torch.cat([halo_l[..., None], x[..., :-1]], dim=-1)
+    x_p1 = torch.cat([x[..., 1:], halo_r[..., None]], dim=-1)
+    dxb, dxf = x - x_m1, x_p1 - x
+    dxb = torch.where(torch.isnan(dxb), inf, dxb)
+    dxf = torch.where(torch.isnan(dxf), inf, dxf)
+    interior = (gpos > 0) & (gpos < n_global - 1)
+    near_nan = torch.isnan(x) | torch.isnan(x_m1) | torch.isnan(x_p1)
+    extrema = (((dxb <= 0) & (dxf > 0)) | ((dxb >= 0) & (dxf < 0))) \
+        & interior & ~near_nan
+    return extrema | (gpos == 0) | (gpos == n_global - 1)
 
 
 def knot_value(kpos, kval, lpos, lval, rpos, rval):

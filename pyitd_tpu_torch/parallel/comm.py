@@ -1,0 +1,202 @@
+"""Shard groups: what ``jax.sharding.Mesh`` + ``shard_map`` + the ``lax``
+collectives are to ``pyitd_tpu/parallel/sharded.py``.
+
+The time axis of a (rows, n) bank is cut into ``size`` equal shards.  Every
+shard-local tensor carries a leading shard axis, ``(S_local, rows, n_loc)``,
+and ``ranks`` numbers the shards this process holds, so one body of code
+serves both groups:
+
+* :class:`LocalGroup` — all ``size`` shards in this process on one device
+  (``S_local == size``); a collective is an index operation along axis 0,
+  differentiable by autograd.  It is to this package what a mesh of virtual
+  CPU devices is to the JAX tests, and it is what runs on one card.
+* :class:`DistGroup` — one shard per process (``S_local == 1``) over a
+  ``torch.distributed`` process group (gloo on the CPU, NCCL on cards).
+  Forward only.
+
+The ``data`` axis of JAX's mesh needs no collective; here it is the ``rows``
+axis.  Each group counts its calls by kind in ``calls`` (``halo``,
+``all_gather``, ``all_reduce_sum``, ``all_reduce_min``), as
+``ops/cuda_fill.py`` counts launches.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["LocalGroup", "DistGroup"]
+
+_KINDS = ("halo", "all_gather", "all_reduce_sum", "all_reduce_min")
+
+
+class _Group:
+    size: int
+    differentiable = False  # whether autograd passes through the collectives
+
+    def __init__(self) -> None:
+        self.calls = dict.fromkeys(_KINDS, 0)
+
+    def reset_calls(self) -> None:
+        for k in self.calls:
+            self.calls[k] = 0
+
+    def ranks(self, device) -> torch.Tensor:
+        """The ranks of the shards this process holds, (S_local,) int64."""
+        raise NotImplementedError
+
+
+class LocalGroup(_Group):
+    """All ``size`` time shards in this process, on one device."""
+
+    differentiable = True
+
+    def __init__(self, size: int) -> None:
+        super().__init__()
+        if size < 1:
+            raise ValueError(f"a group needs at least one shard, got {size}")
+        self.size = size
+
+    def ranks(self, device) -> torch.Tensor:
+        return torch.arange(self.size, device=device)
+
+    def _is_rank(self, rank: int, like: torch.Tensor) -> torch.Tensor:
+        """True on the shard of ``rank``, shaped to broadcast over
+        ``like``."""
+        return (self.ranks(like.device) == rank).reshape(
+            (-1,) + (1,) * (like.dim() - 1))
+
+    def to_shards(self, x: torch.Tensor):
+        """``x`` (rows, n) as ``((size, rows, n_loc), n)``: the time axis
+        edge-padded to a multiple of ``size`` and cut."""
+        rows, n = x.shape
+        pad = (-n) % self.size
+        if pad:
+            x = torch.cat([x, x[:, -1:].expand(rows, pad)], dim=-1)
+        return x.reshape(rows, self.size, -1).transpose(0, 1).contiguous(), n
+
+    def from_shards(self, y: torch.Tensor, n: int) -> torch.Tensor:
+        """The inverse of :meth:`to_shards` on the last three axes of ``y``
+        (..., size, rows, n_loc): (..., rows, n), padding cropped."""
+        y = y.transpose(-3, -2)
+        return y.reshape(y.shape[:-2] + (-1,))[..., :n]
+
+    def shift_right_edge(self, edge: torch.Tensor, fill) -> torch.Tensor:
+        """Per shard, ``edge`` (S_local, ...) of the shard before it;
+        ``fill`` (a number or a tensor like ``edge``) on rank 0."""
+        self.calls["halo"] += 1
+        return torch.where(self._is_rank(0, edge), fill,
+                           torch.cat([edge[:1], edge[:-1]]))
+
+    def shift_left_edge(self, edge: torch.Tensor, fill) -> torch.Tensor:
+        """Per shard, ``edge`` of the shard after it; ``fill`` on the
+        last rank."""
+        self.calls["halo"] += 1
+        return torch.where(self._is_rank(self.size - 1, edge), fill,
+                           torch.cat([edge[1:], edge[-1:]]))
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (S_local, ...) of every shard, (size, ...), the same on
+        every shard."""
+        self.calls["all_gather"] += 1
+        return t
+
+    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` (S_local, ...) over all shards, (1, ...).  The
+        shards are added in rank order, with no zero to start from, so a
+        sum whose other terms are -0.0 is bitwise its one term."""
+        self.calls["all_reduce_sum"] += 1
+        acc = t[0]
+        for s in range(1, self.size):
+            acc = acc + t[s]
+        return acc[None]
+
+    def all_reduce_min(self, t: torch.Tensor) -> torch.Tensor:
+        self.calls["all_reduce_min"] += 1
+        return t.amin(0, keepdim=True)
+
+
+class DistGroup(_Group):
+    """One time shard per process of a ``torch.distributed`` process group
+    (default: the world).  The collectives carry no gradient: a tensor that
+    requires grad raises ``NotImplementedError`` (ROADMAP.md, queue 1, item
+    9: the ``DistGroup`` gradient)."""
+
+    def __init__(self, process_group=None) -> None:
+        super().__init__()
+        import torch.distributed as dist
+
+        self._dist = dist
+        self.pg = process_group
+        self.size = dist.get_world_size(process_group)
+        self.rank = dist.get_rank(process_group)
+
+    def ranks(self, device) -> torch.Tensor:
+        return torch.full((1,), self.rank, device=device)
+
+    def to_shards(self, x: torch.Tensor):
+        """``x`` is this rank's (rows, n_loc) slice; all slices have one
+        length."""
+        return x[None].contiguous(), x.shape[-1] * self.size
+
+    def from_shards(self, y: torch.Tensor, n: int) -> torch.Tensor:
+        """This rank's slice of the result."""
+        return y.squeeze(-3)
+
+    def _no_grad(self, t: torch.Tensor) -> None:
+        if t.requires_grad and torch.is_grad_enabled():
+            raise NotImplementedError(
+                "DistGroup collectives carry no gradient yet (ROADMAP.md, "
+                "queue 1, item 9); differentiate with a LocalGroup")
+
+    def _peer(self, r: int) -> int:
+        return r if self.pg is None else self._dist.get_global_rank(self.pg, r)
+
+    def _shift(self, edge: torch.Tensor, fill, step: int) -> torch.Tensor:
+        """Send ``edge`` to rank + step, receive rank - step's."""
+        if edge.dtype == torch.bool:  # the backends move numbers
+            return self._shift(edge.to(torch.uint8), int(bool(fill)),
+                               step) != 0
+        self._no_grad(edge)
+        self.calls["halo"] += 1
+        dist = self._dist
+        got = torch.empty_like(edge)
+        dst, src = self.rank + step, self.rank - step
+        ops = []
+        if 0 <= dst < self.size:
+            ops.append(dist.P2POp(dist.isend, edge.contiguous(),
+                                  self._peer(dst), self.pg))
+        if 0 <= src < self.size:
+            ops.append(dist.P2POp(dist.irecv, got, self._peer(src), self.pg))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        if 0 <= src < self.size:
+            return got
+        fill = torch.as_tensor(fill, dtype=edge.dtype, device=edge.device)
+        return fill.expand_as(edge).contiguous()
+
+    def shift_right_edge(self, edge: torch.Tensor, fill) -> torch.Tensor:
+        return self._shift(edge, fill, 1)
+
+    def shift_left_edge(self, edge: torch.Tensor, fill) -> torch.Tensor:
+        return self._shift(edge, fill, -1)
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        self._no_grad(t)
+        self.calls["all_gather"] += 1
+        out = torch.empty((self.size,) + t.shape[1:], dtype=t.dtype,
+                          device=t.device)
+        self._dist.all_gather_into_tensor(out, t.contiguous(), group=self.pg)
+        return out
+
+    def _reduce(self, t: torch.Tensor, kind: str, op) -> torch.Tensor:
+        self._no_grad(t)
+        self.calls[kind] += 1
+        out = t.clone()
+        self._dist.all_reduce(out, op=op, group=self.pg)
+        return out
+
+    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
+        return self._reduce(t, "all_reduce_sum", self._dist.ReduceOp.SUM)
+
+    def all_reduce_min(self, t: torch.Tensor) -> torch.Tensor:
+        return self._reduce(t, "all_reduce_min", self._dist.ReduceOp.MIN)

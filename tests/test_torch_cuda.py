@@ -11,12 +11,15 @@ across ops.  ``segsum`` is exact on integer-valued inputs and within
 held against the plain route as ``tests/test_pallas_fill.py:394-404`` holds
 JAX's two routes; the sift gradient against the plain structural route.
 The cubic tier's kernels (K5-K8) are bitwise their plain versions, and its
-``"fills"`` route bitwise the plain route.
+``"fills"`` route bitwise the plain route.  The shard-aware sift kernels (the
+port of K9) are bitwise their plain versions, and ``sharded_itd_sift`` on
+them is bitwise the unsharded kernel sift on ``chip_smoke.sharded_cases``.
 """
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import sharded_cases
 from pyitd_tpu_torch import (ITD, cubic_baseline_extract, itd_sift,
                              linear_baseline_extract)
 from pyitd_tpu_torch.ops import cuda_cubic, cuda_fill
@@ -50,6 +53,7 @@ def _cases():
 
 
 CASES = list(_cases())
+SHARDED_CASES = list(sharded_cases())
 
 
 def bitwise_equal(a, b) -> bool:
@@ -304,3 +308,108 @@ def test_chained_block_spike_kernel_against_plain(device):
     assert bitwise_equal(got, cuda_cubic.spike_factors(m, *args))
     u, w = cuda_cubic.chained_block_spike(m, *args)
     assert u.shape == (2, n) and bool(torch.isfinite(u).all())
+
+
+# ---- the shard-aware sift kernels (the port of K9) ----
+
+def _shard_rows(x, seq, device):
+    """``x`` (rows, n) cut into ``seq`` time shards as kernel rows, with
+    the :class:`ShardArgs` of the first pre-pass (halos from the neighbour
+    shards, their own edge sample at the global ends)."""
+    from pyitd_tpu_torch.parallel import LocalGroup
+    from pyitd_tpu_torch.parallel.sharded import _shard_halos
+
+    group = LocalGroup(seq)
+    x3, n_global = group.to_shards(torch.from_numpy(x).to(device))
+    s, rows, n_loc = x3.shape
+    halo_l, halo_r = _shard_halos(x3, group)
+    offset = (torch.arange(s, device=device) * n_loc).to(
+        torch.int32).repeat_interleave(rows)
+    return x3.reshape(s * rows, n_loc), cuda_fill.ShardArgs(
+        n_global, offset, halo_l.reshape(-1), halo_r.reshape(-1))
+
+
+@pytest.mark.parametrize("seq", [2, 4, 8])
+@pytest.mark.parametrize("name,x", SHARDED_CASES,
+                         ids=[c[0] for c in SHARDED_CASES])
+def test_shard_aware_kernels_are_bitwise_plain(device, name, x, seq):
+    """``level_summaries``, ``tile_scan`` (with totals) and ``sift_level``
+    with shard arguments against their plain versions on the same inputs;
+    the seeds of ``sift_level`` are made-up knots far before and after."""
+    x2, shard = _shard_rows(x, seq, device)
+    rows = x2.shape[0]
+    sk = cuda_fill.level_summaries_cuda(x2, shard)
+    sp = cuda_fill.level_summaries(x2, shard)
+    for a, b in zip(sk, sp):
+        assert bitwise_equal(a, b)
+    (tk, totk), (tp, totp) = (cuda_fill.tile_scan_cuda(sk, totals=True),
+                              cuda_fill.tile_scan(sp, totals=True))
+    for a, b in zip(tk + totk, tp + totp):
+        assert bitwise_equal(a, b)
+    gen = torch.Generator(device=device).manual_seed(rows)
+    val = torch.randn((4, rows, 2), generator=gen, device=device)
+    # made-up neighbours: knots 1 and 3 samples before each shard and 0 and
+    # 2 after it, none at the global ends
+    off, end = shard.offset, shard.offset + x2.shape[1]
+    pre = torch.stack([off - 1, off - 3], -1)
+    pre = torch.where(pre >= 0, pre, -1).contiguous()
+    suf = torch.stack([end, end + 2], -1)
+    suf = torch.where(suf < shard.n_global, suf, -1).contiguous()
+    full = shard._replace(
+        b_first=val[2, :, 0].contiguous(), b_last=val[3, :, 0].contiguous(),
+        pre_pos=pre, pre_val=torch.where(pre >= 0, val[0], 0.0),
+        suf_pos=suf, suf_val=torch.where(suf >= 0, val[1], 0.0))
+    for mode in ("reference", "natural"):
+        lk = cuda_fill.sift_level_cuda(x2, tk, endpoint_mode=mode, shard=full)
+        lp = cuda_fill.sift_level(x2, tk, endpoint_mode=mode, shard=full)
+        for a, b in zip(lk[:3], lp[:3]):
+            assert bitwise_equal(a, b), mode
+
+
+@pytest.mark.parametrize("seq", [2, 4, 8])
+@pytest.mark.parametrize("name,x", SHARDED_CASES,
+                         ids=[c[0] for c in SHARDED_CASES])
+def test_sharded_sift_is_bitwise_unsharded(device, name, x, seq, monkeypatch):
+    """``sharded_itd_sift`` on the kernels against the unsharded kernel
+    sift and against itself with every wrapper swapped for its plain
+    version: stop A and stop B, both endpoint modes, launches and
+    collectives per trip."""
+    from pyitd_tpu_torch.parallel import LocalGroup, sharded_itd_sift
+
+    xt = torch.from_numpy(x).to(device)
+    for mode, max_it in (("reference", 6), ("natural", 2)):
+        group = LocalGroup(seq)
+        cuda_fill.reset_launches()
+        got = sharded_itd_sift(xt, group, max_it, endpoint_mode=mode)
+        trips = max_it + 3
+        assert cuda_fill.LAUNCHES["sift_level"] == trips
+        assert cuda_fill.LAUNCHES["level_summaries"] == trips
+        assert group.calls == {"halo": 2 * trips, "all_gather": trips,
+                               "all_reduce_sum": trips, "all_reduce_min": 0}
+        ref = itd_sift(xt, max_it, endpoint_mode=mode, store_baselines=False)
+        want = (ref.rotations, ref.num_components, ref.stop_reason,
+                ref.correction)
+        for a, b in zip(got, want):
+            assert bitwise_equal(a, b), mode
+        with monkeypatch.context() as m:
+            for k in ("level_summaries", "tile_scan", "sift_level"):
+                m.setattr(cuda_fill, k + "_cuda", getattr(cuda_fill, k))
+            plain = sharded_itd_sift(xt, LocalGroup(seq), max_it,
+                                     endpoint_mode=mode, backend="kernel")
+        for a, b in zip(got, plain):
+            assert bitwise_equal(a, b), mode
+
+
+def test_sharded_cubic_on_the_card(device):
+    """``sharded_cubic_baseline`` (plain PyTorch on the card) against the
+    gather route of the whole signal, f64."""
+    from pyitd_tpu_torch.parallel import LocalGroup, sharded_cubic_baseline
+
+    x = torch.from_numpy(SHARDED_CASES[-1][1]).double().to(device)
+    ref = cubic_baseline_extract(x, x.shape[-1] + 2, eval_backend="gather")
+    for method in ("spike", "gather"):
+        rot, base, nex = sharded_cubic_baseline(x, LocalGroup(4),
+                                                method=method)
+        assert torch.equal(nex, ref.num_extrema)
+        torch.testing.assert_close(base, ref.baseline, rtol=0, atol=1e-9)
+        torch.testing.assert_close(rot, ref.rotation, rtol=0, atol=1e-9)

@@ -267,8 +267,11 @@ def test_plain_route_is_differentiable_and_kernel_route_refuses_grad():
 
 def test_import_loads_no_jax():
     code = ("import sys, pyitd_tpu_torch, pyitd_tpu_torch.ops.cuda_fill, "
-            "pyitd_tpu_torch.utils.interop; "
-            "assert 'jax' not in sys.modules, 'jax imported'")
+            "pyitd_tpu_torch.utils.interop, pyitd_tpu_torch.parallel, "
+            "pyitd_tpu_torch.parallel.comm, pyitd_tpu_torch.parallel.sharded, "
+            "pyitd_tpu_torch.parallel.batch; "
+            "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert 'pyitd_tpu' not in sys.modules, 'pyitd_tpu imported'")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
                    cwd=root)
