@@ -19,8 +19,13 @@ Phases (each raises on failure, so any failure exits non-zero):
    (``FAULTS``); the fills (fill2 in both
    directions and both ``strict`` modes, fillv) bitwise against their plain
    versions, with marks on tile seams and a row with no mark; segsum with 1
-   and 2 channels in both directions, exact on integer-valued inputs and
-   within ``segsum_error_bound`` on real ones; the level adjoint on the
+   and 2 channels in both directions and both ``strict`` modes, exact on
+   integer-valued inputs and within ``segsum_error_bound`` on real ones;
+   the same on the shapes that try the one-pass scan's protocol
+   (``scan_protocol_cases``: rows and arrays off a 16-byte boundary, 1
+   tile, 1 tile + 1, 245 tiles with a row that has no mark, 256 x 16,384,
+   and 8 x 1M, more blocks than the card holds at once), and the same
+   segsum call 20 times bitwise the same; the level adjoint on the
    kernels against the plain route (rtol = atol = 2e-4, and no more than
    1.5x the plain route's error against an f64 truth, plus 1e-6); the
    ``ITD`` class on a numpy float64 signal through the sift kernels; the
@@ -58,7 +63,9 @@ Phases (each raises on failure, so any failure exits non-zero):
    route and against plain scans, the planted faults rejected;
 7. each kernel against its plain version at the main path's shapes, with
    its device time, the plain version's, and its bound (bytes over the
-   card's 3.35 TB/s, or f32 operations over its 67 TFLOP/s); the cubic
+   card's 3.35 TB/s, or f32 operations over its 67 TFLOP/s); the scans
+   also on the input of the backward's last level, where knots are
+   sparse and the look-back is longest; the cubic
    kernels K5-K8 likewise after phase 8, on the inputs the cubic level
    gave them;
 8. the cubic level at full size: ``cubic_baseline_extract`` of the bench
@@ -103,7 +110,7 @@ import numpy as np
 SRC = {k: "pyitd_tpu_torch/csrc/sift_level.cu"
        for k in ("level_summaries", "tile_scan", "sift_level")}
 SRC.update({k: "pyitd_tpu_torch/csrc/fill_segsum.cu"
-            for k in ("fill2", "fillv", "segsum")})
+            for k in ("fill2", "fillv", "segsum", "segsum_1ch")})
 SRC.update({k: "pyitd_tpu_torch/csrc/cubic.cu"
             for k in ("cubic_ksite", "cubic_neighbors", "spike_backsub_eval")})
 SRC["spike_factors"] = "pyitd_tpu_torch/csrc/spike.cu"
@@ -116,6 +123,7 @@ REPLACES = {
     "fill2": "pyitd_tpu/ops/pallas_fill.py:590",
     "fillv": "pyitd_tpu/ops/pallas_fill.py:363",
     "segsum": "pyitd_tpu/ops/pallas_fill.py:503",
+    "segsum_1ch": "pyitd_tpu/ops/pallas_fill.py:503",
     "cubic_ksite": "pyitd_tpu/ops/pallas_fill.py:1590",
     "cubic_neighbors": "pyitd_tpu/ops/pallas_fill.py:1691",
     "spike_factors": "pyitd_tpu/ops/pallas_spike.py:176",
@@ -230,6 +238,19 @@ def device_ms(fn, reps: int = 5) -> tuple[float, dict]:
             by_name[e.key] = us / 1e3 / reps
     total = sum(by_name.values())
     return (total if total > 0 else float("nan")), by_name
+
+
+def device_launches(fn, name: str) -> int:
+    """How many kernels whose name contains ``name`` one call of ``fn``
+    launches, from a ``torch.profiler`` trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if name in e.key)
 
 
 def aten_ops(fn) -> int:
@@ -353,7 +374,8 @@ def scan_masks(x):
     return knot_mask(x), torch.from_numpy(m).to(x.device)
 
 
-def segsum_within_bound(vals, flags, reverse, what) -> tuple[float, float]:
+def segsum_within_bound(vals, flags, reverse, what,
+                        strict=False) -> tuple[float, float]:
     """segsum on real-valued channels, kernel against plain: the same
     non-finite results, the finite ones within ``segsum_error_bound``.
     Returns (max abs err, max err / bound)."""
@@ -361,15 +383,15 @@ def segsum_within_bound(vals, flags, reverse, what) -> tuple[float, float]:
     from pyitd_tpu_torch.ops import cuda_fill as cf
 
     chans = (vals,) if isinstance(vals, torch.Tensor) else tuple(vals)
-    got = cf.segsum_cuda(chans, flags, reverse)
-    want = cf.segsum(chans, flags, reverse)
+    got = cf.segsum_cuda(chans, flags, reverse, strict)
+    want = cf.segsum(chans, flags, reverse, strict)
     err_max, ratio = 0.0, 0.0
     for v, a, b in zip(chans, got, want):
         fin = torch.isfinite(b)
         if not bitwise_equal(a[~fin], b[~fin]):
             raise AssertionError(f"segsum {what}: non-finite sums differ")
         err = (a.double() - b.double()).abs()[fin]
-        bound = cf.segsum_error_bound(v, flags, reverse)[fin]
+        bound = cf.segsum_error_bound(v, flags, reverse, strict)[fin]
         if not bool((err <= bound).all()):
             raise AssertionError(f"segsum {what}: beyond segsum_error_bound")
         if err.numel():
@@ -378,17 +400,54 @@ def segsum_within_bound(vals, flags, reverse, what) -> tuple[float, float]:
     return err_max, ratio
 
 
-def check_scans(name, x) -> tuple[float, float]:
+def off_boundary(t, off: int):
+    """A contiguous copy of ``t`` whose data starts ``off`` elements past
+    an allocation's (16-byte aligned) start."""
+    import torch
+
+    buf = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    out = buf[off:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def scan_protocol_cases():
+    """The shapes that try the one-pass scan's protocol, each (name, rows,
+    n, element offsets of (values, flags) from an aligned address): rows
+    that start off a 16-byte boundary (``n % 4 != 0``), arrays that do
+    (values off by one float while the outputs are aligned: the stores
+    turn scalar; flags off by 3 bytes), 1 tile, 1 tile + 1, 245 tiles in
+    rows of which one has no mark (its look-back walks to the row's
+    start), 256 x 16,384, and a grid of more blocks than the card holds
+    at once."""
+    yield "rows off a 16-byte boundary (3, 4097)", 3, 4097, (0, 0)
+    yield "rows off a 16-byte boundary (4, 9001)", 4, 9001, (0, 0)
+    yield "arrays off a 16-byte boundary (3, 8200)", 3, 8200, (1, 3)
+    yield "arrays and rows off a boundary (3, 12291)", 3, 12291, (2, 5)
+    yield "1 tile (3, 4096)", 3, 4096, (0, 0)
+    yield "1 tile + 1 (3, 4097) flags off by 1", 3, 4097, (0, 1)
+    yield "245 tiles (3, 1000000)", 3, 1_000_000, (0, 0)
+    yield "(256, 16384)", 256, 16384, (0, 0)
+    yield "1960 blocks (8, 1000000)", 8, 1_000_000, (0, 0)
+
+
+def check_scans(name, x, offsets=(0, 0)) -> tuple[float, float]:
     """fill2 and fillv bitwise against their plain versions; segsum exact
-    on integer-valued channels and within its bound on real ones."""
+    on integer-valued channels and within its bound on real ones.
+    ``offsets``: the inputs' (values, flags) starts in elements past an
+    aligned address."""
     import torch
     from pyitd_tpu_torch.ops import cuda_fill as cf
 
     rng = np.random.default_rng(x.shape[1] + 1)
     ints = torch.from_numpy(rng.integers(
         -8, 9, size=(2,) + tuple(x.shape)).astype(np.float32)).to(x.device)
+    masks, y = scan_masks(x), 0.5 * x + 1.0
+    if offsets != (0, 0):
+        x, y, *ints = (off_boundary(t, offsets[0]) for t in (x, y, *ints))
+        masks = [off_boundary(m, offsets[1]) for m in masks]
     worst = (0.0, 0.0)
-    for mask in scan_masks(x):
+    for mask in masks:
         for rev in (False, True):
             for strict in (False, True):
                 for a, b in zip(cf.fill2_cuda(x, mask, rev, strict),
@@ -399,15 +458,50 @@ def check_scans(name, x) -> tuple[float, float]:
             if not bitwise_equal(cf.fillv_cuda(x, mask, rev),
                                  cf.fillv(x, mask, rev)):
                 raise AssertionError(f"fillv {name} reverse={rev} differs")
-            for nch in (1, 2):
-                got = cf.segsum_cuda(tuple(ints[:nch]), mask, rev)
-                want = cf.segsum(tuple(ints[:nch]), mask, rev)
-                if not all(torch.equal(a, b) for a, b in zip(got, want)):
-                    raise AssertionError(f"segsum {name} {nch} channels "
-                                         f"reverse={rev}: integer sums differ")
-            e = segsum_within_bound((x, 0.5 * x + 1.0), mask, rev, name)
-            worst = (max(worst[0], e[0]), max(worst[1], e[1]))
+            for strict in (False, True):
+                for nch in (1, 2):
+                    got = cf.segsum_cuda(tuple(ints[:nch]), mask, rev, strict)
+                    want = cf.segsum(tuple(ints[:nch]), mask, rev, strict)
+                    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                        raise AssertionError(
+                            f"segsum {name} {nch} channels reverse={rev} "
+                            f"strict={strict}: integer sums differ")
+                e = segsum_within_bound((x, y), mask, rev, name, strict)
+                worst = (max(worst[0], e[0]), max(worst[1], e[1]))
     return worst
+
+
+def check_scan_protocol(dev) -> None:
+    """``check_scans`` on ``scan_protocol_cases``; then one segsum call (2
+    channels, reverse, real values) 20 times at 256 x 16,384 and at 8 x 1M:
+    every output bitwise the first's."""
+    import torch
+    from pyitd_tpu_torch.ops import cuda_fill as cf
+
+    for name, rows, n, offsets in scan_protocol_cases():
+        rng = np.random.default_rng(rows * n)
+        t = np.linspace(0, 2 * np.pi, n)
+        x = torch.from_numpy((np.sin(7 * t)[None] + 0.4 * rng.normal(
+            size=(rows, n))).astype(np.float32)).to(dev)
+        err = check_scans(name, x, offsets)
+        torch.cuda.synchronize()
+        print(f"[2] scans, {name}, inputs {offsets[0]} floats and "
+              f"{offsets[1]} flag bytes past an aligned address: fill2/fillv "
+              f"bitwise, segsum exact on integers, real max abs err "
+              f"{err[0]!r} ({err[1]:.4f} of its bound)", flush=True)
+        if (rows, n) not in (EEG_SHAPE, MAIN_SHAPE):
+            continue
+        knots, _ = scan_masks(x)
+        chans = (x, torch.from_numpy(rng.normal(size=(rows, n)).astype(
+            np.float32)).to(dev))
+        first = cf.segsum_cuda(chans, knots, True)
+        for _ in range(19):
+            again = cf.segsum_cuda(chans, knots, True)
+            if not all(bitwise_equal(a, b) for a, b in zip(again, first)):
+                raise AssertionError(f"segsum {name}: two calls on the same "
+                                     f"inputs differ")
+        print(f"[2] segsum {name}: 20 calls on the same inputs bitwise the "
+              f"same", flush=True)
 
 
 def check_adjoint(name, x, rng, tight: bool) -> tuple[float, float]:
@@ -504,9 +598,11 @@ def _tile_carry_dropped(out, mask, reverse, strict):
 
 FAULTS = {
     "segsum drops the tile carry": ("segsum_cuda", lambda fn: (
-        lambda v, f, reverse=False: fn(v, _seam_resets(f, reverse), reverse))),
+        lambda v, f, reverse=False, strict=False: fn(
+            v, _seam_resets(f, reverse), reverse, strict))),
     "segsum drops one reset per row": ("segsum_cuda", lambda fn: (
-        lambda v, f, reverse=False: fn(v, _one_reset_dropped(f), reverse))),
+        lambda v, f, reverse=False, strict=False: fn(
+            v, _one_reset_dropped(f), reverse, strict))),
     "fill2 drops the tile carry": ("fill2_cuda", lambda fn: (
         lambda v, m, reverse=False, strict=False: _tile_carry_dropped(
             fn(v, m, reverse, strict), m, reverse, strict))),
@@ -1261,6 +1357,7 @@ def main() -> int:
     print(f"[2] ITD()(numpy float64, 9000): {comps.shape[0]} components in "
           f"f32 on the kernels, bitwise the plain f32 sift; launches "
           f"{itd_launches}", flush=True)
+    check_scan_protocol(dev)
     phase2_cubic(dev)
     phase2_sharded(dev)
 
@@ -1338,6 +1435,7 @@ def main() -> int:
     sift_loss(rk).backward()
     torch.cuda.synchronize()
     grad_launches = dict(cf.LAUNCHES)
+    segsum_launches = dict(cf.SEGSUM_LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # forward and replay: levels + 1 extractions each; every extraction of
     # the replay but the last trip's reaches the loss: two fill2 and four
@@ -1345,9 +1443,10 @@ def main() -> int:
     want = {"level_summaries": 2 * (levels + 1), "tile_scan": 2 * (levels + 1),
             "sift_level": 2 * (levels + 1), "fill2": 2 * levels, "fillv": 0,
             "segsum": 4 * levels}
-    if grad_launches != want:
-        raise AssertionError(f"gradient launches {grad_launches}, expected "
-                             f"{want}")
+    if grad_launches != want or segsum_launches != {1: 2 * levels,
+                                                    2: 2 * levels}:
+        raise AssertionError(f"gradient launches {grad_launches}, segsum by "
+                             f"channels {segsum_launches}, expected {want}")
     g = xg.grad.detach().clone()
     if not bool(torch.isfinite(g).all()):
         raise AssertionError("non-finite gradient")
@@ -1415,12 +1514,19 @@ def main() -> int:
         if any(s in k for s in ("sift_level_kernel", "level_summaries_kernel",
                                 "tile_scan_kernel")):
             groups["sift kernels"] += v
-        elif any(s in k for s in ("scan_summary", "scan_rows", "scan_apply")):
+        elif "scan_lookback" in k:
             groups["scan kernels"] += v
         else:
             groups["PyTorch ops"] += v
     print("[5]   device time by group (ms per forward + backward): "
           + "; ".join(f"{k} {v:.4f}" for k, v in groups.items()), flush=True)
+    # one launch per scan call: 2 fill2 and 4 segsum calls per level
+    scan_kernels = device_launches(fwd_bwd, "scan_lookback")
+    print(f"[5]   scan kernel launches per forward + backward: "
+          f"{scan_kernels} for {6 * levels} calls", flush=True)
+    if scan_kernels != 6 * levels:
+        raise AssertionError(f"{scan_kernels} scan kernel launches for "
+                             f"{6 * levels} scan calls")
     top = sorted(fb_by_name.items(), key=lambda kv: -kv[1])[:8]
     print("[5]   top device kernels (ms per forward + backward): " + "; ".join(
         f"{kernel_label(k)} {v:.4f}" for k, v in top), flush=True)
@@ -1595,18 +1701,61 @@ def main() -> int:
     chans = tuple(torch.randn(MAIN_SHAPE, generator=gen, device=dev)
                   for _ in range(2))
     s_err, s_ratio = segsum_within_bound(chans, f_next, True, "8x1M")
+    s1_err, s1_ratio = segsum_within_bound(chans[0], knots, True, "8x1M",
+                                           strict=True)
     # the knot-neighbor read: one nonzero term per segment, so exact
-    push = shift_left(torch.where(knots, chans[0], 0.0), 0.0)
-    if not torch.equal(cf.segsum_cuda(push, f_next, True),
-                       cf.segsum(push, f_next, True)):
+    push = torch.where(knots, chans[0], 0.0)
+    if not torch.equal(cf.segsum_cuda(push, knots, True, True),
+                       cf.segsum(push, knots, True, True)):
         raise AssertionError("segsum 8x1M: knot read not exact")
     print(f"[7] segsum at 8x1M: 2 channels within {s_ratio:.4f} of "
-          f"segsum_error_bound; the knot read exact", flush=True)
+          f"segsum_error_bound, 1 channel (strict) within {s1_ratio:.4f}; "
+          f"the knot read exact", flush=True)
     entry("segsum", s_err, lambda: cf.segsum_cuda(chans, f_next, True),
           lambda: cf.segsum(chans, f_next, True), rows * n * (8 + 1 + 8),
-          2 * rows * n, grad_launches["segsum"], exact=False)
+          2 * rows * n, segsum_launches[2], exact=False)
+    # the adjoint's knot reads: one channel, strict, over the knots
+    entry("segsum_1ch", s1_err,
+          lambda: cf.segsum_cuda(chans[0], knots, True, True),
+          lambda: cf.segsum(chans[0], knots, True, True),
+          rows * n * (4 + 1 + 4), rows * n, segsum_launches[1], exact=False)
+
+    # the same scans on the input of the backward's last level, where the
+    # knots are sparse and a tile looks back furthest
+    deep = x
+    for _ in range(levels - 1):
+        deep = cf.sift_level_cuda(deep, cf.level_states_cuda(deep)).baseline
+    dknots = knot_mask(deep)
+    d_next = shift_left(dknots, False)
+    per_row = dknots.sum(-1).tolist()
+    for a, b in zip(cf.fill2_cuda(deep, dknots)
+                    + cf.fill2_cuda(deep, dknots, True, True),
+                    cf.fill2(deep, dknots)
+                    + cf.fill2(deep, dknots, True, True)):
+        if not bitwise_equal(a, b):
+            raise AssertionError("fill2 on the last level's input differs")
+    d_err, d_ratio = segsum_within_bound(chans, d_next, True, "last level")
+    d1_err, d1_ratio = segsum_within_bound(chans[0], dknots, True,
+                                           "last level", strict=True)
+    deep_ms = {
+        "fill2": device_ms(lambda: cf.fill2_cuda(deep, dknots))[0],
+        "fillv": device_ms(lambda: cf.fillv_cuda(deep, dknots))[0],
+        "segsum": device_ms(lambda: cf.segsum_cuda(chans, d_next, True))[0],
+        "segsum_1ch": device_ms(
+            lambda: cf.segsum_cuda(chans[0], dknots, True, True))[0]}
+    print(f"[7] scans on the input of the backward's last level (knots per "
+          f"row {per_row}, of {n}; level 1 has {knots.sum(-1).tolist()}): "
+          f"fill2 bitwise, segsum within {d_ratio:.4f} and {d1_ratio:.4f} of "
+          f"its bound (max abs err {d_err!r}, {d1_err!r}); kernel ms per "
+          f"call (profiler device time) "
+          + ", ".join(f"{k} {v:.4f}" for k, v in deep_ms.items())
+          + f"  [{card}]", flush=True)
+    del deep, dknots, d_next
     print(f"[7] launches: forward sift {launches}; forward + backward "
-          f"{grad_launches}", flush=True)
+          f"{grad_launches}, segsum by channels {segsum_launches}; one kernel "
+          f"launch per scan call, "
+          f"{grad_launches['fill2'] + grad_launches['segsum']} per backward",
+          flush=True)
 
     # ---- phase 8: the cubic level at full size ----
     cubic_launches, calls = phase8_cubic(x, card)

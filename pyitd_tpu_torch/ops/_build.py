@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shlex
 import shutil
 import subprocess
 import tempfile
@@ -31,8 +32,10 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+# PYITD_NVCC_FLAGS adds flags for an experiment (-Xptxas -v, a -D of a
+# kernel's shape); the library's name hashes them like the rest
 NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
-              "-fPIC")
+              "-fPIC", *shlex.split(os.environ.get("PYITD_NVCC_FLAGS", "")))
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,9 +52,12 @@ _SIGNATURES = {
                          _P, _P, _P, _P, _P),
     "pyitd_error_string": (_I,),
     "pyitd_scan_tile_size": (),
-    "pyitd_scan_state_bytes": (_I,),
-    "pyitd_fill2": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
-    "pyitd_fillv": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "pyitd_scan_run_length": (),
+    "pyitd_scan_threads": (),
+    "pyitd_scan_header_bytes": (),
+    "pyitd_scan_desc_bytes": (),
+    "pyitd_fill2": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
+    "pyitd_fillv": (_P, _P, _I, _I, _I, _P, _P, _P),
     "pyitd_segsum": (_I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     "pyitd_cubic_ksite": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P),
     "pyitd_cubic_neighbors": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,

@@ -18,15 +18,17 @@ A sift trip is three launches:
   (written in place into the caller's ``rotations[level]``) and the
   compensation.
 
-The backward's scans, each one call of three launches (tile summaries, a
-per-row scan over tiles, the seeded apply pass):
+The backward's scans, each one launch of a single-pass scan with decoupled
+look-back over a row's tiles (every input read once, every output written
+once):
 
 * ``fill2_cuda(vals, mask, reverse, strict)``: per sample, (position,
   value) of the last two marked samples at or before it (reverse: the
   first two at or after it; ``strict``: strictly), 0 where none;
 * ``fillv_cuda(vals, mask, reverse)``: the same at depth one, value only;
-* ``segsum_cuda(vals, flags, reverse)``: segmented inclusive running sums
-  of one or two channels that reset at flagged samples.
+* ``segsum_cuda(vals, flags, reverse, strict)``: segmented inclusive
+  running sums of one or two channels that reset at flagged samples
+  (``strict``: the sum up to the previous sample in scan order).
 
 The three sift kernels also run on time shards of a longer signal (the
 port of K9, ``pyitd_tpu/ops/pallas_fill_sharded.py``): with a
@@ -59,17 +61,21 @@ from .linear_baseline import (interp, knot_mask, knot_mask_at, knot_value,
                               two_sum_err)
 
 __all__ = [
-    "TILE", "STOP_A", "STOP_B", "CONT", "LAUNCHES", "reset_launches",
+    "TILE", "STOP_A", "STOP_B", "CONT", "LAUNCHES", "SEGSUM_LAUNCHES",
+    "reset_launches",
     "TileSummaries", "LevelStates", "SiftCarry", "LevelOut", "ShardArgs",
     "ShardTotals",
     "level_summaries", "tile_scan", "level_states", "sift_level",
     "stop_flags", "emit_row", "fill2", "fillv", "segsum",
-    "segsum_error_bound",
+    "segsum_depth", "segsum_error_bound", "SCAN_THREADS", "SCAN_RUN",
     "level_summaries_cuda", "tile_scan_cuda", "level_states_cuda",
     "sift_level_cuda", "fill2_cuda", "fillv_cuda", "segsum_cuda",
 ]
 
 TILE = 4096  # samples per tile; the TILE of both csrc/*.cu (checked at load)
+# csrc/fill_segsum.cu's threads per block and samples per thread (checked at
+# load): they fix the order of segsum's additions
+SCAN_THREADS, SCAN_RUN = 512, 8
 
 # stop-flag bits of LevelStates.flags
 STOP_A, STOP_B, CONT = 1, 2, 4
@@ -79,9 +85,14 @@ LAUNCHES = {"level_summaries": 0, "tile_scan": 0, "sift_level": 0,
             "fill2": 0, "fillv": 0, "segsum": 0}
 
 
+# LAUNCHES["segsum"] by the call's number of channels
+SEGSUM_LAUNCHES = {1: 0, 2: 0}
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, SEGSUM_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 class TileSummaries(NamedTuple):
@@ -457,44 +468,68 @@ def _segsum64(v: torch.Tensor, flags: torch.Tensor) -> torch.Tensor:
     return torch.where(nan | (pinf & ninf), math.nan, s)
 
 
-def segsum(vals, flags: torch.Tensor, reverse: bool = False):
+def segsum(vals, flags: torch.Tensor, reverse: bool = False,
+           strict: bool = False):
     """Plain version of the ``segsum`` kernel: per channel, ``out[t] = v[t]
     + (flags[t] ? 0 : out[t-1])`` (``reverse``: with ``t+1``), each segment
-    summed in f64 and rounded once.  ``vals`` is a tensor or a tuple of
+    summed in f64 and rounded once.  With ``strict`` the result at ``t`` is
+    that recurrence's value at the previous sample in scan order (0 at the
+    first), which equals JAX's call on values and flags shifted by one
+    (``linear_baseline.py:409-425``).  ``vals`` is a tensor or a tuple of
     them; the result has the same form."""
     chans = (vals,) if isinstance(vals, torch.Tensor) else tuple(vals)
 
     def one(v):
         if reverse:
-            return _segsum64(v.flip(-1), flags.flip(-1)).flip(-1).to(v.dtype)
-        return _segsum64(v, flags).to(v.dtype)
+            out = _segsum64(v.flip(-1), flags.flip(-1)).flip(-1).to(v.dtype)
+        else:
+            out = _segsum64(v, flags).to(v.dtype)
+        if strict:
+            out = (shift_left if reverse else shift_right)(out, 0.0)
+        return out
 
     out = tuple(one(v) for v in chans)
     return out[0] if isinstance(vals, torch.Tensor) else out
 
 
+def segsum_depth(n: int) -> int:
+    """The most f32 additions a term passes through in the ``segsum``
+    kernel on rows of ``n`` samples (``csrc/fill_segsum.cu``): 4 in the
+    fold of its chunk of 4 samples, 5 in the warp scan of its chunk set,
+    one per further chunk set of its thread, ``log2(SCAN_THREADS / 32)``
+    across the warps, 5 in the fold of a look-back window of 32 tile
+    aggregates, one per window walked, two where the prefixes seed a chunk,
+    4 in the chunk's walk.  A row that starts off a 16-byte boundary is
+    tiled from that boundary, up to 3 samples before it."""
+    windows = math.ceil((_ntiles(n + 3) - 1) / 32)
+    return 19 + SCAN_RUN // 4 + int(math.log2(SCAN_THREADS // 32)) + windows
+
+
 def segsum_error_bound(v: torch.Tensor, flags: torch.Tensor,
-                       reverse: bool = False) -> torch.Tensor:
+                       reverse: bool = False,
+                       strict: bool = False) -> torch.Tensor:
     """Per-sample bound on ``|segsum_cuda(v) - segsum(v)|`` for one f32
     channel, in f64: ``(d + 2) * 2^-24 * m + 3 * n * 2^-53 * M``.
 
-    ``d = 59 + 2 * ceil(ntiles / 32)`` is the most f32 additions a term
-    passes through in the kernel (``csrc/fill_segsum.cu``), so its sum
-    differs from the exact one by at most ``d * 2^-24`` (to first order)
-    times ``m``, the sum of ``|v|`` over the segment up to the sample; the
-    plain version's rounding adds ``2^-24 * m`` and its f64 running sums
-    ``2 * n * 2^-53`` times ``M``, the sum of ``|v|`` over the row up to
-    the sample in scan order.  Where the sum is not finite the two must
-    agree exactly; the bound there is meaningless."""
+    ``d = segsum_depth(n)`` is the most f32 additions a term passes through
+    in the kernel, so its sum differs from the exact one by at most ``d *
+    2^-24`` (to first order) times ``m``, the sum of ``|v|`` over the
+    segment up to the sample; the plain version's rounding adds ``2^-24 *
+    m`` and its f64 running sums ``2 * n * 2^-53`` times ``M``, the sum of
+    ``|v|`` over the row up to the sample in scan order.  With ``strict``
+    both sums end at the previous sample in scan order.  Where the sum is
+    not finite the two must agree exactly; the bound there is
+    meaningless."""
     a = torch.where(torch.isfinite(v), v.abs(), 0).double()
     if reverse:
         a, flags = a.flip(-1), flags.flip(-1)
     m, mm = _segsum64(a, flags), torch.cumsum(a, -1)
+    if strict:
+        m, mm = shift_right(m, 0.0), shift_right(mm, 0.0)
     if reverse:
         m, mm = m.flip(-1), mm.flip(-1)
     n = v.shape[-1]
-    d = 59 + 2 * math.ceil(_ntiles(n) / 32)
-    return (d + 2) * 2.0 ** -24 * m + 3 * n * 2.0 ** -53 * mm
+    return (segsum_depth(n) + 2) * 2.0 ** -24 * m + 3 * n * 2.0 ** -53 * mm
 
 
 # ---------------------------------------------------------------------------
@@ -511,6 +546,11 @@ def _lib():
         if size != TILE:
             raise RuntimeError(f"csrc/{src}.cu tiles by {size}, "
                                f"cuda_fill.TILE is {TILE}")
+    shape = (lib.pyitd_scan_threads(), lib.pyitd_scan_run_length())
+    if shape != (SCAN_THREADS, SCAN_RUN):
+        raise RuntimeError(f"csrc/fill_segsum.cu runs (threads, samples per "
+                           f"thread) {shape}, cuda_fill has "
+                           f"{(SCAN_THREADS, SCAN_RUN)}")
     return lib
 
 
@@ -707,17 +747,31 @@ def _check_scan(chans, flags: torch.Tensor) -> None:
     if rows < 1 or n < 1:
         raise ValueError(f"the scan kernels take non-empty rows, got "
                          f"{tuple(x.shape)}")
-    if rows * _ntiles(n) > 2**31 - 1 or n > 2**31 - 1 - TILE:
-        raise ValueError(f"the scan kernels take rows * ceil(n / {TILE}) "
-                         f"< 2^31, got {tuple(x.shape)}")
+    if rows * _ntiles(n + 3) > 2**31 - 1 or n > 2**31 - 1 - 2 * TILE:
+        raise ValueError(f"the scan kernels take rows * ceil((n + 3) / "
+                         f"{TILE}) < 2^31, got {tuple(x.shape)}")
 
 
-def _scan_scratch(lib, kind: int, x: torch.Tensor) -> torch.Tensor:
-    """One scan state per (row, tile), as bytes (kind: 0 fill2, 1 fillv,
-    2 or 3 segsum with 1 or 2 channels)."""
+# the scan kernels' scratch by (device index, stream)
+_SCAN_SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _scan_scratch(lib, x: torch.Tensor) -> torch.Tensor:
+    """The look-back scan's scratch for ``x``'s device and the current
+    stream: a header and one descriptor per (row, tile), as bytes.  Zeroed
+    when it is allocated or grown and never again: each call leaves it
+    ready for the next (``csrc/fill_segsum.cu``), and calls on one stream
+    run one after the other."""
     rows, n = x.shape
-    return torch.empty(lib.pyitd_scan_state_bytes(kind) * rows * _ntiles(n),
-                       dtype=torch.uint8, device=x.device)
+    need = lib.pyitd_scan_header_bytes() \
+        + lib.pyitd_scan_desc_bytes() * rows * _ntiles(n + 3)
+    key = (x.device.index, _stream(x))
+    buf = _SCAN_SCRATCH.get(key)
+    if buf is None or buf.numel() < need:
+        grown = need if buf is None else max(need, 2 * buf.numel())
+        buf = torch.zeros(grown, dtype=torch.uint8, device=x.device)
+        _SCAN_SCRATCH[key] = buf
+    return buf
 
 
 def fill2_cuda(vals: torch.Tensor, mask: torch.Tensor, reverse: bool = False,
@@ -728,19 +782,18 @@ def fill2_cuda(vals: torch.Tensor, mask: torch.Tensor, reverse: bool = False,
     if not vals.is_cuda:
         return fill2(vals, mask, reverse, strict)
     rows, n = vals.shape
-    pos = torch.empty((2, rows, n), dtype=torch.int32, device=vals.device)
-    val = torch.empty((2, rows, n), dtype=torch.float32, device=vals.device)
+    p1, p2 = (torch.empty((rows, n), dtype=torch.int32, device=vals.device)
+              for _ in range(2))
+    v1, v2 = torch.empty_like(vals), torch.empty_like(vals)
     lib = _lib()
-    scratch = _scan_scratch(lib, 0, vals)
     with torch.cuda.device(vals.device):
         code = lib.pyitd_fill2(
-            vals.data_ptr(), mask.data_ptr(), rows, n, _ntiles(n),
-            int(reverse), int(strict), pos[0].data_ptr(), val[0].data_ptr(),
-            pos[1].data_ptr(), val[1].data_ptr(), scratch.data_ptr(),
-            _stream(vals))
+            vals.data_ptr(), mask.data_ptr(), rows, n, int(reverse),
+            int(strict), p1.data_ptr(), v1.data_ptr(), p2.data_ptr(),
+            v2.data_ptr(), _scan_scratch(lib, vals).data_ptr(), _stream(vals))
     _check(code, "fill2")
     LAUNCHES["fill2"] += 1
-    return pos[0], val[0], pos[1], val[1]
+    return p1, v1, p2, v2
 
 
 def fillv_cuda(vals: torch.Tensor, mask: torch.Tensor,
@@ -753,17 +806,18 @@ def fillv_cuda(vals: torch.Tensor, mask: torch.Tensor,
     rows, n = vals.shape
     out = torch.empty_like(vals)
     lib = _lib()
-    scratch = _scan_scratch(lib, 1, vals)
     with torch.cuda.device(vals.device):
         code = lib.pyitd_fillv(vals.data_ptr(), mask.data_ptr(), rows, n,
-                               _ntiles(n), int(reverse), out.data_ptr(),
-                               scratch.data_ptr(), _stream(vals))
+                               int(reverse), out.data_ptr(),
+                               _scan_scratch(lib, vals).data_ptr(),
+                               _stream(vals))
     _check(code, "fillv")
     LAUNCHES["fillv"] += 1
     return out
 
 
-def segsum_cuda(vals, flags: torch.Tensor, reverse: bool = False):
+def segsum_cuda(vals, flags: torch.Tensor, reverse: bool = False,
+                strict: bool = False):
     """:func:`segsum` of one or two (rows, n) f32 channels (a tensor or a
     tuple, returned in the same form) sharing ``flags`` (rows, n) bool."""
     chans = (vals,) if isinstance(vals, torch.Tensor) else tuple(vals)
@@ -772,20 +826,19 @@ def segsum_cuda(vals, flags: torch.Tensor, reverse: bool = False):
     _check_scan(chans, flags)
     x = chans[0]
     if not x.is_cuda:
-        return segsum(vals, flags, reverse)
+        return segsum(vals, flags, reverse, strict)
     rows, n = x.shape
     nch = len(chans)
-    out = torch.empty((nch, rows, n), dtype=torch.float32, device=x.device)
+    outs = tuple(torch.empty_like(x) for _ in range(nch))
     lib = _lib()
-    scratch = _scan_scratch(lib, 1 + nch, x)
-    second = (chans[1].data_ptr(), out[1].data_ptr()) if nch == 2 \
+    second = (chans[1].data_ptr(), outs[1].data_ptr()) if nch == 2 \
         else (None, None)
     with torch.cuda.device(x.device):
         code = lib.pyitd_segsum(nch, x.data_ptr(), second[0],
-                                flags.data_ptr(), rows, n, _ntiles(n),
-                                int(reverse), out[0].data_ptr(), second[1],
-                                scratch.data_ptr(), _stream(x))
+                                flags.data_ptr(), rows, n, int(reverse),
+                                int(strict), outs[0].data_ptr(), second[1],
+                                _scan_scratch(lib, x).data_ptr(), _stream(x))
     _check(code, "segsum")
     LAUNCHES["segsum"] += 1
-    outs = tuple(out[i] for i in range(nch))
+    SEGSUM_LAUNCHES[nch] += 1
     return outs[0] if isinstance(vals, torch.Tensor) else outs

@@ -36,7 +36,7 @@ import torch
 from .extrema import count_extrema, extrema_mask
 from .fill import (backward_fill2_scan, backward_fill_scan,
                    forward_fill2_scan, next_index, prev_index, shift_left,
-                   shift_right, take_last_axis)
+                   take_last_axis)
 
 __all__ = ["linear_baseline_extract", "LinearBaselineResult", "two_sum_err",
            "knot_mask", "knot_mask_at", "structural_level_bwd",
@@ -224,26 +224,25 @@ def _structural_fills(x, knots, use_kernels):
             return fill2_cuda(x, knots, reverse=True, strict=True)
 
         # a segment boundary sits BETWEEN a knot and its neighbor, so the
-        # reverse sums reset where the NEXT sample is a knot and the
-        # forward sums where the PREVIOUS is
+        # reverse sums reset where the NEXT sample is a knot; a sum that
+        # excludes its own sample is the strict sum over the knots
+        # themselves (JAX shifts values and flags by one instead)
         f_next = shift_left(knots, False)
-        f_prev = shift_right(knots, False)
 
         def seg_reads(a_bl, a_xl, a_br, a_xr):
             # segA_*[t] = sum over [t, nextknot(t)), segE_*[t] = sum over
             # [prevknot(t), t)
             seg_a = segsum_cuda((a_bl, a_xl), f_next, reverse=True)
-            seg_e = segsum_cuda((shift_right(a_br, 0.0),
-                                 shift_right(a_xr, 0.0)), f_prev)
+            seg_e = segsum_cuda((a_br, a_xr), knots, strict=True)
             return seg_a + seg_e
 
         def knot_next(v):
             # v is nonzero only at knots, so the sum over (t, nextknot(t)]
             # is that one value
-            return segsum_cuda(shift_left(v, 0.0), f_next, reverse=True)
+            return segsum_cuda(v, knots, reverse=True, strict=True)
 
         def knot_prev(v):
-            return segsum_cuda(shift_right(v, 0.0), f_prev)
+            return segsum_cuda(v, knots, strict=True)
 
         return struct_fwd, struct_bwd, seg_reads, knot_next, knot_prev
 

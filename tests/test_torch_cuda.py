@@ -7,7 +7,11 @@ Run on the card with ``python -m pytest --noconftest tests/test_torch_cuda.py
 The sift kernels and the fills are bitwise (NaN equal to NaN): the kernels
 are built with ``-fmad=false`` and PyTorch's eager kernels contract nothing
 across ops.  ``segsum`` is exact on integer-valued inputs and within
-``segsum_error_bound`` on real ones; the level adjoint on the kernels is
+``segsum_error_bound`` on real ones; the one-pass look-back scan behind the
+three scan wrappers also runs ``chip_smoke.scan_protocol_cases`` (rows and
+arrays off a 16-byte boundary, 1 tile, 1 tile + 1, 245 tiles, a row with no
+mark, more blocks than the card holds at once) and gives the same bits on
+every call; the level adjoint on the kernels is
 held against the plain route as ``tests/test_pallas_fill.py:394-404`` holds
 JAX's two routes; the sift gradient against the plain structural route.
 The cubic tier's kernels (K5-K8) are bitwise their plain versions, and its
@@ -19,7 +23,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import sharded_cases
+from chip_smoke import (check_scans, device_launches, scan_protocol_cases,
+                        sharded_cases)
 from pyitd_tpu_torch import (ITD, cubic_baseline_extract, itd_sift,
                              linear_baseline_extract)
 from pyitd_tpu_torch.ops import cuda_cubic, cuda_fill
@@ -140,18 +145,87 @@ def test_segsum_exact_on_integers_and_within_bound(device, name, x):
         np.float32)).to(device)
     for flags in _masks(xt):
         for reverse in (False, True):
-            for nch in (1, 2):
-                got = cuda_fill.segsum_cuda(tuple(ints[:nch]), flags, reverse)
-                want = cuda_fill.segsum(tuple(ints[:nch]), flags, reverse)
-                for a, b in zip(got, want):
-                    assert torch.equal(a, b)
-            got = cuda_fill.segsum_cuda(xt, flags, reverse)
-            want = cuda_fill.segsum(xt, flags, reverse)
-            bound = cuda_fill.segsum_error_bound(xt, flags, reverse)
-            fin = torch.isfinite(want)
-            assert bitwise_equal(got[~fin], want[~fin])
-            err = (got.double() - want.double()).abs()[fin]
-            assert bool((err <= bound[fin]).all())
+            for strict in (False, True):
+                for nch in (1, 2):
+                    got = cuda_fill.segsum_cuda(tuple(ints[:nch]), flags,
+                                                reverse, strict)
+                    want = cuda_fill.segsum(tuple(ints[:nch]), flags, reverse,
+                                            strict)
+                    for a, b in zip(got, want):
+                        assert torch.equal(a, b)
+                got = cuda_fill.segsum_cuda(xt, flags, reverse, strict)
+                want = cuda_fill.segsum(xt, flags, reverse, strict)
+                bound = cuda_fill.segsum_error_bound(xt, flags, reverse,
+                                                     strict)
+                fin = torch.isfinite(want)
+                assert bitwise_equal(got[~fin], want[~fin])
+                err = (got.double() - want.double()).abs()[fin]
+                assert bool((err <= bound[fin]).all())
+
+
+PROTOCOL_CASES = list(scan_protocol_cases())
+
+
+def _protocol_signal(rows, n, device):
+    rng = np.random.default_rng(rows * n)
+    t = np.linspace(0, 2 * np.pi, n)
+    return torch.from_numpy((np.sin(7 * t)[None] + 0.4 * rng.normal(
+        size=(rows, n))).astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("name,rows,n,offsets", PROTOCOL_CASES,
+                         ids=[c[0] for c in PROTOCOL_CASES])
+def test_scans_on_the_protocol_shapes(device, name, rows, n, offsets):
+    """fill2 and fillv bitwise, segsum exact on integers and within its
+    bound (``chip_smoke.check_scans`` raises otherwise), on the shapes that
+    try the look-back protocol, the kernel's scalar head and tail and its
+    scalar stores."""
+    err, ratio = check_scans(name, _protocol_signal(rows, n, device), offsets)
+    torch.cuda.synchronize()
+    assert ratio <= 1.0 and np.isfinite(err)
+
+
+@pytest.mark.parametrize("rows,n", [(256, 16384), (8, 1_000_000)])
+def test_segsum_gives_the_same_bits_on_every_call(device, rows, n):
+    """The look-back folds tile aggregates in an order fixed by the data,
+    so block timing cannot change a sum."""
+    x = _protocol_signal(rows, n, device)
+    flags = knot_mask(x)
+    flags[-1] = False
+    chans = (x, x.flip(-1).contiguous())
+    for reverse in (False, True):
+        first = cuda_fill.segsum_cuda(chans, flags, reverse)
+        for _ in range(19):
+            again = cuda_fill.segsum_cuda(chans, flags, reverse)
+            assert all(bitwise_equal(a, b) for a, b in zip(again, first))
+
+
+def test_scan_calls_are_one_launch_each(device):
+    x = _protocol_signal(3, 9001, device)
+    mask = knot_mask(x)
+
+    def calls():
+        cuda_fill.fill2_cuda(x, mask, True, True)
+        cuda_fill.fillv_cuda(x, mask)
+        cuda_fill.segsum_cuda((x, x), mask, True)
+        cuda_fill.segsum_cuda(x, mask, False, True)
+
+    calls()
+    assert device_launches(calls, "scan_") == 4
+    assert device_launches(calls, "scan_lookback") == 4
+
+
+def test_a_protocol_fault_is_a_cuda_error_not_a_hang(device):
+    """``tools/scan_fault.py`` plants an unpublished tile in a temporary
+    copy of the kernel: the look-back's bounded spin must trap."""
+    import subprocess
+    import sys
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "pyitd_tpu_torch.tools.scan_fault"],
+        capture_output=True, text=True, timeout=400)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "CUDA error" in proc.stdout
 
 
 def test_level_adjoint_on_kernels_against_plain(device):
