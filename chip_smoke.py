@@ -43,7 +43,10 @@ Phases (each raises on failure, so any failure exits non-zero):
    route of the whole signal to 1e-10;
 3. the main path at full size: the bench signal, 8 x 1,000,000 f32,
    ``itd_sift(x, 8, store_baselines=False)`` (10 levels), with every kernel
-   launch counted, and the compensated reconstruction
+   launch counted (one ``level_summaries``, of the input; one ``tile_scan``
+   and one ``sift_level`` per extraction, each trip's scan completing the
+   interior summaries the level before it emitted), and the compensated
+   reconstruction
    ``max|sum(rotations) + correction - x|`` in f64 held to 1e-10;
 4. timing of the kernel path and the plain path at 8 x 1M and at the
    256 x 16k EEG shape (CUDA events after warm-up, median of 10, and the
@@ -63,9 +66,13 @@ Phases (each raises on failure, so any failure exits non-zero):
    route and against plain scans, the planted faults rejected;
 7. each kernel against its plain version at the main path's shapes, with
    its device time, the plain version's, and its bound (bytes over the
-   card's 3.35 TB/s, or f32 operations over its 67 TFLOP/s); the scans
-   also on the input of the backward's last level, where knots are
-   sparse and the look-back is longest; the cubic
+   card's 3.35 TB/s, or f32 operations over its 67 TFLOP/s): ``sift_level``
+   with the bookkeeping, the same emitting interior summaries, ``tile_scan``
+   completing them with the tiles' edge samples (bitwise the scan of
+   ``level_summaries`` of the same baseline), ``sift_level`` without the
+   bookkeeping (K2); the scans and the level kernels also on the input of
+   the sift's last level, where knots are sparse and the scans' look-back
+   is longest; the cubic
    kernels K5-K8 likewise after phase 8, on the inputs the cubic level
    gave them;
 8. the cubic level at full size: ``cubic_baseline_extract`` of the bench
@@ -108,7 +115,8 @@ import time
 import numpy as np
 
 SRC = {k: "pyitd_tpu_torch/csrc/sift_level.cu"
-       for k in ("level_summaries", "tile_scan", "sift_level")}
+       for k in ("level_summaries", "tile_scan", "tile_scan_edges",
+                 "sift_level", "sift_level_emit", "sift_level_k2")}
 SRC.update({k: "pyitd_tpu_torch/csrc/fill_segsum.cu"
             for k in ("fill2", "fillv", "segsum", "segsum_1ch")})
 SRC.update({k: "pyitd_tpu_torch/csrc/cubic.cu"
@@ -119,7 +127,10 @@ SRC.update({"sharded_" + k: SRC[k] for k in SIFT_KERNELS})
 REPLACES = {
     "level_summaries": "pyitd_tpu/ops/pallas_fill.py:1398",
     "tile_scan": "pyitd_tpu/ops/pallas_fill.py:1398",
+    "tile_scan_edges": "pyitd_tpu/ops/pallas_fill.py:1398",
     "sift_level": "pyitd_tpu/ops/pallas_fill.py:1717",
+    "sift_level_emit": "pyitd_tpu/ops/pallas_fill.py:1821",
+    "sift_level_k2": "pyitd_tpu/ops/pallas_fill.py:738",
     "fill2": "pyitd_tpu/ops/pallas_fill.py:590",
     "fillv": "pyitd_tpu/ops/pallas_fill.py:363",
     "segsum": "pyitd_tpu/ops/pallas_fill.py:503",
@@ -139,6 +150,15 @@ CUBIC_F64_REL = 2e-6
 MAIN_SHAPE, MAIN_MAX_IT = (8, 1_000_000), 8
 EEG_SHAPE, EEG_MAX_IT = (256, 16384), 8
 TRAIN_MAX_IT, TRAIN_STEPS = 6, 5
+
+
+def sift_launches(levels: int) -> dict:
+    """The sift kernels' launches in one kernel sift of ``levels`` levels:
+    one summary pass (of the input), and one tile scan and one level per
+    extraction; every level but the last trip's emits the interior
+    summaries that the next trip's scan completes."""
+    return {"level_summaries": 1, "tile_scan": levels + 1,
+            "sift_level": levels + 1}
 # the sequence-parallel tier: 4 time shards of the main path's row length;
 # its gradient at the largest size whose plain-route autograd fits the card
 SHARD_SHAPE, SHARD_SEQ, SHARD_GRAD_SHAPE = (8, 4_194_304), 4, (8, 262_144)
@@ -215,11 +235,25 @@ def cuda_times(fn, reps: int = 10, warmup: int = 2) -> list[float]:
     return sorted(times)
 
 
+# of device_ms's last window: kernel records missing and expected, and the
+# device time as a plain sum of the recorded launches over the calls
+TRACE_GAPS = {"missing": 0, "expected": 0, "summed_ms": 0.0}
+
+
 def device_ms(fn, reps: int = 5) -> tuple[float, dict]:
     """Device time per call of ``fn`` in ms: the kernels it launches, summed
     from a ``torch.profiler`` trace over ``reps`` calls after one warm-up;
     also the time per call by kernel name.  Returns ``(nan, {})`` where the
-    trace holds no device time."""
+    trace holds no device time.
+
+    The trace can miss the first launches of its window (the records of
+    kernels launched while the tracer is still starting), so a kernel's
+    time per call is its mean recorded duration times its launches per
+    call, the recorded count over ``reps`` rounded up: right as long as
+    fewer than ``reps`` records of a kernel are missing.  Records without a
+    duration count as launches and not towards the mean.  A plain sum over
+    ``reps`` reads low by the missing share; ``TRACE_GAPS`` holds the last
+    window's missing and expected records and that plain sum."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -229,13 +263,24 @@ def device_ms(fn, reps: int = 5) -> tuple[float, dict]:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.key_averages():
+    # per kernel name: every record, and the durations of those that have one
+    # (a record cut off by the tracer counts as a launch and carries no time)
+    seen, timed = {}, {}
+    for e in prof.events():
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
+        seen[e.name] = seen.get(e.name, 0) + 1
         if us:
-            by_name[e.key] = us / 1e3 / reps
+            timed.setdefault(e.name, []).append(us)
+    by_name, missing, expected = {}, 0, 0
+    for name, durations in timed.items():
+        per_call = -(-seen[name] // reps)
+        by_name[name] = statistics.fmean(durations) * per_call / 1e3
+        missing += per_call * reps - len(durations)
+        expected += per_call * reps
+    TRACE_GAPS.update(missing=missing, expected=expected, summed_ms=sum(
+        sum(d) for d in timed.values()) / 1e3 / reps)
     total = sum(by_name.values())
     return (total if total > 0 else float("nan")), by_name
 
@@ -922,10 +967,6 @@ def recorded_sift(calls: dict, keep: int = 1):
     import torch
     from pyitd_tpu_torch.ops import cuda_fill as cf
 
-    def flat(out):
-        parts = out if type(out) is tuple else (out,)
-        return [t for part in parts for t in part if t is not None]
-
     def wrap(k):
         real, plain = getattr(cf, k + "_cuda"), getattr(cf, k)
 
@@ -949,6 +990,15 @@ def recorded_sift(calls: dict, keep: int = 1):
 
     with swapped({k + "_cuda": wrap(k) for k in SIFT_KERNELS}):
         yield
+
+
+def flat(out) -> list:
+    """The tensors of a (nested) tuple of tensors and Nones."""
+    if out is None:
+        return []
+    if isinstance(out, tuple):
+        return [t for part in out for t in flat(part)]
+    return [out]
 
 
 def sift_tuple(r):
@@ -1351,7 +1401,7 @@ def main() -> int:
     if not bitwise_equal(comps, want.rotations[:int(want.num_components)]):
         raise AssertionError("ITD()(numpy f64) differs from the plain f32 "
                              "sift")
-    if itd_launches != {k: 14 if SRC[k].endswith("sift_level.cu") else 0
+    if itd_launches != {k: sift_launches(13).get(k, 0)
                         for k in itd_launches}:
         raise AssertionError(f"ITD()(numpy f64) launches {itd_launches}")
     print(f"[2] ITD()(numpy float64, 9000): {comps.shape[0]} components in "
@@ -1370,11 +1420,15 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = dict(cf.LAUNCHES)
     levels = MAIN_MAX_IT + 2
-    # one pre-pass and one level per extraction; no backward, so no scans
-    want = {k: levels + 1 if SRC[k].endswith("sift_level.cu") else 0
-            for k in launches}
-    if launches != want:
-        raise AssertionError(f"launches {launches}, expected {want}")
+    modes = dict(cf.MODE_LAUNCHES)
+    # no backward, so no scans; every trip's scan completes the summaries
+    # the level before it emitted
+    want = {k: sift_launches(levels).get(k, 0) for k in launches}
+    want_modes = {"sift_level_book": levels, "sift_level_emit": levels,
+                  "tile_scan_edges": levels}
+    if launches != want or modes != want_modes:
+        raise AssertionError(f"launches {launches} by mode {modes}, expected "
+                             f"{want} and {want_modes}")
     if tuple(res.rotations.shape) != (levels,) + MAIN_SHAPE:
         raise AssertionError(f"rotations shape {tuple(res.rotations.shape)}")
     if not bool(torch.isfinite(res.rotations).all()):
@@ -1384,7 +1438,8 @@ def main() -> int:
     raw = (res.rotations.double().sum(0) - x.double()).abs().max().item()
     if not recon <= 1e-10:
         raise AssertionError(f"compensated reconstruction error {recon}")
-    print(f"[3] 8x1M sift: launches {launches}; num_components "
+    print(f"[3] 8x1M sift: launches {launches}, by mode {modes}; "
+          f"num_components "
           f"{res.num_components.tolist()}; stop_reason "
           f"{res.stop_reason.tolist()}; compensated reconstruction error "
           f"{recon!r} (uncompensated {raw!r})", flush=True)
@@ -1437,10 +1492,10 @@ def main() -> int:
     grad_launches = dict(cf.LAUNCHES)
     segsum_launches = dict(cf.SEGSUM_LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    # forward and replay: levels + 1 extractions each; every extraction of
-    # the replay but the last trip's reaches the loss: two fill2 and four
-    # segsum calls each
-    want = {"level_summaries": 2 * (levels + 1), "tile_scan": 2 * (levels + 1),
+    # forward and replay: levels + 1 extractions each, the replay's each
+    # with a pre-pass of its own; every extraction of the replay but the
+    # last trip's reaches the loss: two fill2 and four segsum calls each
+    want = {"level_summaries": levels + 2, "tile_scan": 2 * (levels + 1),
             "sift_level": 2 * (levels + 1), "fill2": 2 * levels, "fillv": 0,
             "segsum": 4 * levels}
     if grad_launches != want or segsum_launches != {1: 2 * levels,
@@ -1613,8 +1668,10 @@ def main() -> int:
             raise AssertionError(f"{name}: kernel differs from its plain "
                                  f"version, max abs err {err}")
         # device time from the profiler; CUDA events where it has none
-        ms, plain_ms = device_ms(kernel_fn)[0], device_ms(plain_fn)[0]
-        method = "profiler device time"
+        plain_ms, ms = device_ms(plain_fn)[0], device_ms(kernel_fn)[0]
+        method = ("profiler device time per recorded launch, {missing} of "
+                  "{expected} records missing, {summed_ms:.4f} ms as a plain "
+                  "sum over the calls").format(**TRACE_GAPS)
         if ms != ms or plain_ms != plain_ms:
             ms = statistics.median(cuda_times(kernel_fn))
             plain_ms = statistics.median(cuda_times(plain_fn))
@@ -1656,33 +1713,73 @@ def main() -> int:
     row_k, row_p = torch.empty_like(x), torch.empty_like(x)
     zero = x * 0
     args = dict(rotp=lvl0.rotation, pbase=x, perr=lvl0.sub_err, comp=zero)
-    lk = cf.sift_level_cuda(base, tk, out_row=row_k, **args)
-    lp = cf.sift_level(base, tk, out_row=row_p, **args)
     # reads: base and comp always, rotp and perr on running or stop-B rows,
     # pbase on stop-A rows; five row writes; the seeds and flags
     fl = tk.flags
     n_rp = int(((fl & (cf.CONT | cf.STOP_B)) != 0).sum())
     n_pb = int(((fl & cf.STOP_A) != 0).sum())
-    entry("sift_level",
-          max(max_abs_err(a, b) for a, b in zip(lk + (row_k,), lp + (row_p,))),
+    book_bytes = (4 * n * (7 * rows + 2 * n_rp + n_pb) + rows * nt * 32
+                  + rows * 4)
+
+    def level_err(emit, **kw):
+        """sift_level on the kernel against its plain version."""
+        lk = cf.sift_level_cuda(base, tk, emit=emit, **kw)
+        lp = cf.sift_level(base, tk, emit=emit, **dict(
+            kw, **({"out_row": row_p} if kw else {})))
+        pairs = list(zip(flat(lk), flat(lp)))
+        if kw:
+            pairs.append((row_k, row_p))
+        return lk, max(max_abs_err(a, b) for a, b in pairs)
+
+    # the sift's last trip: the bookkeeping, nothing emitted
+    _, l_err = level_err(False, out_row=row_k, **args)
+    entry("sift_level", l_err,
           lambda: cf.sift_level_cuda(base, tk, out_row=row_k, **args),
           lambda: cf.sift_level(base, tk, out_row=row_p, **args),
-          4 * n * (7 * rows + 2 * n_rp + n_pb) + rows * nt * 32 + rows * 4,
-          40 * rows * n, launches["sift_level"])
+          book_bytes, 40 * rows * n, launches["sift_level"])
+    # every other trip: it also emits the baseline's interior summaries
+    lk, e_err = level_err(True, out_row=row_k, **args)
+    entry("sift_level_emit", e_err,
+          lambda: cf.sift_level_cuda(base, tk, out_row=row_k, emit=True,
+                                     **args),
+          lambda: cf.sift_level(base, tk, out_row=row_p, emit=True, **args),
+          book_bytes + rows * nt * 36, 42 * rows * n,
+          modes["sift_level_emit"])
+    # the next trip's scan: the interior summaries completed with each
+    # tile's first and last sample (six values a tile) before the scan
+    ck, cp = carry(), carry()
+    ek = cf.tile_scan_cuda(lk.interior, ck, 2, MAIN_MAX_IT,
+                           edges_from=lk.baseline)
+    ep = cf.tile_scan(lk.interior, cp, 2, MAIN_MAX_IT,
+                      edges_from=lk.baseline)
+    whole = cf.tile_scan_cuda(cf.level_summaries_cuda(lk.baseline), carry(),
+                              2, MAIN_MAX_IT)
+    entry("tile_scan_edges",
+          max(max_abs_err(a, b)
+              for a, b in list(zip(ek + ck, ep + cp)) + list(zip(ek, whole))),
+          lambda: cf.tile_scan_cuda(lk.interior, ck, 2, MAIN_MAX_IT,
+                                    edges_from=lk.baseline),
+          lambda: cf.tile_scan(lk.interior, cp, 2, MAIN_MAX_IT,
+                               edges_from=lk.baseline),
+          rows * nt * (36 + 24 + 32) + rows * (12 + 12 + 8), 0,
+          modes["tile_scan_edges"])
 
     # the same kernel with the bookkeeping compiled out (K2: the first
-    # extraction of a sift, and every level of the backward's replay)
-    k2 = max(max_abs_err(a, b) for a, b in zip(
-        cf.sift_level_cuda(base, tk)[:3], cf.sift_level(base, tk)[:3]))
-    if k2 != 0.0:
-        raise AssertionError(f"sift_level without bookkeeping differs, max "
-                             f"abs err {k2}")
-    k2_ms = device_ms(lambda: cf.sift_level_cuda(base, tk))[0]
-    k2_plain = device_ms(lambda: cf.sift_level(base, tk))[0]
-    k2_b, k2_by = bound(16 * rows * n + rows * nt * 32, 40 * rows * n)
-    print(f"[7] sift_level without bookkeeping: kernel {k2_ms:.4f} ms, plain "
-          f"{k2_plain:.4f} ms per call at 8x1M (profiler device time; max abs "
-          f"err 0.0); bound {k2_b:.4f} ms by {k2_by}  [{card}]", flush=True)
+    # extraction of a sift, which emits, and every level of the backward's
+    # replay, which does not)
+    for emit in (True, False):
+        _, k2 = level_err(emit)
+        if k2 != 0.0:
+            raise AssertionError(f"sift_level without bookkeeping, emit="
+                                 f"{emit}, differs: max abs err {k2}")
+    k2_emit = device_ms(lambda: cf.sift_level_cuda(base, tk, emit=True))[0]
+    entry("sift_level_k2", 0.0, lambda: cf.sift_level_cuda(base, tk),
+          lambda: cf.sift_level(base, tk),
+          16 * rows * n + rows * nt * 32, 40 * rows * n,
+          launches["sift_level"] - modes["sift_level_book"])
+    print(f"[7] sift_level without bookkeeping, emitting (the sift's first "
+          f"extraction): kernel {k2_emit:.4f} ms per call at 8x1M (profiler "
+          f"device time; max abs err 0.0)  [{card}]", flush=True)
 
     # the backward's scans on the same level input, as the adjoint calls them
     knots = knot_mask(base)
@@ -1750,8 +1847,36 @@ def main() -> int:
           f"call (profiler device time) "
           + ", ".join(f"{k} {v:.4f}" for k, v in deep_ms.items())
           + f"  [{card}]", flush=True)
-    del deep, dknots, d_next
-    print(f"[7] launches: forward sift {launches}; forward + backward "
+    # the level kernels on the same input: the walk seldom passes a knot
+    dsum = cf.level_summaries_cuda(deep)
+    dst = cf.tile_scan_cuda(dsum, carry(), 1, MAIN_MAX_IT)
+    dk = cf.sift_level_cuda(deep, dst, out_row=row_k, emit=True, **args)
+    dp = cf.sift_level(deep, dst, out_row=row_p, emit=True, **args)
+    de = cf.tile_scan_cuda(dk.interior, edges_from=dk.baseline)
+    if not (all(bitwise_equal(a, b) for a, b in zip(
+                flat(dk) + [row_k] + list(dsum), flat(dp) + [row_p]
+                + list(cf.level_summaries(deep))))
+            and all(bitwise_equal(a, b) for a, b in zip(de, cf.tile_scan(
+                cf.level_summaries(dk.baseline))))):
+        raise AssertionError("the level kernels on the last level's input "
+                             "differ from their plain versions")
+    deep_lvl = {
+        "level_summaries": lambda: cf.level_summaries_cuda(deep),
+        "tile_scan_edges": lambda: cf.tile_scan_cuda(
+            dk.interior, edges_from=dk.baseline),
+        "sift_level_k2": lambda: cf.sift_level_cuda(deep, dst),
+        "sift_level": lambda: cf.sift_level_cuda(deep, dst, out_row=row_k,
+                                                 **args),
+        "sift_level_emit": lambda: cf.sift_level_cuda(
+            deep, dst, out_row=row_k, emit=True, **args)}
+    print(f"[7] level kernels on the same input: bitwise their plain "
+          f"versions; kernel ms per call (profiler device time) "
+          + ", ".join(f"{k} {device_ms(fn)[0]:.4f}"
+                      for k, fn in deep_lvl.items())
+          + f"  [{card}]", flush=True)
+    del deep, dknots, d_next, dk, dp
+    print(f"[7] launches: forward sift {launches} (by mode {modes}); forward "
+          f"+ backward "
           f"{grad_launches}, segsum by channels {segsum_launches}; one kernel "
           f"launch per scan call, "
           f"{grad_launches['fill2'] + grad_launches['segsum']} per backward",

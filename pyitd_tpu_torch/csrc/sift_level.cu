@@ -9,32 +9,55 @@
 // (SHARD), pyitd_tpu/ops/pallas_fill_sharded.py::sharded_sift_level_fused
 // (K9) and the pre-pass inside parallel/sharded.py::_sift_local_pallas.
 //
-// What bounds it: bytes.  At 8 x 1M f32 with 10 levels the sift moves about
-// 3.7 GB: ten trips x (5 reads + 5 writes of 32 MB), the initial
-// extraction's 4 x 32 MB and eleven 32 MB summary reads -- about 1.1 ms at
-// the data sheet's 3.35 TB/s.  The arithmetic per sample is a few dozen
-// flops, far below the card's ratio of flops to bytes.
+// What bounds it: bytes, and on this card the bytes a block keeps in flight.
+// At 8 x 1M f32 with 10 levels the sift moves about 3.4 GB: ten trips x
+// (5 reads + 5 writes of 32 MB), the first extraction's 4 x 32 MB and one
+// 32 MB summary read -- about 1.0 ms at the data sheet's 3.35 TB/s.  The
+// arithmetic per sample is a few dozen flops, far below the card's ratio of
+// flops to bytes; what a slow version of these kernels waits for is its own
+// chain of barriers and shared-memory round trips with too few blocks
+// resident to hide it.
 //
 // What the design does about it.  The TPU walks each row's blocks in order
 // and carries the reverse fill state from block to block; a GPU runs its
-// blocks in no order, so both directions are seeded instead, in three
-// launches per trip:
-//   1. level_summaries: one block per (row, tile of TILE samples) reads the
-//      tile once and writes its last two knots, first two knots and knot
-//      count (16 + 16 + 4 bytes per tile).
-//   2. tile_scan: one warp per row turns those into each tile's exclusive
+// blocks in no order, so both directions are seeded instead:
+//   1. level_summaries: one block per (row, tile of TILE samples) loads the
+//      tile with coalesced 128-bit loads straight into registers
+//      (tile_fill.cuh, the chunk layout), tests the knots, and reduces them
+//      to the tile's last two knots, first two knots and knot count
+//      (16 + 16 + 4 bytes per tile): a reduction with one barrier, no scan.
+//   2. tile_scan: one block per row turns those into each tile's exclusive
 //      forward prefix and exclusive reverse suffix, the interior extrema
 //      count, and the sift's stop flags and done/reason/ncomp update.
-//   3. sift_level: one block per (row, tile) stages the tile plus a
-//      one-sample halo in shared memory, recomputes the knot mask, runs
-//      the forward and reverse last-two-knot fills seeded from step 2
-//      (a serial run per thread, a warp-shuffle scan, a cross-warp scan
-//      through shared memory), evaluates the Frei-Osorio knot values and
-//      the linear-in-value baseline, and writes baseline, rotation, its
-//      two-sum residual, the output row and the compensation in one
-//      coalesced pass.  Each input is read once and each output written
+//   3. sift_level: one block per (row, tile) loads the tile the same way,
+//      keeps the values in 16 KB of shared memory and the knot bits as a
+//      128-word bitmap beside them, and after ONE barrier every thread finds
+//      the two knots before and the two after each of its chunks by bit
+//      operations on the bitmap (tile_fill.cuh::find_prev / find_next; a
+//      knot outside the tile is the seed from step 2).  No thread waits for
+//      another's fill state.  It then evaluates the Frei-Osorio knot values
+//      and the linear-in-value baseline -- the two knot values and the slope
+//      only where its walk passes a knot, since they are constants of a
+//      knot-to-knot segment -- and writes baseline, rotation, its two-sum
+//      residual, the output row and the compensation from registers with
+//      128-bit stores.  Each input is read once and each output written
 //      once; a row's previous baseline and pending residual are read only
-//      where its stop flags need them.
+//      where its stop flags need them.  What is read once and written for
+//      the next trip to stream carries the streaming hint (ld.cs / st.cs).
+// The pre-pass leaves the sift's trips.  Step 1 would re-read, trip after
+// trip, the baseline that step 3 of the trip before held in its registers.
+// With EMIT, sift_level also writes the summary of the baseline it has just
+// computed over the tile's INTERIOR, samples 1 .. TILE - 2 of the tile,
+// whose knot tests need only values the block holds (two more barriers:
+// the baseline passes through the shared memory that held the signal).
+// tile_scan then completes each tile with its two edge samples, reading at
+// most six values per tile from the baseline, before it scans.  A sift is
+// one level_summaries (of the input), and one tile_scan and one sift_level
+// per extraction.  Nothing looks ahead between blocks, so no block waits
+// for another: a one-pass look-back in both directions (as the backward's
+// scans do in one) would make a tile spin on tiles after it in ticket
+// order, and a row whose only knots are its end points would need every
+// tile of the row resident at once.
 // Knot positions are int32: (kpos - lpos) is an integer difference cast to
 // f32 once.  Built with -fmad=false and no fast-math, so every formula
 // rounds as PyTorch's eager elementwise kernels do; the kernels agree with
@@ -53,7 +76,7 @@
 // suffix into each tile's seeds and takes the global end-knot values as
 // arguments.  With SHARD off the code is what it was.
 
-// The tile-local fills (staging, knot bits, block scans) live in
+// The chunk layout, the knot test, the tile summary and the bitmap live in
 // tile_fill.cuh, shared with the cubic tier's kernels in cubic.cu.
 #include "tile_fill.cuh"
 
@@ -61,77 +84,123 @@ namespace {
 
 constexpr int STOP_A = 1, STOP_B = 2, CONT = 4;
 
+// Blocks of NT threads the compiler leaves registers for on one SM
+// (tools/level_bench.py times other values).  sift_level without the
+// bookkeeping is the faster at 3 (40 registers, some 60 bytes of spills per
+// thread, against 56 to 64 registers and none at 2); with it, 3 blocks
+// would hold 200 KB of shared memory and spill more, and 2 are the faster.
+#ifndef PYITD_LEVEL_BLOCKS
+#define PYITD_LEVEL_BLOCKS 3
+#endif
+#ifndef PYITD_BOOK_BLOCKS
+#define PYITD_BOOK_BLOCKS 2
+#endif
+#ifndef PYITD_SUMMARY_BLOCKS
+#define PYITD_SUMMARY_BLOCKS 4
+#endif
+
 // ---------------------------------------------------------------- kernel 1
 template <bool SHARD>
-__global__ void __launch_bounds__(NT) level_summaries_kernel(
-    const float* __restrict__ x, int n, int ntiles, Shard sh,
-    int* __restrict__ fpos, float* __restrict__ fval, int* __restrict__ rpos,
-    float* __restrict__ rval, int* __restrict__ cnt) {
-  __shared__ float s_x[SX_LEN];
-  __shared__ Fwd sw_f[NWARP];
-  __shared__ Rev sw_r[NWARP];
-  __shared__ int s_cnt[NWARP];
+__global__ void __launch_bounds__(NT, PYITD_SUMMARY_BLOCKS)
+level_summaries_kernel(const float* __restrict__ x, int n, int ntiles, Shard sh,
+                       int* __restrict__ fpos, float* __restrict__ fval,
+                       int* __restrict__ rpos, float* __restrict__ rval,
+                       int* __restrict__ cnt) {
+  __shared__ Ends s_we[NWARP];
   const int tile = blockIdx.x, row = blockIdx.y, base = tile * TILE;
   const int off = SHARD ? sh.offset[row] : 0;
-  if (SHARD)
-    stage_tile(x + (size_t)row * n, n, base, s_x, sh.halo_l[row],
-               sh.halo_r[row]);
-  else
-    stage_tile(x + (size_t)row * n, n, base, s_x);
-  __syncthreads();
-  Run run;
-  load_run(s_x, n, base, run, off, SHARD ? sh.n_global : n);
-  const Fwd fex = block_excl_fwd(run.f, fwd_none(), sw_f);
-  const Rev rex = block_excl_rev(run.r, rev_none(), sw_r);
-  const int c = warp_sum(__popc(run.bits));
-  if ((threadIdx.x & 31) == 0) s_cnt[threadIdx.x >> 5] = c;
-  __syncthreads();
-  const size_t o = ((size_t)row * ntiles + tile) * 2;
-  if (threadIdx.x == NT - 1) {
-    const Fwd t = fwd_combine(fex, run.f);
-    fpos[o] = t.p1; fval[o] = t.v1; fpos[o + 1] = t.p2; fval[o + 1] = t.v2;
-  }
-  if (threadIdx.x == 0) {
-    const Rev t = rev_combine(run.r, rex);
-    rpos[o] = t.q1; rval[o] = t.w1; rpos[o + 1] = t.q2; rval[o + 1] = t.w2;
-    int total = 0;
-    for (int i = 0; i < NWARP; ++i) total += s_cnt[i];
-    cnt[(size_t)row * ntiles + tile] = total;
-  }
+  Chunks ch;
+  // the level that follows reads the row again: no streaming hint
+  const float edge = load_chunk_values<false>(
+      x + (size_t)row * n, n, base, SHARD ? sh.halo_l[row] : 0.f,
+      SHARD ? sh.halo_r[row] : 0.f, ch);
+  chunk_bits(n, base, off, SHARD ? sh.n_global : n, edge, ch);
+  const size_t o = (size_t)row * ntiles + tile;
+  tile_summary(ch.v, ch.bits, off + base, s_we, fpos + 2 * o, fval + 2 * o,
+               rpos + 2 * o, rval + 2 * o, cnt + o);
 }
 
 // ---------------------------------------------------------------- kernel 2
-// One warp per row.  Lane l owns a contiguous run of tiles; a lane-serial
-// fold, a warp-shuffle exclusive scan of the lane folds, then a serial
-// re-walk that writes each tile's exclusive prefix / suffix.  With ftot_pos
-// it also writes the row's inclusive totals (the last two and the first two
-// knots of the whole row): a time shard's side of the cross-shard fold.
-__global__ void tile_scan_kernel(
+// One tile's summary.  With `edges` (a row of the signal the interior
+// summaries were taken from) the summary covers the tile's interior only
+// and is completed here with the tile's first and last sample, whose knot
+// tests read their neighbours from the row.
+struct TileSum {
+  Fwd f;
+  Rev r;
+  int c;
+};
+
+__device__ __forceinline__ TileSum load_summary(
+    size_t o, int k, const int* __restrict__ fpos,
+    const float* __restrict__ fval, const int* __restrict__ rpos,
+    const float* __restrict__ rval, const int* __restrict__ cnt,
+    const float* __restrict__ edges, int n) {
+  TileSum s{{fpos[2 * o], fval[2 * o], fpos[2 * o + 1], fval[2 * o + 1]},
+            {rpos[2 * o], rval[2 * o], rpos[2 * o + 1], rval[2 * o + 1]},
+            cnt[o]};
+  if (edges == nullptr) return s;
+  const int t0 = k * TILE, t1 = t0 + TILE - 1;
+  const float a0 = edges[t0];
+  if (knot_at(t0 > 0 ? edges[t0 - 1] : 0.f, a0,
+              t0 + 1 < n ? edges[t0 + 1] : 0.f, t0, n)) {
+    s.f = fwd_combine(Fwd{t0, a0, -1, 0.f}, s.f);
+    s.r = rev_combine(Rev{t0, a0, -1, 0.f}, s.r);
+    s.c += 1;
+  }
+  if (t1 < n) {
+    const float a1 = edges[t1];
+    if (knot_at(edges[t1 - 1], a1, t1 + 1 < n ? edges[t1 + 1] : 0.f, t1, n)) {
+      s.f = fwd_combine(s.f, Fwd{t1, a1, -1, 0.f});
+      s.r = rev_combine(s.r, Rev{t1, a1, -1, 0.f});
+      s.c += 1;
+    }
+  }
+  return s;
+}
+
+// One block of up to SCAN_NT threads per row.  Thread t owns a contiguous
+// run of tiles (one tile each up to SCAN_NT tiles a row): a serial fold of
+// its run, a warp-shuffle scan of the thread folds in both directions, the
+// warp aggregates through shared memory behind one barrier, then a serial
+// re-walk that writes each tile's exclusive prefix / suffix.  The fills only
+// select, so any association gives the same bits.  With ftot_pos it also
+// writes the row's inclusive totals (the last two and the first two knots
+// of the whole row): a time shard's side of the cross-shard fold.
+constexpr int SCAN_NT = 256;
+
+__global__ void __launch_bounds__(SCAN_NT) tile_scan_kernel(
     int ntiles, const int* __restrict__ fpos, const float* __restrict__ fval,
     const int* __restrict__ rpos, const float* __restrict__ rval,
-    const int* __restrict__ cnt, int* __restrict__ fpos_ex,
-    float* __restrict__ fval_ex, int* __restrict__ rpos_ex,
-    float* __restrict__ rval_ex, int* __restrict__ nex, int* __restrict__ flags,
+    const int* __restrict__ cnt, const float* __restrict__ edges, int n,
+    int* __restrict__ fpos_ex, float* __restrict__ fval_ex,
+    int* __restrict__ rpos_ex, float* __restrict__ rval_ex,
+    int* __restrict__ nex, int* __restrict__ flags,
     int* __restrict__ done, int* __restrict__ reason, int* __restrict__ ncomp,
     int trip, int max_iteration, int* __restrict__ ftot_pos,
     float* __restrict__ ftot_val, int* __restrict__ rtot_pos,
     float* __restrict__ rtot_val) {
-  const int row = blockIdx.x, lane = threadIdx.x;
-  const int per = (ntiles + 31) / 32;
-  const int k0 = min(lane * per, ntiles), k1 = min(k0 + per, ntiles);
+  __shared__ Fwd sw_f[SCAN_NT / 32];
+  __shared__ Rev sw_r[SCAN_NT / 32];
+  __shared__ int sw_c[SCAN_NT / 32];
+  const int row = blockIdx.x, tid = threadIdx.x, nthr = blockDim.x;
+  const int lane = tid & 31, w = tid >> 5, nw = nthr >> 5;
+  const int per = (ntiles + nthr - 1) / nthr;
+  const int k0 = min(tid * per, ntiles), k1 = min(k0 + per, ntiles);
   const size_t rb = (size_t)row * ntiles;
+  const float* er = edges == nullptr ? nullptr : edges + (size_t)row * n;
+  auto summary = [&](int k) {
+    return load_summary(rb + k, k, fpos, fval, rpos, rval, cnt, er, n);
+  };
 
   Fwd fa = fwd_none();
   Rev ra = rev_none();
   int c = 0;
   for (int k = k0; k < k1; ++k) {
-    const size_t o = (rb + k) * 2;
-    fa = fwd_combine(fa, Fwd{fpos[o], fval[o], fpos[o + 1], fval[o + 1]});
-    c += cnt[rb + k];
-  }
-  for (int k = k1 - 1; k >= k0; --k) {
-    const size_t o = (rb + k) * 2;
-    ra = rev_combine(Rev{rpos[o], rval[o], rpos[o + 1], rval[o + 1]}, ra);
+    const TileSum t = summary(k);
+    fa = fwd_combine(fa, t.f);
+    ra = rev_combine(ra, t.r);
+    c += t.c;
   }
 
   Fwd finc = fa;
@@ -143,39 +212,54 @@ __global__ void tile_scan_kernel(
     const Rev v = shfl_down(rinc, o);
     if (lane + o < 32) rinc = rev_combine(rinc, v);
   }
+  c = warp_sum(c);
+  if (lane == 31) sw_f[w] = finc;
+  if (lane == 0) {
+    sw_r[w] = rinc;
+    sw_c[w] = c;
+  }
+  __syncthreads();
+  Fwd wpre = fwd_none();  // the warps before this one
+  for (int i = 0; i < w; ++i) wpre = fwd_combine(wpre, sw_f[i]);
+  Rev wsuf = rev_none();  // the warps after it
+  for (int i = nw - 1; i > w; --i) wsuf = rev_combine(sw_r[i], wsuf);
+  int total = 0;
+  for (int i = 0; i < nw; ++i) total += sw_c[i];
+
   if (ftot_pos != nullptr) {
     const size_t o = (size_t)row * 2;
-    if (lane == 31) {
-      ftot_pos[o] = finc.p1; ftot_val[o] = finc.v1;
-      ftot_pos[o + 1] = finc.p2; ftot_val[o + 1] = finc.v2;
+    if (tid == nthr - 1) {
+      const Fwd t = fwd_combine(wpre, finc);
+      ftot_pos[o] = t.p1; ftot_val[o] = t.v1;
+      ftot_pos[o + 1] = t.p2; ftot_val[o + 1] = t.v2;
     }
-    if (lane == 0) {
-      rtot_pos[o] = rinc.q1; rtot_val[o] = rinc.w1;
-      rtot_pos[o + 1] = rinc.q2; rtot_val[o + 1] = rinc.w2;
+    if (tid == 0) {
+      const Rev t = rev_combine(rinc, wsuf);
+      rtot_pos[o] = t.q1; rtot_val[o] = t.w1;
+      rtot_pos[o + 1] = t.q2; rtot_val[o + 1] = t.w2;
     }
   }
   Fwd facc = shfl_up(finc, 1);
   if (lane == 0) facc = fwd_none();
+  facc = fwd_combine(wpre, facc);
   Rev racc = shfl_down(rinc, 1);
   if (lane == 31) racc = rev_none();
-  const int total = warp_sum(c);
+  racc = rev_combine(racc, wsuf);
 
   for (int k = k0; k < k1; ++k) {
     const size_t o = (rb + k) * 2;
-    const Fwd t{fpos[o], fval[o], fpos[o + 1], fval[o + 1]};
     fpos_ex[o] = facc.p1; fval_ex[o] = facc.v1;
     fpos_ex[o + 1] = facc.p2; fval_ex[o + 1] = facc.v2;
-    facc = fwd_combine(facc, t);
+    if (k + 1 < k1) facc = fwd_combine(facc, summary(k).f);
   }
   for (int k = k1 - 1; k >= k0; --k) {
     const size_t o = (rb + k) * 2;
-    const Rev t{rpos[o], rval[o], rpos[o + 1], rval[o + 1]};
     rpos_ex[o] = racc.q1; rval_ex[o] = racc.w1;
     rpos_ex[o + 1] = racc.q2; rval_ex[o + 1] = racc.w2;
-    racc = rev_combine(t, racc);
+    if (k > k0) racc = rev_combine(summary(k).r, racc);
   }
 
-  if (lane == 0) {
+  if (tid == 0) {
     const int nx = total - 2;  // knots minus the two endpoints
     nex[row] = nx;
     int f = 0;
@@ -196,8 +280,33 @@ __global__ void tile_scan_kernel(
 }
 
 // ---------------------------------------------------------------- kernel 3
-template <bool BOOK, bool REF_END, bool SHARD>
-__global__ void __launch_bounds__(NT) sift_level_kernel(
+// the first `count` of four values of an array at index i, zeros after them
+__device__ __forceinline__ void load_tail(const float* __restrict__ a, size_t i,
+                                          int count, float (&v)[4]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) v[q] = q < count ? a[i + q] : 0.f;
+}
+
+// STREAM: the next reader is far enough away to find nothing in the cache
+template <bool STREAM>
+__device__ __forceinline__ void store4(float* __restrict__ a, size_t i,
+                                       int count, bool vec,
+                                       const float (&v)[4]) {
+  if (vec) {
+    const float4 t = make_float4(v[0], v[1], v[2], v[3]);
+    if (STREAM) __stcs(reinterpret_cast<float4*>(a + i), t);
+    else *reinterpret_cast<float4*>(a + i) = t;
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (q < count) a[i + q] = v[q];
+  }
+}
+
+template <bool BOOK, bool REF_END, bool SHARD, bool EMIT>
+__global__ void
+__launch_bounds__(NT, BOOK ? PYITD_BOOK_BLOCKS : PYITD_LEVEL_BLOCKS)
+sift_level_kernel(
     const float* __restrict__ x, int n, int ntiles, Shard sh,
     const int* __restrict__ fpos, const float* __restrict__ fval,
     const int* __restrict__ rpos, const float* __restrict__ rval,
@@ -205,23 +314,69 @@ __global__ void __launch_bounds__(NT) sift_level_kernel(
     const float* __restrict__ pbase, const float* __restrict__ perr,
     const float* __restrict__ comp, float* __restrict__ base_out,
     float* __restrict__ rot_out, float* __restrict__ err_out,
-    float* __restrict__ row_out, float* __restrict__ comp_out) {
-  __shared__ float s_x[SX_LEN];
-  __shared__ float s_b[SB_LEN];
-  __shared__ Fwd sw_f[NWARP];
-  __shared__ Rev sw_r[NWARP];
+    float* __restrict__ row_out, float* __restrict__ comp_out,
+    int* __restrict__ ifpos, float* __restrict__ ifval,
+    int* __restrict__ irpos, float* __restrict__ irval,
+    int* __restrict__ icnt) {
+  static_assert(!(SHARD && EMIT), "a shard's edge samples need its halos");
+  __shared__ __align__(16) float s_x[TILE];
+  __shared__ unsigned s_bits[TILE / 32];
+  __shared__ Ends s_we[EMIT ? NWARP : 1];
+  // BOOK: three tiles of the previous extraction's outputs
+  extern __shared__ __align__(16) float s_in[];
   const int tile = blockIdx.x, row = blockIdx.y, base = tile * TILE;
-  const float* xr = x + (size_t)row * n;
+  const size_t ro = (size_t)row * n;
+  const float* xr = x + ro;
   // the row's first position and the length of the signal it is part of
   const int off = SHARD ? sh.offset[row] : 0;
   const int ng = SHARD ? sh.n_global : n;
   const int gbase = off + base;
-  if (SHARD) stage_tile(xr, n, base, s_x, sh.halo_l[row], sh.halo_r[row]);
-  else stage_tile(xr, n, base, s_x);
-  __syncthreads();
 
-  Run run;
-  load_run(s_x, n, base, run, off, ng);
+  // 128-bit accesses need every array on the row's own 16-byte phase
+  uintptr_t ptrs = reinterpret_cast<uintptr_t>(x)
+      | reinterpret_cast<uintptr_t>(base_out)
+      | reinterpret_cast<uintptr_t>(rot_out)
+      | reinterpret_cast<uintptr_t>(err_out);
+  if (BOOK)
+    ptrs |= reinterpret_cast<uintptr_t>(rotp) | reinterpret_cast<uintptr_t>(pbase)
+        | reinterpret_cast<uintptr_t>(perr) | reinterpret_cast<uintptr_t>(comp)
+        | reinterpret_cast<uintptr_t>(row_out)
+        | reinterpret_cast<uintptr_t>(comp_out);
+  const size_t i0 = ro + base + chunk_start(0);
+  const bool congruent = (ptrs & 15) == 0 && (i0 & 3) == 0;
+  const int fl = BOOK ? flags[row] : 0;
+  const bool sa = fl & STOP_A, sb = fl & STOP_B, ct = fl & CONT;
+
+  Chunks ch;
+  const float edge = load_chunk_values<true>(
+      xr, n, base, SHARD ? sh.halo_l[row] : 0.f, SHARD ? sh.halo_r[row] : 0.f,
+      ch);
+  if (BOOK) {
+    // the previous extraction's outputs start on their way now, into shared
+    // memory past the registers, and are read when the baseline is known:
+    // the pending rotation (stop A: the previous baseline), its residual,
+    // the compensation
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      const int j0 = chunk_start(c);
+      if (!congruent || base + j0 + 4 > n) continue;
+      const size_t i = i0 + c * CSET;
+      if (sa) {
+        cp_async16(s_in + j0, pbase + i);
+      } else if (ct || sb) {
+        cp_async16(s_in + j0, rotp + i);
+        cp_async16(s_in + TILE + j0, perr + i);
+      }
+      cp_async16(s_in + 2 * TILE + j0, comp + i);
+    }
+  }
+  chunk_bits(n, base, off, ng, edge, ch);
+#pragma unroll
+  for (int c = 0; c < CH; ++c)
+    *reinterpret_cast<float4*>(s_x + chunk_start(c)) =
+        make_float4(ch.v[c][0], ch.v[c][1], ch.v[c][2], ch.v[c][3]);
+  write_bitmap(ch.bits, s_bits);
+
   const size_t so = ((size_t)row * ntiles + tile) * 2;
   Fwd fseed{fpos[so], fval[so], fpos[so + 1], fval[so + 1]};
   Rev rseed{rpos[so], rval[so], rpos[so + 1], rval[so + 1]};
@@ -232,86 +387,181 @@ __global__ void __launch_bounds__(NT) sift_level_kernel(
     rseed = rev_combine(rseed, Rev{sh.suf_pos[ho], sh.suf_val[ho],
                                    sh.suf_pos[ho + 1], sh.suf_val[ho + 1]});
   }
-  const Fwd fex = block_excl_fwd(run.f, fseed, sw_f);
-  const Rev rex = block_excl_rev(run.r, rseed, sw_r);
-
-  const int j0 = threadIdx.x * SPT;
-  // reverse walk: the first two knots strictly after each sample
-  int n1p[SPT], n2p[SPT];
-  float n1x[SPT], n2x[SPT];
-  Rev S = rex;
-#pragma unroll
-  for (int k = SPT - 1; k >= 0; --k) {
-    n1p[k] = S.q1; n1x[k] = S.w1; n2p[k] = S.q2; n2x[k] = S.w2;
-    if ((run.bits >> k) & 1u) S = {gbase + j0 + k, run.xv[k], S.q1, S.w1};
-  }
-
   const float b_first = SHARD ? sh.b_first[row] : 0.5f * (xr[0] + xr[1]);
   const float b_last =
       SHARD ? sh.b_last[row] : 0.5f * (xr[n - 2] + xr[n - 1]);
-  // forward walk: the last two knots at or before each sample, then the
-  // epilogue of _fused_scans_and_epilogue in the order of the gather form
-  Fwd P = fex;
-#pragma unroll
-  for (int k = 0; k < SPT; ++k) {
-    const int t = base + j0 + k;  // index in the row
-    const int g = gbase + j0 + k;  // position in the signal
-    const float xt = run.xv[k];
-    if ((run.bits >> k) & 1u) P = {g, xt, P.p1, P.v1};
-    float b = 0.f;
-    if (t < n) {
-      int q1 = n1p[k];
-      float w1 = n1x[k];
-      if (g == ng - 1) {  // no knot after: the gather form clips to the end
-        q1 = ng - 1;
-        w1 = xt;
-      }
-      float b_l;
-      if (P.p1 == ng - 1) b_l = b_last;
-      else if (P.p1 == 0) b_l = b_first;
-      else b_l = knot_value(P.p1, P.v1, P.p2, P.v2, q1, w1);
-      const float b_r = (q1 == ng - 1)
-          ? b_last : knot_value(q1, w1, P.p1, P.v1, n2p[k], n2x[k]);
-      const float den = w1 - P.v1;
-      const float slope = (den == 0.f) ? 0.f : (b_r - b_l) / den;
-      b = b_l + slope * (xt - P.v1);
-      if (REF_END && g == ng - 1) b = 0.f;
-    }
-    s_b[padi(j0 + k)] = b;
-  }
   __syncthreads();
+  const Bitmap bm = read_bitmap(s_bits);
 
-  // coalesced pass: outputs, and the sift bookkeeping for the PREVIOUS
-  // extraction's outputs (row into rotations[level], compensation)
-  const size_t ro = (size_t)row * n;
-  const int fl = BOOK ? flags[row] : 0;
-  const bool sa = fl & STOP_A, sb = fl & STOP_B, ct = fl & CONT;
-  for (int j = threadIdx.x; j < TILE; j += NT) {
-    const int t = base + j;
-    if (t >= n) break;
-    const size_t i = ro + t;
-    const float xx = s_x[padi(j + 1)];
-    const float b = s_b[padi(j)];
-    const float r = xx - b;
-    const float bb = r - xx;
-    base_out[i] = b;
-    rot_out[i] = r;
-    err_out[i] = (xx - (r - bb)) + ((-b) - bb);
-    if (BOOK) {
-      const float rp = (ct || sb) ? rotp[i] : 0.f;
-      const float rs = rp + xx;
-      const float rbb = rs - rp;
-      const float res_err = (rp - (rs - rbb)) + (xx - rbb);
-      float rowv;
-      if (sa) rowv = pbase[i];
-      else if (sb) rowv = rs;
-      else rowv = ct ? rp : 0.f;
-      row_out[i] = rowv;
-      const float pe = (ct || sb) ? perr[i] : 0.f;
-      comp_out[i] = (comp[i] + pe) + (sb ? res_err : 0.f);
+  float bout[CH][4];
+#pragma unroll
+  for (int c = 0; c < CH; ++c) {
+    const int j0 = chunk_start(c);
+    const int t0 = base + j0, g0 = gbase + j0;
+    const unsigned nib = ch.bits[c];
+
+    // the last two knots before the chunk: the tile's, then the seed's
+    Fwd P = fseed;
+    const int a1 = find_prev(bm, j0 - 1);
+    if (a1 >= 0) {
+      const int a2 = find_prev(bm, a1 - 1);
+      P.p2 = P.p1; P.v2 = P.v1;
+      if (a2 >= 0) {
+        P.p2 = gbase + a2; P.v2 = s_x[a2];
+      }
+      P.p1 = gbase + a1; P.v1 = s_x[a1];
     }
+    // the first two knots after the chunk
+    Rev S = rseed;
+    const int c1 = find_next(bm, j0 + 4);
+    if (c1 >= 0) {
+      const int c2 = find_next(bm, c1 + 1);
+      S.q2 = S.q1; S.w2 = S.w1;
+      if (c2 >= 0) {
+        S.q2 = gbase + c2; S.w2 = s_x[c2];
+      }
+      S.q1 = gbase + c1; S.w1 = s_x[c1];
+    }
+
+    // reverse walk: the first two knots strictly after each sample
+    int n1p[4], n2p[4];
+    float n1x[4], n2x[4];
+#pragma unroll
+    for (int k = 3; k >= 0; --k) {
+      n1p[k] = S.q1; n1x[k] = S.w1; n2p[k] = S.q2; n2x[k] = S.w2;
+      if ((nib >> k) & 1u) S = {g0 + k, ch.v[c][k], S.q1, S.w1};
+    }
+
+    // forward walk: the last two knots at or before each sample, then the
+    // epilogue of _fused_scans_and_epilogue in the order of the gather
+    // form.  The knot values and the slope change only where the walk
+    // passes a knot.
+    float b_l = 0.f, slope = 0.f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int t = t0 + k;  // index in the row
+      const int g = g0 + k;  // position in the signal
+      const float xt = ch.v[c][k];
+      const bool knot = (nib >> k) & 1u;
+      if (knot) P = {g, xt, P.p1, P.v1};
+      float b = 0.f;
+      if (t < n) {
+        if (k == 0 || knot) {
+          int q1 = n1p[k];
+          float w1 = n1x[k];
+          if (g == ng - 1) {  // no knot after: the gather form clips to the end
+            q1 = ng - 1;
+            w1 = xt;
+          }
+          if (P.p1 == ng - 1) b_l = b_last;
+          else if (P.p1 == 0) b_l = b_first;
+          else b_l = knot_value(P.p1, P.v1, P.p2, P.v2, q1, w1);
+          const float b_r = (q1 == ng - 1)
+              ? b_last : knot_value(q1, w1, P.p1, P.v1, n2p[k], n2x[k]);
+          const float den = w1 - P.v1;
+          slope = (den == 0.f) ? 0.f : (b_r - b_l) / den;
+        }
+        b = b_l + slope * (xt - P.v1);
+        if (REF_END && g == ng - 1) b = 0.f;
+      }
+      bout[c][k] = b;
+    }
+  }
+
+  // outputs, and the sift bookkeeping for the PREVIOUS extraction's outputs
+  // (row into rotations[level], compensation), which have been on their way
+  // into shared memory since the block began
+  bool live[CH], vec[CH];
+  int count[CH];
+#pragma unroll
+  for (int c = 0; c < CH; ++c) {
+    const int t0 = base + chunk_start(c);
+    live[c] = t0 < n;
+    count[c] = min(4, n - t0);
+    vec[c] = congruent && count[c] == 4;
+  }
+  if (BOOK) cp_async_wait();
+#pragma unroll
+  for (int c = 0; c < CH; ++c) {
+    if (!live[c]) continue;
+    const size_t i = i0 + c * CSET;
+    float r[4], e[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float xx = ch.v[c][k], b = bout[c][k];
+      r[k] = xx - b;
+      const float bb = r[k] - xx;
+      e[k] = (xx - (r[k] - bb)) + ((-b) - bb);
+    }
+    // the next trip's tile_scan and sift_level read the baseline first
+    store4<false>(base_out, i, count[c], vec[c], bout[c]);
+    store4<true>(rot_out, i, count[c], vec[c], r);
+    store4<true>(err_out, i, count[c], vec[c], e);
+    if (BOOK) {
+      float rp[4] = {0.f, 0.f, 0.f, 0.f}, pe[4] = {0.f, 0.f, 0.f, 0.f}, cm[4];
+      if (vec[c]) {  // this thread's own copies
+        const int j0 = chunk_start(c);
+        const float4 a = *reinterpret_cast<const float4*>(s_in + j0);
+        const float4 b = *reinterpret_cast<const float4*>(s_in + TILE + j0);
+        const float4 d = *reinterpret_cast<const float4*>(s_in + 2 * TILE + j0);
+        if (sa || ct || sb) { rp[0] = a.x; rp[1] = a.y; rp[2] = a.z; rp[3] = a.w; }
+        if (ct || sb) { pe[0] = b.x; pe[1] = b.y; pe[2] = b.z; pe[3] = b.w; }
+        cm[0] = d.x; cm[1] = d.y; cm[2] = d.z; cm[3] = d.w;
+      } else {
+        if (sa) {
+          load_tail(pbase, i, count[c], rp);
+        } else if (ct || sb) {
+          load_tail(rotp, i, count[c], rp);
+          load_tail(perr, i, count[c], pe);
+        }
+        load_tail(comp, i, count[c], cm);
+      }
+      float rowv[4], co[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        // stop A: the previous baseline; stop B: the pending rotation plus
+        // x, whose rounding joins the compensation; running: the rotation
+        const float xx = ch.v[c][k], p = rp[k];
+        const float rs = p + xx;
+        const float rbb = rs - p;
+        const float res_err = (p - (rs - rbb)) + (xx - rbb);
+        rowv[k] = sb ? rs : p;
+        co[k] = (cm[k] + pe[k]) + (sb ? res_err : 0.f);
+      }
+      store4<true>(row_out, i, count[c], vec[c], rowv);
+      store4<true>(comp_out, i, count[c], vec[c], co);
+    }
+  }
+
+  if (EMIT) {
+    // the interior summary of the baseline: its knot tests need the
+    // neighbour chunks' values, through the shared memory that held x
+    __syncthreads();
+#pragma unroll
+    for (int c = 0; c < CH; ++c)
+      *reinterpret_cast<float4*>(s_x + chunk_start(c)) =
+          make_float4(bout[c][0], bout[c][1], bout[c][2], bout[c][3]);
+    __syncthreads();
+    unsigned ibits[CH];
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      const int j0 = chunk_start(c);
+      const float e[6] = {j0 > 0 ? s_x[j0 - 1] : 0.f, bout[c][0], bout[c][1],
+                          bout[c][2], bout[c][3],
+                          j0 + 4 < TILE ? s_x[j0 + 4] : 0.f};
+      ibits[c] = chunk_knots(e, base + j0, n, base + j0, n);
+      if (j0 == 0) ibits[c] &= ~1u;             // the tile's first sample
+      if (j0 + 4 == TILE) ibits[c] &= ~8u;      // and its last: tile_scan's
+    }
+    const size_t o = (size_t)row * ntiles + tile;
+    tile_summary(bout, ibits, base, s_we, ifpos + 2 * o, ifval + 2 * o,
+                 irpos + 2 * o, irval + 2 * o, icnt + o);
   }
 }
+
+// the bookkeeping's three staged tiles are dynamic shared memory: with the
+// kernel's static 17 KB a block passes the 48 KB a kernel has without asking
+constexpr int BOOK_SMEM = 3 * TILE * (int)sizeof(float);
 
 }  // namespace
 
@@ -344,20 +594,27 @@ int pyitd_level_summaries(const float* x, int rows, int n, int ntiles,
   return (int)cudaGetLastError();
 }
 
+// edges == nullptr: the summaries are whole tiles'.  Otherwise they cover
+// each tile's interior, and edges is the (rows, n) signal they were taken
+// from: the tiles' first and last samples are tested here.
 int pyitd_tile_scan(int rows, int ntiles, const int* fpos, const float* fval,
                     const int* rpos, const float* rval, const int* cnt,
-                    int* fpos_ex, float* fval_ex, int* rpos_ex, float* rval_ex,
-                    int* nex, int* flags, int* done, int* reason, int* ncomp,
-                    int trip, int max_iteration, int* ftot_pos,
-                    float* ftot_val, int* rtot_pos, float* rtot_val,
-                    void* stream) {
-  tile_scan_kernel<<<rows, 32, 0, (cudaStream_t)stream>>>(
-      ntiles, fpos, fval, rpos, rval, cnt, fpos_ex, fval_ex, rpos_ex, rval_ex,
-      nex, flags, done, reason, ncomp, trip, max_iteration, ftot_pos,
+                    const float* edges, int n, int* fpos_ex, float* fval_ex,
+                    int* rpos_ex, float* rval_ex, int* nex, int* flags,
+                    int* done, int* reason, int* ncomp, int trip,
+                    int max_iteration, int* ftot_pos, float* ftot_val,
+                    int* rtot_pos, float* rtot_val, void* stream) {
+  const int threads = min(SCAN_NT, 32 * ((ntiles + 31) / 32));
+  tile_scan_kernel<<<rows, threads, 0, (cudaStream_t)stream>>>(
+      ntiles, fpos, fval, rpos, rval, cnt, edges, n, fpos_ex, fval_ex, rpos_ex,
+      rval_ex, nex, flags, done, reason, ncomp, trip, max_iteration, ftot_pos,
       ftot_val, rtot_pos, rtot_val);
   return (int)cudaGetLastError();
 }
 
+// ifpos != nullptr (whole rows only): also write the interior summaries of
+// the baseline, (rows, ntiles, 2) positions and values and (rows, ntiles)
+// counts, for pyitd_tile_scan with edges = base.
 int pyitd_sift_level(const float* x, int rows, int n, int ntiles,
                      const int* fpos, const float* fval, const int* rpos,
                      const float* rval, const int* flags, const float* rotp,
@@ -368,25 +625,40 @@ int pyitd_sift_level(const float* x, int rows, int n, int ntiles,
                      const float* halo_r, const float* b_first,
                      const float* b_last, const int* pre_pos,
                      const float* pre_val, const int* suf_pos,
-                     const float* suf_val, void* stream) {
+                     const float* suf_val, int* ifpos, float* ifval,
+                     int* irpos, float* irval, int* icnt, void* stream) {
   const dim3 grid(ntiles, rows);
   cudaStream_t s = (cudaStream_t)stream;
   const Shard sh{n_global, offset, halo_l, halo_r, b_first,
                  b_last,   pre_pos, pre_val, suf_pos, suf_val};
-#define PYITD_LAUNCH(B, R, S)                                                \
-  sift_level_kernel<B, R, S><<<grid, NT, 0, s>>>(                           \
-      x, n, ntiles, sh, fpos, fval, rpos, rval, flags, rotp, pbase, perr,   \
-      comp, base, rot, err, row_out, comp_out)
-#define PYITD_LAUNCH_END(B, S)           \
-  if (ref_end) PYITD_LAUNCH(B, true, S); \
-  else PYITD_LAUNCH(B, false, S)
+  if (offset != nullptr && ifpos != nullptr) return (int)cudaErrorInvalidValue;
+#define PYITD_LAUNCH(B, R, S, E)                                             \
+  do {                                                                       \
+    if (B) {  /* per launch: the attribute belongs to the current device */  \
+      const cudaError_t e = cudaFuncSetAttribute(                            \
+          sift_level_kernel<B, R, S, E>,                                     \
+          cudaFuncAttributeMaxDynamicSharedMemorySize, BOOK_SMEM);           \
+      if (e != cudaSuccess) return (int)e;                                   \
+    }                                                                        \
+    sift_level_kernel<B, R, S, E><<<grid, NT, B ? BOOK_SMEM : 0, s>>>(      \
+        x, n, ntiles, sh, fpos, fval, rpos, rval, flags, rotp, pbase, perr, \
+        comp, base, rot, err, row_out, comp_out, ifpos, ifval, irpos,       \
+        irval, icnt);                                                        \
+  } while (0)
+#define PYITD_LAUNCH_END(B, S, E)           \
+  if (ref_end) PYITD_LAUNCH(B, true, S, E); \
+  else PYITD_LAUNCH(B, false, S, E)
+#define PYITD_LAUNCH_BOOK(S, E)                           \
+  if (bookkeeping) { PYITD_LAUNCH_END(true, S, E); }      \
+  else { PYITD_LAUNCH_END(false, S, E); }
   if (offset != nullptr) {  // time shards
-    if (bookkeeping) { PYITD_LAUNCH_END(true, true); }
-    else { PYITD_LAUNCH_END(false, true); }
+    PYITD_LAUNCH_BOOK(true, false)
+  } else if (ifpos != nullptr) {
+    PYITD_LAUNCH_BOOK(false, true)
   } else {
-    if (bookkeeping) { PYITD_LAUNCH_END(true, false); }
-    else { PYITD_LAUNCH_END(false, false); }
+    PYITD_LAUNCH_BOOK(false, false)
   }
+#undef PYITD_LAUNCH_BOOK
 #undef PYITD_LAUNCH_END
 #undef PYITD_LAUNCH
   return (int)cudaGetLastError();

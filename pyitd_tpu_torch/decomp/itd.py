@@ -169,17 +169,21 @@ def _itd_sift_torch(x, max_iteration, endpoint_mode, store_baselines,
 
 def _itd_sift_kernel(x, max_iteration, endpoint_mode, store_baselines,
                      early_exit):
-    """The loop of the JAX ``_itd_sift_fused``: per trip one pre-pass
-    (summaries + tile scan, which also decides the stop flags on the
-    device) and one level launch that writes the row in place."""
+    """The loop of the JAX ``_itd_sift_fused``: per trip one tile scan
+    (which also decides the stop flags on the device) and one level launch
+    that writes the row in place.  Only the input's tiles are summarised
+    by a pass of their own: every level emits its baseline's interior
+    summaries for the next trip's scan, which completes them with each
+    tile's two edge samples."""
     levels = max_iteration + 2
     batch_shape, n = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, n).contiguous()
     rows = x2.shape[0]
 
     first = cf.sift_level_cuda(x2, cf.level_states_cuda(x2),
-                               endpoint_mode=endpoint_mode)
+                               endpoint_mode=endpoint_mode, emit=True)
     rot, base, perr = first.rotation, first.baseline, first.sub_err
+    interior = first.interior
 
     zero = x2 * 0
     out_rot = torch.empty((levels, rows, n), dtype=x2.dtype, device=x2.device)
@@ -191,11 +195,15 @@ def _itd_sift_kernel(x, max_iteration, endpoint_mode, store_baselines,
     prev_base, comp = zero, zero
 
     for i in range(levels):
-        states = cf.level_states_cuda(base, carry, trip=i,
-                                      max_iteration=max_iteration)
+        states = cf.tile_scan_cuda(interior, carry, trip=i,
+                                   max_iteration=max_iteration,
+                                   edges_from=base)
+        # the last trip's baseline is extracted no further
         new = cf.sift_level_cuda(base, states, endpoint_mode=endpoint_mode,
                                  rotp=rot, pbase=prev_base, perr=perr,
-                                 comp=comp, out_row=out_rot[i])
+                                 comp=comp, out_row=out_rot[i],
+                                 emit=i + 1 < levels)
+        interior = new.interior
         if store_baselines:
             cont = (states.flags & cf.CONT)[:, None] != 0
             torch.where(cont, base, torch.zeros_like(base), out=out_base[i])

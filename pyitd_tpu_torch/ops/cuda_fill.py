@@ -5,7 +5,7 @@ pre-pass ``level_block_states_fwd`` and K2 ``linear_level_pallas`` in
 ``segsum_pallas`` in ``csrc/fill_segsum.cu`` (see each file's header for
 the design).
 
-A sift trip is three launches:
+One level is three launches:
 
 * ``level_summaries_cuda(x)``: per (row, tile) last-two knots, first-two
   knots and knot count;
@@ -17,6 +17,13 @@ A sift trip is three launches:
   residual, and with the previous extraction's outputs the output row
   (written in place into the caller's ``rotations[level]``) and the
   compensation.
+
+Inside a sift the first of the three runs once, for the input: with
+``emit=True`` ``sift_level_cuda`` also returns the summaries of the
+baseline it has just computed over each tile's interior (samples 1 ..
+``TILE - 2`` of the tile), and ``tile_scan_cuda(interior, ...,
+edges_from=baseline)`` completes every tile with its first and last sample
+before it scans.  A trip is then two launches.
 
 The backward's scans, each one launch of a single-pass scan with decoupled
 look-back over a row's tiles (every input read once, every output written
@@ -62,10 +69,12 @@ from .linear_baseline import (interp, knot_mask, knot_mask_at, knot_value,
 
 __all__ = [
     "TILE", "STOP_A", "STOP_B", "CONT", "LAUNCHES", "SEGSUM_LAUNCHES",
+    "MODE_LAUNCHES",
     "reset_launches",
     "TileSummaries", "LevelStates", "SiftCarry", "LevelOut", "ShardArgs",
     "ShardTotals",
-    "level_summaries", "tile_scan", "level_states", "sift_level",
+    "level_summaries", "interior_summaries", "complete_summaries",
+    "tile_scan", "level_states", "sift_level",
     "stop_flags", "emit_row", "fill2", "fillv", "segsum",
     "segsum_depth", "segsum_error_bound", "SCAN_THREADS", "SCAN_RUN",
     "level_summaries_cuda", "tile_scan_cuda", "level_states_cuda",
@@ -88,9 +97,15 @@ LAUNCHES = {"level_summaries": 0, "tile_scan": 0, "sift_level": 0,
 # LAUNCHES["segsum"] by the call's number of channels
 SEGSUM_LAUNCHES = {1: 0, 2: 0}
 
+# of LAUNCHES["sift_level"], those with the sift's bookkeeping and those
+# that emit interior summaries; of LAUNCHES["tile_scan"], those that
+# complete interior summaries with the tiles' edge samples
+MODE_LAUNCHES = {"sift_level_book": 0, "sift_level_emit": 0,
+                 "tile_scan_edges": 0}
+
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, SEGSUM_LAUNCHES):
+    for counts in (LAUNCHES, SEGSUM_LAUNCHES, MODE_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -166,6 +181,8 @@ class LevelOut(NamedTuple):
     rotation: torch.Tensor
     sub_err: torch.Tensor
     comp: torch.Tensor | None  # updated compensation (bookkeeping only)
+    # with ``emit``: the baseline's summaries over each tile's interior
+    interior: TileSummaries | None = None
 
 
 def _ntiles(n: int) -> int:
@@ -209,13 +226,11 @@ def _shard_frame(x: torch.Tensor, shard: ShardArgs | None, nt: int):
             off[:, None], shard.n_global)
 
 
-def level_summaries(x: torch.Tensor,
-                    shard: ShardArgs | None = None) -> TileSummaries:
-    """Plain version of the ``level_summaries`` kernel."""
-    rows, n = x.shape
-    nt = _ntiles(n)
-    m, pos, off, _ = _shard_frame(x, shard, nt)
-    flat = _tiled(x, 0.0, nt).reshape(rows, -1)
+def _summarize(m, pos, flat, off) -> TileSummaries:
+    """The end knots and the knot count per tile of a tiled knot mask ``m``
+    with positions ``pos`` (both (rows, ntiles, TILE)); ``flat`` holds the
+    values, (rows, ntiles * TILE), of rows that start at position ``off``."""
+    rows = flat.shape[0]
     big = _FAR
 
     lp = torch.where(m, pos, -1)
@@ -238,6 +253,58 @@ def level_summaries(x: torch.Tensor,
         rval=torch.stack([val(q1), val(q2)], -1),
         cnt=m.sum(-1).to(torch.int32),
     )
+
+
+def level_summaries(x: torch.Tensor,
+                    shard: ShardArgs | None = None) -> TileSummaries:
+    """Plain version of the ``level_summaries`` kernel."""
+    rows, n = x.shape
+    nt = _ntiles(n)
+    m, pos, off, _ = _shard_frame(x, shard, nt)
+    return _summarize(m, pos, _tiled(x, 0.0, nt).reshape(rows, -1), off)
+
+
+def interior_summaries(x: torch.Tensor) -> TileSummaries:
+    """The summaries of ``x`` over each tile's interior, samples 1 ..
+    ``TILE - 2`` of the tile: what ``sift_level(..., emit=True)`` returns
+    for its baseline.  A tile's first and last sample are left to
+    ``tile_scan(..., edges_from=x)``."""
+    rows, n = x.shape
+    nt = _ntiles(n)
+    m, pos, off, _ = _shard_frame(x, None, nt)
+    m = m.clone()
+    m[..., 0] = m[..., TILE - 1] = False
+    return _summarize(m, pos, _tiled(x, 0.0, nt).reshape(rows, -1), off)
+
+
+def complete_summaries(interior: TileSummaries,
+                       x: torch.Tensor) -> TileSummaries:
+    """Interior summaries of ``x`` completed with every tile's first and
+    last sample: equal to ``level_summaries(x)``."""
+    rows, n = x.shape
+    nt = _ntiles(n)
+    m, pos, _, _ = _shard_frame(x, None, nt)
+    xt = _tiled(x, 0.0, nt)
+
+    def state(j):  # the one-sample state of local sample j of every tile
+        k = m[..., j]
+        p = torch.where(k, pos[..., j], -1).to(torch.int32)
+        v = torch.where(k, xt[..., j], 0.0)
+        return p, v, torch.full_like(p, -1), torch.zeros_like(v)
+
+    def pack(t):
+        return torch.stack([t[0], t[2]], -1), torch.stack([t[1], t[3]], -1)
+
+    first, last = state(0), state(TILE - 1)
+    f = (interior.fpos[..., 0], interior.fval[..., 0],
+         interior.fpos[..., 1], interior.fval[..., 1])
+    r = (interior.rpos[..., 0], interior.rval[..., 0],
+         interior.rpos[..., 1], interior.rval[..., 1])
+    fpos, fval = pack(_fwd_combine(_fwd_combine(first, f), last))
+    rpos, rval = pack(_rev_combine(_rev_combine(first, r), last))
+    cnt = interior.cnt + (m[..., 0].to(torch.int32)
+                          + m[..., TILE - 1].to(torch.int32))
+    return TileSummaries(fpos, fval, rpos, rval, cnt)
 
 
 def _fwd_combine(a, b):
@@ -294,9 +361,14 @@ def stop_flags(nex, carry: SiftCarry | None, trip: int, max_iteration: int):
 
 
 def tile_scan(summ: TileSummaries, carry: SiftCarry | None = None,
-              trip: int = 0, max_iteration: int = 0, totals: bool = False):
+              trip: int = 0, max_iteration: int = 0, totals: bool = False,
+              edges_from: torch.Tensor | None = None):
     """Plain version of the ``tile_scan`` kernel: the :class:`LevelStates`,
-    and with ``totals`` also the rows' :class:`ShardTotals`."""
+    and with ``totals`` also the rows' :class:`ShardTotals`.  With
+    ``edges_from`` (the (rows, n) signal) ``summ`` covers the tiles'
+    interiors and is completed with their first and last samples first."""
+    if edges_from is not None:
+        summ = complete_summaries(summ, edges_from)
     fpos, fval, ft = _exclusive(summ.fpos, summ.fval, _fwd_combine, False)
     rpos, rval, rt = _exclusive(summ.rpos, summ.rval, _rev_combine, True)
     nex = (summ.cnt.sum(-1) - 2).to(torch.int32)
@@ -337,10 +409,11 @@ def emit_row(rotation, baseline, prev_base, pending_err, comp, stop_a,
 def sift_level(x: torch.Tensor, states: LevelStates, *,
                endpoint_mode: str = "reference", rotp=None, pbase=None,
                perr=None, comp=None, out_row=None,
-               shard: ShardArgs | None = None) -> LevelOut:
+               shard: ShardArgs | None = None, emit: bool = False) -> LevelOut:
     """Plain version of the ``sift_level`` kernel: tile-local fills seeded
     from ``states``, the epilogue in the order of the gather form, and,
     when ``rotp`` is given, the bookkeeping (row into ``out_row``).  With
+    ``emit`` also the baseline's :func:`interior_summaries`.  With
     ``shard`` the rows are time shards: positions are global, the seeds
     take in the knots of the shards before and after, and the end-knot
     values are the global ones."""
@@ -412,7 +485,7 @@ def sift_level(x: torch.Tensor, states: LevelStates, *,
 
     rotation = x - baseline
     out = LevelOut(baseline, rotation, two_sum_err(x, -baseline, rotation),
-                   None)
+                   None, interior_summaries(baseline) if emit else None)
     if rotp is None:
         return out
     f = states.flags[:, None]
@@ -642,19 +715,30 @@ def level_summaries_cuda(x: torch.Tensor,
 
 def tile_scan_cuda(summ: TileSummaries, carry: SiftCarry | None = None,
                    trip: int = 0, max_iteration: int = 0,
-                   totals: bool = False):
+                   totals: bool = False,
+                   edges_from: torch.Tensor | None = None):
     """Exclusive per-tile seeds, extrema counts and (with ``carry``) the
     trip's stop flags; ``carry`` is updated in place.  With ``totals`` the
     result is ``(LevelStates, ShardTotals)``: also each row's last two and
-    first two knots."""
+    first two knots.  With ``edges_from``, the (rows, n) f32 signal,
+    ``summ`` holds its tiles' interior summaries (``sift_level_cuda(...,
+    emit=True).interior``) and every tile's first and last sample is
+    tested here."""
     rows, nt = summ.cnt.shape
     ref = summ.fval
     _same(ref, summ.fpos, summ.rpos, summ.cnt, dtype=torch.int32)
     _same(ref, summ.fval, summ.rval, dtype=torch.float32, shape=(rows, nt, 2))
     if carry is not None:
         _same(ref, *carry, dtype=torch.int32, shape=(rows,))
+    n = 0
+    if edges_from is not None:
+        _check_signal(edges_from)
+        n = edges_from.shape[1]
+        _same(ref, edges_from, shape=(rows, n))
+        if _ntiles(n) != nt:
+            raise ValueError(f"summaries of {nt} tiles for rows of {n}")
     if not ref.is_cuda:
-        return tile_scan(summ, carry, trip, max_iteration, totals)
+        return tile_scan(summ, carry, trip, max_iteration, totals, edges_from)
     pos = torch.empty((2, rows, nt, 2), dtype=torch.int32, device=ref.device)
     val = torch.empty((2, rows, nt, 2), dtype=torch.float32, device=ref.device)
     tpos = tval = None
@@ -673,11 +757,13 @@ def tile_scan_cuda(summ: TileSummaries, carry: SiftCarry | None = None,
         code = _lib().pyitd_tile_scan(
             rows, nt, summ.fpos.data_ptr(), summ.fval.data_ptr(),
             summ.rpos.data_ptr(), summ.rval.data_ptr(), summ.cnt.data_ptr(),
+            _ptr(edges_from), n,
             pos[0].data_ptr(), val[0].data_ptr(), pos[1].data_ptr(),
             val[1].data_ptr(), nex.data_ptr(), flags.data_ptr(), done,
             reason, ncomp, trip, max_iteration, *tot, _stream(ref))
     _check(code, "tile_scan")
     LAUNCHES["tile_scan"] += 1
+    MODE_LAUNCHES["tile_scan_edges"] += edges_from is not None
     states = LevelStates(nex, flags, pos[0], val[0], pos[1], val[1])
     if not totals:
         return states
@@ -694,15 +780,21 @@ def level_states_cuda(x: torch.Tensor, carry: SiftCarry | None = None,
 def sift_level_cuda(x: torch.Tensor, states: LevelStates, *,
                     endpoint_mode: str = "reference", rotp=None, pbase=None,
                     perr=None, comp=None, out_row=None,
-                    shard: ShardArgs | None = None) -> LevelOut:
+                    shard: ShardArgs | None = None,
+                    emit: bool = False) -> LevelOut:
     """One extraction of ``x`` (rows, n) f32 seeded by ``states``.  With
     ``rotp`` (and ``pbase``, ``perr``, ``comp``, ``out_row``, all (rows, n)
     f32) it also writes the previous extraction's output row into
     ``out_row`` and returns the updated compensation.  With ``shard`` (every
     field set) the rows are time shards and ``states`` the seeds from the
-    shard's own tiles."""
+    shard's own tiles.  With ``emit`` (whole rows only) the result's
+    ``interior`` holds the baseline's summaries over each tile's interior,
+    for ``tile_scan_cuda(..., edges_from=baseline)``."""
     if endpoint_mode not in ("reference", "natural"):
         raise ValueError(f"unknown endpoint_mode: {endpoint_mode!r}")
+    if emit and shard is not None:
+        raise ValueError("a time shard's edge samples need its halos: emit "
+                         "takes whole rows")
     _check_signal(x, shard, seeds=True)
     rows, n = x.shape
     nt = _ntiles(n)
@@ -717,10 +809,19 @@ def sift_level_cuda(x: torch.Tensor, states: LevelStates, *,
     if not x.is_cuda:
         return sift_level(x, states, endpoint_mode=endpoint_mode, rotp=rotp,
                           pbase=pbase, perr=perr, comp=comp, out_row=out_row,
-                          shard=shard)
+                          shard=shard, emit=emit)
     base, rot, err = torch.empty((3, rows, n), dtype=torch.float32,
                                  device=x.device)
     comp_out = torch.empty_like(x) if book else None
+    interior, ipt = None, (None,) * 5
+    if emit:
+        ipos = torch.empty((2, rows, nt, 2), dtype=torch.int32,
+                           device=x.device)
+        ival = torch.empty((2, rows, nt, 2), dtype=torch.float32,
+                           device=x.device)
+        icnt = torch.empty((rows, nt), dtype=torch.int32, device=x.device)
+        interior = TileSummaries(ipos[0], ival[0], ipos[1], ival[1], icnt)
+        ipt = tuple(t.data_ptr() for t in interior)
     sh = (0,) + (None,) * 9 if shard is None else (
         shard.n_global,) + tuple(t.data_ptr() for t in shard[1:])
 
@@ -731,10 +832,13 @@ def sift_level_cuda(x: torch.Tensor, states: LevelStates, *,
             states.rval.data_ptr(), _ptr(states.flags if book else None),
             _ptr(rotp), _ptr(pbase), _ptr(perr), _ptr(comp), base.data_ptr(),
             rot.data_ptr(), err.data_ptr(), _ptr(out_row), _ptr(comp_out),
-            int(book), int(endpoint_mode == "reference"), *sh, _stream(x))
+            int(book), int(endpoint_mode == "reference"), *sh, *ipt,
+            _stream(x))
     _check(code, "sift_level")
     LAUNCHES["sift_level"] += 1
-    return LevelOut(base, rot, err, comp_out)
+    MODE_LAUNCHES["sift_level_book"] += book
+    MODE_LAUNCHES["sift_level_emit"] += emit
+    return LevelOut(base, rot, err, comp_out, interior)
 
 
 def _check_scan(chans, flags: torch.Tensor) -> None:

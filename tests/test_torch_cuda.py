@@ -18,6 +18,10 @@ The cubic tier's kernels (K5-K8) are bitwise their plain versions, and its
 ``"fills"`` route bitwise the plain route.  The shard-aware sift kernels (the
 port of K9) are bitwise their plain versions, and ``sharded_itd_sift`` on
 them is bitwise the unsharded kernel sift on ``chip_smoke.sharded_cases``.
+The sift's trips without a summary pass: every mode of the level kernels
+(``sift_level`` emitting interior summaries, ``tile_scan`` completing them)
+bitwise its plain version on ``tools/level_bench.py::edge_cases``, the same
+bits on 20 calls, and 1 / 11 / 11 launches for the 8-iteration sift.
 """
 import numpy as np
 import pytest
@@ -30,6 +34,7 @@ from pyitd_tpu_torch import (ITD, cubic_baseline_extract, itd_sift,
 from pyitd_tpu_torch.ops import cuda_cubic, cuda_fill
 from pyitd_tpu_torch.ops.linear_baseline import (knot_mask,
                                                  structural_level_bwd)
+from pyitd_tpu_torch.tools.level_bench import check_level, edge_cases, same
 
 pytestmark = pytest.mark.cuda
 
@@ -85,6 +90,61 @@ def test_kernel_sift_is_bitwise_plain(device, name, x, mode):
     lb = linear_baseline_extract(xt, endpoint_mode=mode, backend="torch")
     for f in la._fields:
         assert bitwise_equal(getattr(la, f), getattr(lb, f)), f
+
+
+LEVEL_CASES = list(edge_cases())
+
+
+@pytest.mark.parametrize("name,x", LEVEL_CASES,
+                         ids=[c[0] for c in LEVEL_CASES])
+def test_level_kernel_modes_are_bitwise_plain(device, name, x):
+    """``level_summaries``, ``tile_scan`` with and without edge completion
+    and ``sift_level`` with and without bookkeeping and emission against
+    their plain versions; the completed interior summaries against
+    ``level_summaries`` of the baseline."""
+    check_level(torch.from_numpy(x).to(device), name)
+
+
+@pytest.mark.parametrize("shape", [(3, 9001), (8, 1_000_000)])
+def test_level_kernels_give_the_same_bits_on_every_call(device, shape):
+    rng = np.random.default_rng(shape[1])
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(device)
+    summ = cuda_fill.level_summaries_cuda(x)
+    states = cuda_fill.tile_scan_cuda(summ)
+    lvl = cuda_fill.sift_level_cuda(x, states, emit=True)
+    edges = cuda_fill.tile_scan_cuda(lvl.interior, edges_from=lvl.baseline)
+    row = torch.empty_like(x)
+    kw = dict(rotp=lvl.rotation, pbase=x, perr=lvl.sub_err, comp=x * 0,
+              emit=True)
+    carry = cuda_fill.SiftCarry.zeros(shape[0], device)
+    book_states = cuda_fill.tile_scan_cuda(summ, carry, 1, 8)
+    book = cuda_fill.sift_level_cuda(x, book_states, out_row=row, **kw)
+    first_row = row.clone()
+    for _ in range(19):
+        assert same(tuple(cuda_fill.level_summaries_cuda(x)), tuple(summ))
+        assert same(tuple(cuda_fill.sift_level_cuda(x, states, emit=True)),
+                    tuple(lvl))
+        assert same(tuple(cuda_fill.tile_scan_cuda(
+            lvl.interior, edges_from=lvl.baseline)), tuple(edges))
+        assert same(tuple(cuda_fill.sift_level_cuda(
+            x, book_states, out_row=row, **kw)), tuple(book))
+        assert same(row, first_row)
+
+
+def test_sift_launches_one_summary_pass(device):
+    """The 8-iteration sift: one ``level_summaries`` (of the input), and one
+    ``tile_scan`` and one ``sift_level`` per extraction; every trip's scan
+    completes the summaries the level before it emitted."""
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.normal(size=(4, 20000)).astype(np.float32))
+    cuda_fill.reset_launches()
+    res = itd_sift(x.to(device), 8, store_baselines=False)
+    assert res.stop_reason.tolist() == [2] * 4
+    assert cuda_fill.LAUNCHES == {
+        "level_summaries": 1, "tile_scan": 11, "sift_level": 11, "fill2": 0,
+        "fillv": 0, "segsum": 0}
+    assert cuda_fill.MODE_LAUNCHES == {
+        "sift_level_book": 10, "sift_level_emit": 10, "tile_scan_edges": 10}
 
 
 def test_itd_class_runs_numpy_f64_on_the_kernels(device):

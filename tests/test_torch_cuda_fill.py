@@ -8,7 +8,11 @@ on the CPU.
   numpy walk over the knot positions;
 * the stop flags and the in-place carry update against the rules of
   ``decomp/itd.py:520-522``;
-* a wrapper given a CPU tensor runs the plain version and counts no launch.
+* a wrapper given a CPU tensor runs the plain version and counts no launch;
+* the sift's trips without a summary pass: the interior summaries a level
+  emits for its baseline, completed with every tile's two edge samples,
+  equal ``level_summaries`` of that baseline bit for bit, on the shapes that
+  try the tile edges (``tools/level_bench.py::edge_cases``).
 """
 import numpy as np
 import pytest
@@ -19,6 +23,7 @@ import jax.numpy as jnp
 from pyitd_tpu.ops.pallas_fill import BLK, _pad_edges, level_block_states_fwd
 from pyitd_tpu_torch.ops import cuda_fill as cf
 from pyitd_tpu_torch.ops.linear_baseline import knot_mask
+from pyitd_tpu_torch.tools.level_bench import edge_cases
 
 torch.set_num_threads(1)
 
@@ -106,3 +111,62 @@ def test_wrappers_run_plain_on_cpu_and_check_arguments():
         cf.sift_level_cuda(x[:1].contiguous(), states)
     with pytest.raises(ValueError, match="endpoint_mode"):
         cf.sift_level_cuda(x, states, endpoint_mode="bogus")
+
+
+def same(a, b):
+    """Two tuples of tensors bit for bit (NaN equals NaN)."""
+    return len(a) == len(b) and all(
+        p.shape == q.shape and p.dtype == q.dtype
+        and bool(((p == q) | ((p != p) & (q != q))).all())
+        for p, q in zip(a, b))
+
+
+EDGE_CASES = list(edge_cases())
+
+
+@pytest.mark.parametrize("name,xn", EDGE_CASES,
+                         ids=[c[0] for c in EDGE_CASES])
+def test_interior_summaries_plus_edges_are_level_summaries(name, xn):
+    x = torch.from_numpy(xn)
+    states = cf.level_states(x)
+    for mode in ("reference", "natural"):
+        lvl = cf.sift_level_cuda(x, states, endpoint_mode=mode, emit=True)
+        plain = cf.sift_level(x, states, endpoint_mode=mode)
+        assert plain.interior is None and same(lvl[:3], plain[:3])
+        for sig, interior in ((x, cf.interior_summaries(x)),
+                              (lvl.baseline, lvl.interior)):
+            whole = cf.level_summaries(sig)
+            assert same(interior, cf.interior_summaries(sig))
+            assert same(cf.complete_summaries(interior, sig), whole)
+            # nothing of a tile's first and last sample is in the interior
+            edges = knot_mask(sig)[:, ::cf.TILE].sum(-1) \
+                + knot_mask(sig)[:, cf.TILE - 1::cf.TILE].sum(-1)
+            assert torch.equal(interior.cnt.sum(-1) + edges,
+                               whole.cnt.sum(-1))
+            ca, cb = (cf.SiftCarry.zeros(x.shape[0], "cpu") for _ in range(2))
+            got = cf.tile_scan_cuda(interior, ca, 1, 3, edges_from=sig)
+            want = cf.tile_scan(whole, cb, 1, 3)
+            assert same(got, want) and same(ca, cb)
+            gt, wt = (cf.tile_scan_cuda(interior, totals=True,
+                                        edges_from=sig)[1],
+                      cf.tile_scan(whole, totals=True)[1])
+            assert same(gt, wt)
+
+
+def test_new_modes_check_their_arguments():
+    x = torch.from_numpy(EDGE_CASES[2][1])
+    states = cf.level_states(x)
+    interior = cf.interior_summaries(x)
+    shard = cf.ShardArgs(x.shape[1], torch.zeros(3, dtype=torch.int32),
+                         torch.zeros(3), torch.zeros(3), torch.zeros(3),
+                         torch.zeros(3), *(torch.zeros((3, 2), dtype=d)
+                                           for d in (torch.int32,
+                                                     torch.float32) * 2))
+    with pytest.raises(ValueError, match="whole rows"):
+        cf.sift_level_cuda(x, states, shard=shard, emit=True)
+    with pytest.raises(ValueError, match="tiles"):
+        cf.tile_scan_cuda(interior, edges_from=x[:, :100].contiguous())
+    with pytest.raises(ValueError, match="float32"):
+        cf.tile_scan_cuda(interior, edges_from=x.double())
+    with pytest.raises(ValueError, match="shape"):
+        cf.tile_scan_cuda(interior, edges_from=x[:2].contiguous())

@@ -13,6 +13,11 @@
 * the kernel route on the CPU (the wrappers' plain versions) bit for bit
   against the plain loop, with the launch counters left at 0, and its
   gradient against the plain structural route;
+* the kernel route's loop without a summary pass per trip (each level
+  emits its baseline's interior summaries, the next trip's scan completes
+  them) bit for bit against the loop with one (rebuilt here from the same
+  wrappers), trip by trip against JAX's fused sift on JAX's own baselines,
+  and its wrapper calls per sift: 1 / ``levels + 1`` / ``levels + 1``;
 * ``import pyitd_tpu_torch`` loads no JAX.
 """
 import os
@@ -216,6 +221,90 @@ def test_kernel_route_on_cpu_is_bitwise_plain(shape, max_it, mode):
             assert bitwise_equal(getattr(a, f), getattr(b, f)), (kw, f)
     # CPU calls never launch a kernel
     assert all(v == 0 for v in cuda_fill.LAUNCHES.values())
+
+
+def _sift_with_a_summary_pass_per_trip(x, max_iteration, endpoint_mode):
+    """The kernel route's loop as it was before the levels emitted their
+    summaries: ``level_states_cuda`` of every trip's input."""
+    levels = max_iteration + 2
+    first = cuda_fill.sift_level_cuda(x, cuda_fill.level_states_cuda(x),
+                                      endpoint_mode=endpoint_mode)
+    rot, base, perr = first.rotation, first.baseline, first.sub_err
+    out = torch.empty((levels,) + tuple(x.shape))
+    carry = cuda_fill.SiftCarry.zeros(x.shape[0], "cpu")
+    prev_base = comp = x * 0
+    for i in range(levels):
+        states = cuda_fill.level_states_cuda(base, carry, trip=i,
+                                             max_iteration=max_iteration)
+        new = cuda_fill.sift_level_cuda(
+            base, states, endpoint_mode=endpoint_mode, rotp=rot,
+            pbase=prev_base, perr=perr, comp=comp, out_row=out[i])
+        comp = new.comp
+        rot, prev_base, base, perr = new.rotation, base, new.baseline, \
+            new.sub_err
+    return out, carry.ncomp, carry.reason, comp
+
+
+NEW_LOOP = KERNEL_ROUTE + [((2, 4097), 4, "reference"),
+                           ((2, 8192), 9, "natural"),
+                           ((1, 12288), 3, "reference")]
+
+
+@pytest.mark.parametrize("shape,max_it,mode", NEW_LOOP)
+def test_kernel_route_without_summary_passes_equals_the_loop_with(
+        shape, max_it, mode, monkeypatch):
+    rng = np.random.default_rng(shape[1] + 1)
+    t = np.linspace(0, 2 * np.pi, shape[1])
+    x = (np.sin(5 * t)[None] + 0.4 * rng.normal(size=shape)).astype(np.float32)
+    if shape[1] > 2 * cuda_fill.TILE:
+        x[0, cuda_fill.TILE - 1:cuda_fill.TILE + 1] = np.nan
+        x[0, 2 * cuda_fill.TILE - 2:2 * cuda_fill.TILE + 2] = 2.0
+    xt = torch.from_numpy(x)
+    want = _sift_with_a_summary_pass_per_trip(xt, max_it, mode)
+
+    calls = {k: 0 for k in ("level_summaries_cuda", "tile_scan_cuda",
+                            "sift_level_cuda")}
+    for k in calls:
+        def counted(*a, _fn=getattr(cuda_fill, k), _k=k, **kw):
+            calls[_k] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(cuda_fill, k, counted)
+    got = itd_sift(xt, max_it, endpoint_mode=mode, backend="kernel",
+                   store_baselines=False)
+    levels = max_it + 2
+    assert calls == {"level_summaries_cuda": 1, "tile_scan_cuda": levels + 1,
+                     "sift_level_cuda": levels + 1}
+    for a, b in zip((got.rotations, got.num_components, got.stop_reason,
+                     got.correction), want):
+        assert bitwise_equal(a.numpy(), b.numpy())
+
+
+def test_trips_without_a_summary_pass_against_pallas_fused():
+    """Each trip as the new loop runs it (interior summaries of the trip's
+    input, the scan that completes them, the emitting level) on JAX's own
+    baselines, against JAX's fused sift."""
+    x = nan_pair_signal()
+    want = jax_sift(jnp.asarray(x), 3, backend="pallas_fused")
+    w_rot, w_base = np.asarray(want.rotations), np.asarray(want.baselines)
+    atol = 1e-5 * np.nanmax(np.abs(x))
+    checked = 0
+    for i, inp in enumerate([x] + [w_base[i] for i in range(len(w_base) - 1)]):
+        rows = np.flatnonzero(np.any(w_base[i] != 0, axis=-1))
+        if rows.size == 0:
+            continue
+        sig = torch.from_numpy(np.ascontiguousarray(inp[rows]))
+        states = cuda_fill.tile_scan_cuda(cuda_fill.interior_summaries(sig),
+                                          edges_from=sig)
+        lvl = cuda_fill.sift_level_cuda(sig, states, emit=True)
+        np.testing.assert_allclose(lvl.baseline.numpy(), w_base[i][rows],
+                                   atol=atol, rtol=0, err_msg=f"level {i}")
+        np.testing.assert_allclose(lvl.rotation.numpy(), w_rot[i][rows],
+                                   atol=atol, rtol=0, err_msg=f"level {i}")
+        for a, b in zip(lvl.interior,
+                        cuda_fill.interior_summaries(lvl.baseline)):
+            assert torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
+        checked += 1
+    assert checked >= 3
 
 
 def test_compensated_correction_f32_exact():
