@@ -31,10 +31,12 @@ Phases (each raises on failure, so any failure exits non-zero):
    ``ITD`` class on a numpy float64 signal through the sift kernels; the
    cubic tier (``cubic_baseline_extract``, ``eval_backend="fills"``) on
    the same edge cases and its own (a row across tiles and SPIKE blocks,
+   knots and NaN on K7's run and block edges, a block without a knot,
    short rows, the degenerate rows, the pass-through guard, f64 in and
    out): each kernel (K5-K8) bitwise against its plain version on the
    route's own inputs, and the route against the plain route (every
-   wrapper swapped for its plain version) bitwise; the sequence-parallel
+   wrapper swapped for its plain version) bitwise; K7 alone bitwise on
+   ``tools/cubic_bench.py::spike_cases``; the sequence-parallel
    tier on ``sharded_cases`` at 2, 4 and 8 time shards, both endpoint modes,
    stop A and stop B: ``sharded_itd_sift`` on the shard-aware kernels
    against the same call with every wrapper swapped for its plain version
@@ -296,23 +298,6 @@ def device_launches(fn, name: str) -> int:
         fn()
         torch.cuda.synchronize()
     return sum(e.count for e in prof.key_averages() if name in e.key)
-
-
-def aten_ops(fn) -> int:
-    """The number of ATen operator calls ``fn`` makes (views included):
-    the host's share of a chain of small PyTorch ops."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    class Count(TorchDispatchMode):
-        calls = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            Count.calls += 1
-            return func(*args, **(kwargs or {}))
-
-    with Count():
-        fn()
-    return Count.calls
 
 
 def kernel_label(name: str) -> str:
@@ -699,10 +684,16 @@ def sift_grad(x, max_iteration, **kw):
 
 def cubic_cases():
     """Phase 2's cases, then the cubic tier's own: a row across tiles and
-    SPIKE blocks, short rows, the degenerate rows of
-    tests/test_cubic.py:312-320, and the pass-through guard (each (name,
-    f32 array, min_extrema))."""
+    SPIKE blocks, knots and NaN on K7's run and block edges and a block
+    without a knot (``tools/cubic_bench.py::edge_cases``), short rows, the
+    degenerate rows of tests/test_cubic.py:312-320, and the pass-through
+    guard (each (name, f32 array, min_extrema))."""
+    from pyitd_tpu_torch.ops import cuda_cubic as cc
+    from pyitd_tpu_torch.tools.cubic_bench import edge_cases
+
     for name, xn in phase2_cases():
+        yield name, xn, 0
+    for name, xn in edge_cases(cc.SPIKE_BLK, cc.SPIKE_RUN):
         yield name, xn, 0
     rng = np.random.default_rng(4)
     n = 3 * 4096 + 17
@@ -802,9 +793,22 @@ def check_cubic(name, x, min_extrema):
 
 
 def phase2_cubic(dev) -> None:
-    """Phase 2's cubic cases on the card."""
+    """Phase 2's cubic cases on the card, and K7 alone on systems with
+    knots on its run and block edges."""
     import torch
+    from pyitd_tpu_torch.ops import cuda_cubic as cc
+    from pyitd_tpu_torch.tools.cubic_bench import spike_cases
 
+    for name, sys_ in spike_cases(cc.SPIKE_BLK, cc.SPIKE_RUN):
+        m, *rows = (torch.from_numpy(v).to(dev) for v in sys_)
+        got = cc.spike_factors_cuda(m, *rows)
+        want = cc.spike_factors(m, *rows)
+        if not bitwise_equal(got, want):
+            raise AssertionError(f"spike_factors {name}: kernel differs from "
+                                 f"its plain version, max abs err "
+                                 f"{max_abs_err(got, want)}")
+        print(f"[2] spike_factors {name} (SB {cc.SPIKE_BLK}, R "
+              f"{cc.SPIKE_RUN}): bitwise its plain version", flush=True)
     for name, xn, me in cubic_cases():
         x = torch.from_numpy(xn).to(dev)
         r = check_cubic(name, x, me)
@@ -832,6 +836,7 @@ def phase8_cubic(x, card: str):
     from pyitd_tpu_torch import cubic_baseline_extract
     from pyitd_tpu_torch.ops import cuda_cubic as cc
     from pyitd_tpu_torch.ops import cuda_fill as cf
+    from pyitd_tpu_torch.tools.level_bench import aten_ops
 
     rows, n = x.shape
     cap = n + 2
@@ -911,7 +916,8 @@ def phase8_cubic(x, card: str):
     i_dms, _ = device_ms(lambda: cc.spike_interface(factors))
     i_ops = aten_ops(lambda: cc.spike_interface(factors))
     print(f"[8] interface solve alone ({rows} x "
-          f"{factors.shape[-1] // cc.SPIKE_BLK} blocks): "
+          f"{factors.shape[-1] // cc.SPIKE_BLK} blocks of SB "
+          f"{cc.SPIKE_BLK}, K7's runs of {cc.SPIKE_RUN}): "
           f"{statistics.median(i_ms):.4f} ms (CUDA events, median of "
           f"{len(i_ms)}), device busy {i_dms:.4f} ms, {i_ops} ATen operator "
           f"calls  [{card}]", flush=True)
@@ -1091,6 +1097,7 @@ def phase9_sharded(dev, card: str):
                                           sharded_cubic_baseline,
                                           sharded_itd_sift)
     from pyitd_tpu_torch.parallel.sharded import _fold_states_both
+    from pyitd_tpu_torch.tools.level_bench import aten_ops
 
     rows, n = SHARD_SHAPE
     seq, mi = SHARD_SEQ, MAIN_MAX_IT
@@ -1289,6 +1296,7 @@ def main() -> int:
     from pyitd_tpu_torch.ops import cuda_fill as cf
     from pyitd_tpu_torch.ops.fill import shift_left
     from pyitd_tpu_torch.ops.linear_baseline import knot_mask
+    from pyitd_tpu_torch.tools.cubic_bench import spike_issue_ops
     from pyitd_tpu_torch.utils.interop import from_numpy
 
     dev = torch.device("cuda", 0)
@@ -1887,17 +1895,17 @@ def main() -> int:
 
     # phase 7's rows for the cubic kernels, on the inputs the cubic level
     # gave them.  Bytes: each input read once, each output written once;
-    # operations counted from the kernels' sources.
+    # operations counted from the kernels' sources (K7's as issued under
+    # -fmad=false, each a multiply-add slot of the f32 peak)
     nt = -(-n // cf.TILE)
     npad = calls["spike_factors_cuda"][1].shape[-1]
-    rounds = cc.SPIKE_BLK.bit_length() - 1  # PCR rounds per SPIKE block
     for name, nbytes, flops in (
             ("cubic_ksite", 8 * rows * n + 32 * rows * nt + 8 * rows,
              11 * rows * n),
             ("cubic_neighbors", 32 * rows * n + 16 * rows * nt,
              2 * rows * n),
             ("spike_factors", 17 * rows * n + 24 * rows * npad,
-             (68 * rounds + 32) * rows * npad),
+             2 * spike_issue_ops(rows, npad, cc.SPIKE_BLK, cc.SPIKE_RUN)),
             ("spike_backsub_eval",
              60 * rows * n + 12 * rows * (npad // cc.SPIKE_BLK) + 16 * rows,
              31 * rows * n)):

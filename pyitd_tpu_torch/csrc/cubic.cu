@@ -28,9 +28,15 @@
 // csrc/sift_level.cu, which knows the same knot mask): the last two knots
 // before each tile and the first two after it.  K5 takes those seeds with
 // their x values; K6 takes the same positions and reads their k_site
-// values itself, so no second summary pass runs over the signal.  Both
-// stage the tile once, scan it with tile_fill.cuh's block scans, and write
-// each output channel through shared memory in one coalesced pass.  K8 is
+// values itself, so no second summary pass runs over the signal.  K5 works
+// as sift_level does (tile_fill.cuh's chunk layout): 128-bit loads of the
+// tile straight into registers, x in shared memory for the knot values,
+// the knot bits as a bitmap behind ONE barrier, and per chunk of four the
+// two knots before it and the first after it by bit searches
+// (find_prev / find_next; the tile's seeds where it has none), then
+// 128-bit stores of k_site from registers.  K6 stages the tile once, scans
+// it with tile_fill.cuh's block scans, and writes each output channel
+// through shared memory in one coalesced pass.  K8 is
 // one thread per sample: the thirteen reads are coalesced, the next
 // sample's three spike channels come from the same cache lines, and the
 // block scalars of the interface solve are two loads per thread.
@@ -66,58 +72,103 @@ __device__ __forceinline__ void store_run(const unsigned (&v)[SPT],
 }
 
 // ---------------------------------------------------------------- K5
-__global__ void __launch_bounds__(NT) cubic_ksite_kernel(
+// Blocks of NT threads the compiler leaves registers for on one SM
+// (tools/cubic_bench.py times other values).
+#ifndef PYITD_KSITE_BLOCKS
+#define PYITD_KSITE_BLOCKS 3
+#endif
+
+__global__ void __launch_bounds__(NT, PYITD_KSITE_BLOCKS) cubic_ksite_kernel(
     const float* __restrict__ x, int n, int ntiles,
     const int* __restrict__ fpos, const float* __restrict__ fval,
     const int* __restrict__ rpos, const float* __restrict__ rval,
     const float* __restrict__ b_first, const float* __restrict__ b_last,
     float* __restrict__ k_out) {
-  __shared__ float s_x[SX_LEN];
-  __shared__ unsigned s_w[SB_LEN];
-  __shared__ Fwd sw_f[NWARP];
-  __shared__ Rev sw_r[NWARP];
+  __shared__ __align__(16) float s_x[TILE];
+  __shared__ unsigned s_bits[TILE / 32];
   const int tile = blockIdx.x, row = blockIdx.y, base = tile * TILE;
-  const float* xr = x + (size_t)row * n;
-  stage_tile(xr, n, base, s_x);
-  __syncthreads();
+  const size_t ro = (size_t)row * n;
+  const float* xr = x + ro;
 
-  Run run;
-  load_run(s_x, n, base, run);
+  // K6 reads x again next: no streaming hint
+  Chunks ch;
+  const float edge = load_chunk_values<false>(xr, n, base, 0.f, 0.f, ch);
+  chunk_bits(n, base, 0, n, edge, ch);
+#pragma unroll
+  for (int c = 0; c < CH; ++c)
+    *reinterpret_cast<float4*>(s_x + chunk_start(c)) =
+        make_float4(ch.v[c][0], ch.v[c][1], ch.v[c][2], ch.v[c][3]);
+  write_bitmap(ch.bits, s_bits);
   const size_t so = ((size_t)row * ntiles + tile) * 2;
   const Fwd fseed{fpos[so], fval[so], fpos[so + 1], fval[so + 1]};
-  const Rev rseed{rpos[so], rval[so], rpos[so + 1], rval[so + 1]};
-  const Fwd fex = block_excl_fwd(run.f, fseed, sw_f);
-  const Rev rex = block_excl_rev(run.r, rseed, sw_r);
-
-  const int j0 = threadIdx.x * SPT;
-  // reverse walk: the first knot strictly after each sample
-  int n1p[SPT];
-  float n1x[SPT];
-  Rev S = rex;
-#pragma unroll
-  for (int k = SPT - 1; k >= 0; --k) {
-    n1p[k] = S.q1; n1x[k] = S.w1;
-    if ((run.bits >> k) & 1u) S = {base + j0 + k, run.xv[k], S.q1, S.w1};
-  }
-
-  // forward walk: the knot before the latest at or before each sample,
-  // and the Frei-Osorio value over it and the next knot (no knot: 0)
+  const int rq = rpos[so];
+  const float rw = rval[so];
   const float bf = b_first[row], bl = b_last[row];
-  unsigned kv[SPT];
-  Fwd P = fex;
+  const size_t i0 = ro + base + chunk_start(0);
+  const bool congruent = ((reinterpret_cast<uintptr_t>(x)
+                           | reinterpret_cast<uintptr_t>(k_out)) & 15) == 0
+      && (i0 & 3) == 0;
+  __syncthreads();
+  const Bitmap bm = read_bitmap(s_bits);
+
 #pragma unroll
-  for (int k = 0; k < SPT; ++k) {
-    const int t = base + j0 + k;
-    if ((run.bits >> k) & 1u) P = {t, run.xv[k], P.p1, P.v1};
-    const bool h2 = P.p2 >= 0, h1 = n1p[k] >= 0;
-    float v = knot_value(t, run.xv[k], h2 ? P.p2 : 0, h2 ? P.v2 : 0.f,
-                         h1 ? n1p[k] : 0, h1 ? n1x[k] : 0.f);
-    if (t == 0) v = bf;
-    if (t == n - 1) v = bl;
-    kv[k] = __float_as_uint(v);
+  for (int c = 0; c < CH; ++c) {
+    const int j0 = chunk_start(c);
+    const int t0 = base + j0;
+    const unsigned nib = ch.bits[c];
+
+    // the last two knots before the chunk: the tile's, then the seed's
+    Fwd P = fseed;
+    const int a1 = find_prev(bm, j0 - 1);
+    if (a1 >= 0) {
+      const int a2 = find_prev(bm, a1 - 1);
+      P.p2 = P.p1; P.v2 = P.v1;
+      if (a2 >= 0) {
+        P.p2 = base + a2; P.v2 = s_x[a2];
+      }
+      P.p1 = base + a1; P.v1 = s_x[a1];
+    }
+    // the first knot after the chunk
+    int q = rq;
+    float qv = rw;
+    const int c1 = find_next(bm, j0 + 4);
+    if (c1 >= 0) {
+      q = base + c1; qv = s_x[c1];
+    }
+    // reverse walk: the first knot strictly after each sample
+    int n1p[4];
+    float n1x[4];
+#pragma unroll
+    for (int k = 3; k >= 0; --k) {
+      n1p[k] = q; n1x[k] = qv;
+      if ((nib >> k) & 1u) {
+        q = t0 + k; qv = ch.v[c][k];
+      }
+    }
+    // forward walk: the knot before the latest at or before each sample,
+    // and the Frei-Osorio value over it and the next knot (no knot: 0)
+    float kv[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int t = t0 + k;
+      if ((nib >> k) & 1u) P = {t, ch.v[c][k], P.p1, P.v1};
+      const bool h2 = P.p2 >= 0, h1 = n1p[k] >= 0;
+      float v = knot_value(t, ch.v[c][k], h2 ? P.p2 : 0, h2 ? P.v2 : 0.f,
+                           h1 ? n1p[k] : 0, h1 ? n1x[k] : 0.f);
+      if (t == 0) v = bf;
+      if (t == n - 1) v = bl;
+      kv[k] = v;
+    }
+    if (t0 >= n) continue;
+    float* dst = k_out + i0 + c * CSET;
+    if (congruent && t0 + 4 <= n) {
+      *reinterpret_cast<float4*>(dst) = make_float4(kv[0], kv[1], kv[2], kv[3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (t0 + k < n) dst[k] = kv[k];
+    }
   }
-  store_run(kv, s_w, reinterpret_cast<unsigned*>(k_out + (size_t)row * n),
-            base, n);
 }
 
 // ---------------------------------------------------------------- K6

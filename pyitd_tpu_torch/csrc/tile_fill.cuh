@@ -14,7 +14,7 @@
 // chunk needs one sample on either side: the neighbour lane's by shuffle,
 // the other set's at the set seam, and one scalar load per warp edge.
 // chunk_knots computes the four knot bits of a chunk from five shared
-// differences (the booleans of knot_at, which K5 and K6 still call).
+// differences (the booleans of knot_at, which K6 still calls).
 // A chunk that is ragged (the row's end) or whose row does not start on a
 // 16-byte boundary takes scalar accesses in the same kernel.
 //   tile_summary: a tile's last two and first two knots and its knot count
@@ -30,7 +30,7 @@
 //   for every thread on its own: no scan over the block's threads, no
 //   thread that waits for another's state.
 //
-// The run layout (K5, K6 in cubic.cu): the tile plus a one-sample halo is
+// The run layout (K6 in cubic.cu): the tile plus a one-sample halo is
 // staged in padded shared memory, each thread owns a contiguous run of SPT
 // samples, and a warp-shuffle scan plus a cross-warp scan through shared
 // memory turn the runs' own states into the exclusive state before
@@ -213,17 +213,6 @@ __device__ __forceinline__ void run_states(int base, Run& run) {
 #pragma unroll
   for (int k = SPT - 1; k >= 0; --k)
     if ((run.bits >> k) & 1u) run.r = {base + j0 + k, run.xv[k], run.r.q1, run.r.w1};
-}
-
-__device__ __forceinline__ void load_run(const float* s, int n, int base,
-                                         Run& run, int off, int ng) {
-  load_bits(s, n, base, run, off, ng);
-  run_states(off + base, run);
-}
-
-__device__ __forceinline__ void load_run(const float* s, int n, int base,
-                                         Run& run) {
-  load_run(s, n, base, run, 0, n);
 }
 
 // Exclusive forward scan of the threads' states in thread order, seeded by

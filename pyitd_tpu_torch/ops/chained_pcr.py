@@ -20,8 +20,12 @@ survives PCR and leaves 6 matrix channels: ``A = [[al,0],[0,0]]``, ``B =
 
 :func:`shard_spike_factors` solves one contiguous block with its two
 boundary couplings moved to extra right-hand sides (the SPIKE local
-factorization, the plain version of the K7 kernel in ``csrc/spike.cu``),
-and :func:`reduced_interface_solve` couples the blocks.
+factorization, by PCR over the block's cells), and
+:func:`reduced_interface_solve` couples the blocks.  The K7 kernel
+(``csrc/spike.cu``, plain version ``ops/cuda_cubic.py::spike_factors``)
+computes the same factors by the partition method, coupling its runs with
+:func:`interface_pcr`; the tests hold it against
+:func:`shard_spike_factors`.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ import torch
 from .tridiag import _shift_l, _shift_r
 
 __all__ = ["chained_block_pcr", "shard_spike_factors",
-           "reduced_interface_solve", "notaknot_rows"]
+           "reduced_interface_solve", "interface_pcr", "notaknot_rows"]
 
 
 def _safe_inv(x):
@@ -82,8 +86,7 @@ def _encode(mask, a, b, c, d):
 def _pcr_core(al, b11, b21, cg, cw, rhs_pairs):
     """Block PCR on chain-encoded channels; ``rhs_pairs`` is a list of
     ``(rhs_u, rhs_w)`` sharing the one matrix reduction.  Returns the
-    per-cell ``(u, w)`` for every pair.  The order of every operation is
-    the K7 kernel's (``csrc/spike.cu``)."""
+    per-cell ``(u, w)`` for every pair."""
     n = al.shape[-1]
     b12 = torch.zeros_like(b11)
     rhs = list(rhs_pairs)
@@ -184,10 +187,19 @@ def reduced_interface_solve(a11, a21, c12, c22, d1, d2):
 
     All inputs (..., P); returns ``(e, f)`` of the same shape.  Block PCR
     of ``ceil(log2(P))`` rounds of small torch ops."""
+    return interface_pcr(a11, a21, c12, c22, [(d1, d2)])[0]
+
+
+def interface_pcr(a11, a21, c12, c22, rhs_pairs):
+    """Block PCR of the system of :func:`reduced_interface_solve` for
+    several right-hand sides ``(d1, d2)`` sharing one matrix; returns the
+    ``(e, f)`` of each.  The order of every operation is the reduced solve
+    of the K7 kernel (``csrc/spike.cu``)."""
     nblk = a11.shape[-1]
     one = torch.ones_like(a11)
     zero = torch.zeros_like(a11)
     b11, b12, b21, b22 = one, zero, zero, one
+    rhs = list(rhs_pairs)
 
     s = 1
     while s < nblk:
@@ -195,12 +207,10 @@ def reduced_interface_solve(a11, a21, c12, c22, d1, d2):
         b21m, b22m = _shift_r(b21, s, 0.0), _shift_r(b22, s, 1.0)
         a11m, a21m = _shift_r(a11, s, 0.0), _shift_r(a21, s, 0.0)
         c12m, c22m = _shift_r(c12, s, 0.0), _shift_r(c22, s, 0.0)
-        d1m, d2m = _shift_r(d1, s, 0.0), _shift_r(d2, s, 0.0)
         b11p, b12p = _shift_l(b11, s, 1.0), _shift_l(b12, s, 0.0)
         b21p, b22p = _shift_l(b21, s, 0.0), _shift_l(b22, s, 1.0)
         a11p, a21p = _shift_l(a11, s, 0.0), _shift_l(a21, s, 0.0)
         c12p, c22p = _shift_l(c12, s, 0.0), _shift_l(c22, s, 0.0)
-        d1p, d2p = _shift_l(d1, s, 0.0), _shift_l(d2, s, 0.0)
 
         idetm = _safe_inv(b11m * b22m - b12m * b21m)
         e11 = -(a11 * b22m) * idetm
@@ -217,11 +227,18 @@ def reduced_interface_solve(a11, a21, c12, c22, d1, d2):
         b12 = b12 + e11 * c12m + e12 * c22m
         b21 = b21 + f21 * a11p + f22 * a21p
         b22 = b22 + e21 * c12m + e22 * c22m
-        d1, d2 = (d1 + e11 * d1m + e12 * d2m + f11 * d1p + f12 * d2p,
-                  d2 + e21 * d1m + e22 * d2m + f21 * d1p + f22 * d2p)
+        new_rhs = []
+        for d1, d2 in rhs:
+            d1m, d2m = _shift_r(d1, s, 0.0), _shift_r(d2, s, 0.0)
+            d1p, d2p = _shift_l(d1, s, 0.0), _shift_l(d2, s, 0.0)
+            new_rhs.append((
+                d1 + e11 * d1m + e12 * d2m + f11 * d1p + f12 * d2p,
+                d2 + e21 * d1m + e22 * d2m + f21 * d1p + f22 * d2p))
+        rhs = new_rhs
         a11, a21 = e11 * a11m + e12 * a21m, e21 * a11m + e22 * a21m
         c12, c22 = f11 * c12p + f12 * c22p, f21 * c12p + f22 * c22p
         s <<= 1
 
     idet = _safe_inv(b11 * b22 - b12 * b21)
-    return (b22 * d1 - b12 * d2) * idet, (b11 * d2 - b21 * d1) * idet
+    return [((b22 * d1 - b12 * d2) * idet, (b11 * d2 - b21 * d1) * idet)
+            for d1, d2 in rhs]

@@ -14,7 +14,8 @@ The padded-resident route of ``ops/cubic_baseline.py`` runs them in order:
   knots at or before it and the strictly-next knot, positions (int32) and
   ``k_site`` values (:class:`Neighbors`);
 * ``spike_factors_cuda(mask, a, b, c, d)``: the SPIKE local factorization
-  of the not-a-knot moment system on blocks of ``SPIKE_BLK`` cells, six
+  of the not-a-knot moment system on blocks of ``SPIKE_BLK`` cells, each
+  solved by the partition method on runs of ``SPIKE_RUN`` cells, six
   channels ``(6, rows, npad)`` in the order ``xp1, xp2, vl1, vl2, vr1,
   vr2``;
 * ``spike_backsub_eval_cuda(...)``: the back-substitution with the
@@ -36,22 +37,26 @@ from typing import NamedTuple
 
 import torch
 
-from .chained_pcr import reduced_interface_solve, shard_spike_factors
+from .chained_pcr import _safe_inv, interface_pcr, reduced_interface_solve
 from .cubic_baseline import _fo_knot_values, _segment_eval
 from .cuda_fill import (LevelStates, _check, _check_signal, _lib, _ntiles,
                         _same, _stream)
 from .fill import backward_fill_scan, forward_fill2_scan, shift_left
 from .linear_baseline import knot_mask
+from .tridiag import _shift_l, _shift_r
 
 __all__ = [
-    "SPIKE_BLK", "LAUNCHES", "reset_launches", "Neighbors", "spike_pad",
-    "cubic_ksite", "cubic_neighbors", "spike_factors", "spike_backsub_eval",
-    "spike_interface", "chained_block_spike", "PLAIN",
+    "SPIKE_BLK", "SPIKE_RUN", "LAUNCHES", "reset_launches", "Neighbors",
+    "spike_pad", "cubic_ksite", "cubic_neighbors", "spike_factors",
+    "spike_backsub_eval", "spike_interface", "chained_block_spike", "PLAIN",
     "cubic_ksite_cuda", "cubic_neighbors_cuda", "spike_factors_cuda",
     "spike_backsub_eval_cuda",
 ]
 
-SPIKE_BLK = 2048  # cells per SPIKE block; the SB of csrc/spike.cu (checked)
+# cells per SPIKE block and per thread's run: the SB and R of csrc/spike.cu
+# (checked where the library is loaded)
+SPIKE_BLK = 2048
+SPIKE_RUN = 8
 
 # launches per kernel wrapper, counted where the kernel is launched
 LAUNCHES = {"cubic_ksite": 0, "cubic_neighbors": 0, "spike_factors": 0,
@@ -121,23 +126,81 @@ def cubic_neighbors(x: torch.Tensor, k_site: torch.Tensor) -> Neighbors:
 
 
 def spike_factors(mask, a, b, c, d) -> torch.Tensor:
-    """Plain version of the ``spike_factors`` kernel:
-    ``chained_pcr.shard_spike_factors`` on the same blocks of ``SPIKE_BLK``
-    cells, the row padded with unmarked chain rows (b = 1).  Returns
-    ``(6, rows, npad)``: xp1, xp2, vl1, vl2, vr1, vr2."""
+    """Plain version of the ``spike_factors`` kernel: the SPIKE factors of
+    blocks of ``SPIKE_BLK`` cells, each solved by the partition method on
+    runs of ``SPIKE_RUN`` cells, in the kernel's order of operations; the
+    row is padded with unmarked chain rows.  Returns ``(6, rows, npad)``:
+    xp1, xp2, vl1, vl2, vr1, vr2, as ``chained_pcr.shard_spike_factors``
+    gives them on the same blocks.
+
+    A block's system, in the chain encoding of ``chained_pcr._encode``:
+    at a marked cell ``a u[g-1] + b u[g] + c w[g+1] = d`` and ``w[g] =
+    u[g]``; at an unmarked one ``u[g] = u[g-1]`` and ``w[g] = w[g+1]``.
+    Per run, with ``U`` the ``u`` before it and ``W`` the ``w`` after it:
+
+    1. the forward sweep writes each ``u[g] = al[g] + be[g] U + ga[g]
+       w[g+1]`` (Thomas elimination over the run's marked cells; an
+       unmarked cell carries the state);
+    2. a backward pass of the same form gives the run's first ``w`` as
+       ``o0 + oU U + oW W``;
+    3. the runs' ``(e, f)`` = (last ``u``, first ``w``) solve
+       ``chained_pcr.interface_pcr`` for three right-hand sides: the data
+       (``U = W = 0`` at the block's edges), the left spike (``U = 1`` at
+       the first run) and the right spike (``W = 1`` at the last run);
+    4. each run back-substitutes with its neighbours' ``e`` and ``f``."""
+    sb, r = SPIKE_BLK, SPIKE_RUN
     rows, n = mask.shape
     npad = spike_pad(n)
+    nrun = sb // r
 
-    def blocks(t, fill):
+    def cells(t, fill):
         if npad > n:
             t = torch.cat([t, t.new_full((rows, npad - n), fill)], dim=-1)
-        return t.reshape(-1, SPIKE_BLK)
+        return t.reshape(-1, nrun, r)
 
-    pairs = shard_spike_factors(blocks(mask, False), blocks(a, 0.0),
-                                blocks(b, 1.0), blocks(c, 0.0),
-                                blocks(d, 0.0))
-    return torch.stack([ch for pair in pairs for ch in pair]).reshape(
-        6, rows, npad)
+    m, av, bv, cv, dv = (cells(mask, False), cells(a, 0.0), cells(b, 1.0),
+                         cells(c, 0.0), cells(d, 0.0))
+    zero = av.new_zeros(av.shape[:-1])
+    one = torch.ones_like(zero)
+
+    # 1. the forward sweep
+    al, be, ga = zero, one, zero
+    sweep = []
+    for k in range(r):
+        mk, ak = m[..., k], av[..., k]
+        inv = _safe_inv(bv[..., k] + ak * ga)
+        al = torch.where(mk, (dv[..., k] - ak * al) * inv, al)
+        be = torch.where(mk, -(ak * be) * inv, be)
+        ga = torch.where(mk, -cv[..., k] * inv, ga)
+        sweep.append((mk, al, be, ga))
+    # 2. the run's first w
+    o0, ou, ow = zero, zero, one
+    for mk, al_k, be_k, ga_k in reversed(sweep):
+        o0 = torch.where(mk, al_k + ga_k * o0, o0)
+        ou = torch.where(mk, be_k + ga_k * ou, ou)
+        ow = torch.where(mk, ga_k * ow, ow)
+    # 3. the runs' reduced system
+    run_i = torch.arange(nrun, device=av.device)
+    first, last = run_i == 0, run_i == nrun - 1
+    pairs = interface_pcr(
+        torch.where(first, zero, -be), torch.where(first, zero, -ou),
+        torch.where(last, zero, -ga), torch.where(last, zero, -ow),
+        [(al, o0),
+         (torch.where(first, be, zero), torch.where(first, ou, zero)),
+         (torch.where(last, ga, zero), torch.where(last, ow, zero))])
+    # 4. back-substitution: the data, the left spike, the right spike
+    out = []
+    for q, (e, f) in enumerate(pairs):
+        big_u = _shift_r(e, 1, 1.0 if q == 1 else 0.0)
+        w = _shift_l(f, 1, 1.0 if q == 2 else 0.0)
+        us, ws = [None] * r, [None] * r
+        for k in reversed(range(r)):
+            mk, al_k, be_k, ga_k = sweep[k]
+            u = ((al_k + be_k * big_u) if q == 0 else be_k * big_u) + ga_k * w
+            w = torch.where(mk, u, w)
+            us[k], ws[k] = u, w
+        out += [torch.stack(us, -1), torch.stack(ws, -1)]
+    return torch.stack(out).reshape(6, rows, npad)
 
 
 def _block_scalars(v: torch.Tensor, npad: int) -> torch.Tensor:
@@ -221,10 +284,12 @@ PLAIN = {
 
 def _lib_cubic():
     lib = _lib()
-    if lib.pyitd_spike_block() != SPIKE_BLK:
-        raise RuntimeError(f"csrc/spike.cu blocks by "
-                           f"{lib.pyitd_spike_block()}, cuda_cubic.SPIKE_BLK "
-                           f"is {SPIKE_BLK}")
+    if (lib.pyitd_spike_block(), lib.pyitd_spike_run()) != (SPIKE_BLK,
+                                                            SPIKE_RUN):
+        raise RuntimeError(
+            f"csrc/spike.cu blocks by {lib.pyitd_spike_block()} in runs of "
+            f"{lib.pyitd_spike_run()}, cuda_cubic.SPIKE_BLK / SPIKE_RUN are "
+            f"{SPIKE_BLK} / {SPIKE_RUN}")
     return lib
 
 

@@ -217,25 +217,95 @@ def host_parts(x) -> None:
           f"sift_level with bookkeeping): {us(trip, 500):.1f}", flush=True)
 
 
+def device_time(fns) -> tuple[float, int]:
+    """Profiler device time per call, the calls of ``fns`` in turn, and the
+    kernel records missing from the window (the tracer can miss the
+    launches made while it starts): each kernel's mean recorded duration
+    times its launches per call, rounded up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            for fn in fns:
+                fn()
+        torch.cuda.synchronize()
+    calls, seen, timed = 5 * len(fns), {}, {}
+    for e in prof.events():  # a record cut off by the tracer has no time
+        seen[e.name] = seen.get(e.name, 0) + 1
+        if getattr(e, "self_device_time_total", 0.0):
+            timed.setdefault(e.name, []).append(e.self_device_time_total)
+    ms = missing = 0
+    for name, durations in timed.items():
+        per_call = -(-seen[name] // calls)
+        ms += sum(durations) / len(durations) * per_call / 1e3
+        missing += per_call * calls - len(durations)
+    return ms, missing
+
+
+def events(fn, reps: int) -> float:
+    """ms per call by CUDA events around ``reps`` back-to-back calls."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def aten_ops(fn) -> int:
+    """The number of ATen operator calls ``fn`` makes (views included):
+    the host's share of a chain of small PyTorch ops."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        calls = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.calls += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.calls
+
+
+def ptxas_lines(log: str, kernels) -> list[str]:
+    """What ptxas -v says (registers, spills, shared memory) of every
+    instance of the kernels whose names contain one of ``kernels``."""
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        elif name and any(k in name for k in kernels) and (
+                "registers" in line or "spill" in line):
+            short = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?\d+(?=[a-z])", "", name)
+            out.append(f"ptxas {short[:60]}: {line.strip()}")
+    return out
+
+
 def _child(shape: str, rows: int, n: int, levels: int, reps: int,
            edge: bool) -> int:
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from ..ops import _build
     from ..ops import cuda_fill as cf
 
     card = _smi("name,power.limit")
     _, log = _build.build()
-    name = None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            name = m.group(1)
-        elif name and any(k in name for k in KERNELS) and (
-                "registers" in line or "spill" in line):
-            short = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?\d+(?=[a-z])", "", name)
-            print(f"ptxas {short[:60]}: {line.strip()}")
+    for line in ptxas_lines(log, KERNELS):
+        print(line)
     dev = torch.device("cuda", 0)
     if edge:
         for what, xn in edge_cases():
@@ -249,49 +319,11 @@ def _child(shape: str, rows: int, n: int, levels: int, reps: int,
                           + 0.1 * t ** 2).astype(np.float32)).to(dev)
     nt = -(-n // cf.TILE)
 
-    def device_time(fns):
-        """Profiler device time per call, the calls of ``fns`` in turn, and
-        the kernel records missing from the window (the tracer can miss
-        the launches made while it starts): each kernel's mean recorded
-        duration times its launches per call, rounded up."""
-        for fn in fns:
-            fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                for fn in fns:
-                    fn()
-            torch.cuda.synchronize()
-        calls, seen, timed = 5 * len(fns), {}, {}
-        for e in prof.events():  # a record cut off by the tracer has no time
-            seen[e.name] = seen.get(e.name, 0) + 1
-            if getattr(e, "self_device_time_total", 0.0):
-                timed.setdefault(e.name, []).append(e.self_device_time_total)
-        ms = missing = 0
-        for name, durations in timed.items():
-            per_call = -(-seen[name] // calls)
-            ms += sum(durations) / len(durations) * per_call / 1e3
-            missing += per_call * calls - len(durations)
-        return ms, missing
-
-    def events(fn):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
-
     def report(label, make, nbytes):
         """``make(i)``: the call on copy ``i`` of its inputs (0..3)."""
         hot, lost_h = device_time([make(0)])
         rot, lost_r = device_time([make(i) for i in range(4)])
-        ev = events(make(0))
+        ev = events(make(0), reps)
         bound = nbytes / HBM_BPS * 1e3
         print(f"shape {shape} {label}: hot {hot:.4f} ms, rotating {rot:.4f} "
               f"ms (profiler device time per recorded launch; {lost_h} of 5 "

@@ -15,9 +15,12 @@ every call; the level adjoint on the kernels is
 held against the plain route as ``tests/test_pallas_fill.py:394-404`` holds
 JAX's two routes; the sift gradient against the plain structural route.
 The cubic tier's kernels (K5-K8) are bitwise their plain versions, and its
-``"fills"`` route bitwise the plain route.  The shard-aware sift kernels (the
-port of K9) are bitwise their plain versions, and ``sharded_itd_sift`` on
-them is bitwise the unsharded kernel sift on ``chip_smoke.sharded_cases``.
+``"fills"`` route bitwise the plain route, also with knots and NaN on K7's
+run and SPIKE-block edges; K7 alone on ``tools/cubic_bench.py::
+spike_cases`` and K5 alone on the tile-edge shapes.  The shard-aware sift
+kernels (the port of K9) are bitwise their plain versions, and
+``sharded_itd_sift`` on them is bitwise the unsharded kernel sift on
+``chip_smoke.sharded_cases``.
 The sift's trips without a summary pass: every mode of the level kernels
 (``sift_level`` emitting interior summaries, ``tile_scan`` completing them)
 bitwise its plain version on ``tools/level_bench.py::edge_cases``, the same
@@ -32,8 +35,11 @@ from chip_smoke import (check_scans, device_launches, scan_protocol_cases,
 from pyitd_tpu_torch import (ITD, cubic_baseline_extract, itd_sift,
                              linear_baseline_extract)
 from pyitd_tpu_torch.ops import cuda_cubic, cuda_fill
+from pyitd_tpu_torch.ops.cubic_baseline import _odd_reflect_ends
 from pyitd_tpu_torch.ops.linear_baseline import (knot_mask,
                                                  structural_level_bwd)
+from pyitd_tpu_torch.tools.cubic_bench import edge_cases as spike_edges
+from pyitd_tpu_torch.tools.cubic_bench import spike_cases
 from pyitd_tpu_torch.tools.level_bench import check_level, edge_cases, same
 
 pytestmark = pytest.mark.cuda
@@ -359,6 +365,7 @@ def _cubic_cases():
     yield "short", rng.normal(size=(2, 64)).astype(np.float32)
     tt = np.arange(32.0)
     yield "tent", np.minimum(tt, 31 - tt)[None].astype(np.float32)
+    yield from spike_edges(cuda_cubic.SPIKE_BLK, cuda_cubic.SPIKE_RUN)
 
 
 CUBIC_CASES = list(_cubic_cases())
@@ -426,22 +433,36 @@ def test_cubic_f64_guard_and_gradient(device):
         <= 1e-4 * xg.grad[ok].abs().max()
 
 
-def test_chained_block_spike_kernel_against_plain(device):
-    rng = np.random.default_rng(11)
-    n = 2 * cuda_cubic.SPIKE_BLK + 1777
-    mask = rng.random((2, n)) < 0.3
-    mask[:, [0, -1]] = False
-    hl, hr = rng.uniform(1, 50, (2, 2, n))
-    d = rng.normal(size=(2, n)) * 10
-    args = [torch.from_numpy(a.astype(np.float32)).to(device)
-            for a in (hl, 2 * (hl + hr), hr, d)]
-    m = torch.from_numpy(mask).to(device)
+SPIKE_CASES = list(spike_cases(cuda_cubic.SPIKE_BLK, cuda_cubic.SPIKE_RUN))
+
+
+@pytest.mark.parametrize("name,sys_", SPIKE_CASES,
+                         ids=[c[0] for c in SPIKE_CASES])
+def test_chained_block_spike_kernel_against_plain(device, name, sys_):
+    """K7 bitwise its plain version (the partition solve) at the kernel's
+    SPIKE_BLK / SPIKE_RUN, on systems with knots on run and block edges,
+    a block without a knot and rows that end between runs."""
+    m, *args = (torch.from_numpy(v).to(device) for v in sys_)
     cuda_cubic.reset_launches()
     got = cuda_cubic.spike_factors_cuda(m, *args)
     assert cuda_cubic.LAUNCHES["spike_factors"] == 1
     assert bitwise_equal(got, cuda_cubic.spike_factors(m, *args))
     u, w = cuda_cubic.chained_block_spike(m, *args)
-    assert u.shape == (2, n) and bool(torch.isfinite(u).all())
+    assert u.shape == m.shape and bool(torch.isfinite(u).all())
+
+
+@pytest.mark.parametrize("name,x", LEVEL_CASES,
+                         ids=[c[0] for c in LEVEL_CASES])
+def test_cubic_ksite_kernel_against_plain(device, name, x):
+    """K5 on the chunk layout and the knot bitmap bitwise ``cubic_ksite``
+    on the tile-edge shapes: seams, NaN, plateaus, n = TILE + 1."""
+    xt = torch.from_numpy(x).to(device)
+    states = cuda_fill.level_states_cuda(xt)
+    b_first, b_last = _odd_reflect_ends(xt)
+    cuda_cubic.reset_launches()
+    got = cuda_cubic.cubic_ksite_cuda(xt, states, b_first, b_last)
+    assert cuda_cubic.LAUNCHES["cubic_ksite"] == 1
+    assert bitwise_equal(got, cuda_cubic.cubic_ksite(xt, b_first, b_last))
 
 
 # ---- the shard-aware sift kernels (the port of K9) ----
