@@ -32,8 +32,8 @@ Phases (each raises on failure, so any failure exits non-zero):
    cubic tier (``cubic_baseline_extract``, ``eval_backend="fills"``) on
    the same edge cases and its own (a row across tiles and SPIKE blocks,
    knots and NaN on K7's run and block edges, a block without a knot,
-   short rows, the degenerate rows, the pass-through guard, f64 in and
-   out): each kernel (K5-K8) bitwise against its plain version on the
+   short rows, the degenerate rows, the pass-through guard in f32 and in
+   f64, f64 in and out): each kernel (K5-K8) bitwise against its plain version on the
    route's own inputs, and the route against the plain route (every
    wrapper swapped for its plain version) bitwise; K7 alone bitwise on
    ``tools/cubic_bench.py::spike_cases``; the sequence-parallel
@@ -100,7 +100,22 @@ Phases (each raises on failure, so any failure exits non-zero):
    every intermediate: the full width does not fit) against the unsharded
    plain sift's; one sharded cubic level (``method="spike"``) at 8 x 4M
    against ``cubic_baseline_extract`` of the whole signal; then phase 7's
-   rows for the shard-aware kernels at these shapes.
+   rows for the shard-aware kernels at these shapes;
+10. the cubic tier's callers at full width, every cubic level counted
+   (launches of K5-K8 and of the pre-pass, one each per level), every
+   launch bitwise its plain version and each whole route bitwise its plain
+   route: the ensemble MEITD of the ensemble bench's signal (``ENS_SHAPE``,
+   32 realizations of 32,768 f64, ``noise_scale=0.1``, a seeded generator
+   on the card) with trips, levels, rows per level and host reads, the
+   reconstruction of the input and of every realization to 1e-10, its time
+   and ATen calls, ``meitd_jit`` alone and the one-at-a-time speedup;
+   ``meitd`` and ``xitd`` of the same signal, ``meitd`` against
+   ``meitd_jit`` to 1e-9; ``statistical_component`` of the 2-D profile's
+   256 x 256 tile with 20 iterations in f64 (4 levels of 5,120 rows), each
+   level within ``CUBIC_F64_REL`` of the f64 gather route on its recorded
+   input, ``totalextract2d`` reconstructing the tile to 1e-12 max|tile|,
+   each kernel's device time per useful sample beside phase 8's; one cubic
+   level at 32 x 32,768 and 1 x 32,768 on both routes.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -152,6 +167,10 @@ CUBIC_F64_REL = 2e-6
 MAIN_SHAPE, MAIN_MAX_IT = (8, 1_000_000), 8
 EEG_SHAPE, EEG_MAX_IT = (256, 16384), 8
 TRAIN_MAX_IT, TRAIN_STEPS = 6, 5
+# the MEITD ensemble (realizations, n) of bench.py:166, and the 2-D
+# ensemble's tile side and iterations (bench_profile.py:134-138)
+ENS_SHAPE = (32, 32768)
+TILE_2D, ITER_2D = 256, 20
 
 
 def sift_launches(levels: int) -> dict:
@@ -827,11 +846,23 @@ def phase2_cubic(dev) -> None:
     check_cubic(f"{name} f64", torch.from_numpy(xn).double().to(dev), 0)
     print(f"[2] cubic {name} in f64: f64 out, bitwise the plain route",
           flush=True)
+    # the guard in f64: the row itself, not f64(f32(x)), and rotation 0
+    name, xn, me = list(cubic_cases())[-1]
+    x = torch.from_numpy(xn).double().to(dev) * (1 + 1e-9)
+    r = check_cubic(f"{name} f64", x, me)
+    held = r.num_extrema < me
+    if not (held.any() and bool((r.baseline[held] == x[held]).all())
+            and bool((r.rotation[held] == 0).all())):
+        raise AssertionError(f"cubic {name} f64: pass-through guard")
+    print(f"[2] cubic {name} in f64: the guarded rows "
+          f"{held.nonzero()[:, 0].tolist()} return x itself in f64, "
+          f"rotation 0", flush=True)
 
 
 def phase8_cubic(x, card: str):
-    """The cubic level at full size; returns its launches and the calls
-    ``recorded_cubic`` saw (each kernel's inputs and output)."""
+    """The cubic level at full size; returns its launches, the calls
+    ``recorded_cubic`` saw (each kernel's inputs and output) and the kernel
+    route's device time by kernel name."""
     import torch
     from pyitd_tpu_torch import cubic_baseline_extract
     from pyitd_tpu_torch.ops import cuda_cubic as cc
@@ -951,7 +982,7 @@ def phase8_cubic(x, card: str):
           f"{fb_dms:.4f} ms, idle share {1 - fb_dms / fb:.3f}; peak memory "
           f"{peak_gb:.3f} GB, {peak_gb - held_gb:.3f} GB above the "
           f"{held_gb:.3f} GB held before it  [{card}]", flush=True)
-    return launches, calls
+    return launches, calls, k_by
 
 
 # ---- the sequence-parallel tier ----
@@ -1275,6 +1306,233 @@ def phase9_sharded(dev, card: str):
         raise AssertionError("sharded cubic beyond its limit against the "
                              "unsharded level")
     return launches, calls
+
+
+# ---- the cubic tier's callers: MEITD and the 2-D ensemble ----
+
+def ensemble_signal(n: int):
+    """The ensemble bench's signal (bench.py:166-170), float64."""
+    rng = np.random.default_rng(2)
+    t = np.linspace(0, 6 * np.pi, n)
+    return (np.sin(20 * t * (1 + 0.1 * t)) + np.sin(13 * t)
+            + 0.25 * rng.normal(size=n))
+
+
+def tile_2d(side: int):
+    """The 2-D profile's tile (bench_profile.py:50-56, 134): the first
+    side² samples of the bench signal's first row, f32, as float64."""
+    n = 1_000_000
+    rng = np.random.default_rng(0)
+    t = np.linspace(0, 2 * np.pi, n)[:side * side]
+    row = (np.sin(20 * t * (1 + 0.2 * t))
+           + 0.3 * rng.normal(size=side * side)).astype(np.float32)
+    return row.astype(np.float64).reshape(side, side)
+
+
+@contextlib.contextmanager
+def recorded_levels(calls: list):
+    """Every cubic level the MEITD walks and the 2-D tier call, recorded as
+    ``(input, kwargs)``."""
+    from pyitd_tpu_torch.decomp import meitd as pm
+
+    real = pm.cubic_baseline_extract
+
+    def fn(x, capacity, **kw):
+        calls.append((x, kw))
+        return real(x, capacity, **kw)
+
+    with swapped({"cubic_baseline_extract": fn}, pm):
+        yield
+
+
+def same_result(got, want, what: str) -> None:
+    for f in got._fields:
+        if not bitwise_equal(getattr(got, f), getattr(want, f)):
+            raise AssertionError(
+                f"{what}: {f} differs from the plain route, max abs err "
+                f"{max_abs_err(getattr(got, f), getattr(want, f))}")
+
+
+def counted(fn):
+    """``fn()`` with the cubic and sift kernel launches, the walks' trips
+    and host reads and the cubic levels counted from 0; returns ``(out,
+    launches, sift launches, counts, level calls)``."""
+    import torch
+    from pyitd_tpu_torch.decomp import meitd as pm
+    from pyitd_tpu_torch.ops import cuda_cubic as cc
+    from pyitd_tpu_torch.ops import cuda_fill as cf
+
+    levels = []
+    torch.cuda.synchronize()
+    cc.reset_launches()
+    cf.reset_launches()
+    pm.reset_counts()
+    with recorded_levels(levels), recorded_cubic({}):
+        out = fn()
+    torch.cuda.synchronize()
+    launches, sift = dict(cc.LAUNCHES), dict(cf.LAUNCHES)
+    want = {"level_summaries": len(levels), "tile_scan": len(levels)}
+    if (not levels or launches != {k: len(levels) for k in launches}
+            or sift != {k: want.get(k, 0) for k in sift}):
+        raise AssertionError(f"{len(levels)} cubic levels: launches "
+                             f"{launches}, sift kernels {sift}")
+    return out, launches, sift, dict(pm.COUNTS), levels
+
+
+def timed(what: str, fn, card: str, reps: int = 3):
+    """Median of ``reps`` CUDA-event times with min and max, device busy
+    and idle share, top device kernels; returns the median ms and the
+    device time by kernel name."""
+    times = cuda_times(fn, reps=reps, warmup=1)
+    dms, by_name = device_ms(fn, reps=1)
+    ms = statistics.median(times)
+    print(f"[10] {what}: {ms:.4f} ms (CUDA events, median of {reps}, min "
+          f"{times[0]:.4f}, max {times[-1]:.4f}); device busy {dms:.4f} ms, "
+          f"idle share {1 - dms / ms:.3f}  [{card}]", flush=True)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[10]   top device kernels (ms): " + "; ".join(
+        f"{kernel_label(k)} {v:.4f}" for k, v in top), flush=True)
+    return ms, by_name
+
+
+def phase10_meitd(dev, card: str, level_by: dict) -> None:
+    """The cubic tier's callers at full width: the 32 x 32,768 ensemble,
+    the host walk, the 20 x 256² 2-D ensemble, and the cubic level at the
+    MEITD shapes.  ``level_by``: phase 8's device time by kernel name."""
+    import torch
+    from pyitd_tpu_torch import (cubic_baseline_extract, meitd,
+                                 meitd_ensemble, meitd_jit, totalextract2d,
+                                 xitd)
+    from pyitd_tpu_torch.decomp.itd2d import statistical_component
+    from pyitd_tpu_torch.tools.level_bench import aten_ops
+
+    t_phase = time.perf_counter()
+    reps, n = ENS_SHAPE
+    x = torch.from_numpy(ensemble_signal(n)).to(dev)
+
+    def ensemble():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return meitd_ensemble(x, gen, reps, noise_scale=0.1)
+
+    # 1. the ensemble: every launch bitwise its plain version, the whole
+    # route bitwise the plain route, reconstruction
+    res, launches, sift, counts, levels = counted(ensemble)
+    rows = sorted(int(np.prod(v.shape[:-1])) for v, _ in levels)
+    with plain_cubic():
+        same_result(res, ensemble(), "ensemble")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    v = 0.1 * torch.randn((reps // 2, n), generator=gen, device=dev,
+                          dtype=torch.float64)
+    bank = torch.cat([x[None] + v, x[None] - v])
+    rec = float((res.mean_stack.sum(0) - x).abs().max())
+    rec_each = float((res.stacks.sum(1) - bank).abs().max())
+    print(f"[10] ensemble {reps} x {n} f64: {counts['trips']} trips, "
+          f"{len(levels)} cubic levels (launches {launches}; pre-pass "
+          f"{sift}), rows per level min {rows[0]} median "
+          f"{statistics.median(rows)} max {rows[-1]}; {counts['reads']} host "
+          f"reads; every launch bitwise its plain version, the ensemble "
+          f"bitwise the plain route; components "
+          f"{res.num_components.tolist()}, selected "
+          f"{int(res.selected_index)}, completeness "
+          f"{float(res.completeness)!r}; mean stack reconstructs x to "
+          f"{rec!r}, each realization its bank row to {rec_each!r}",
+          flush=True)
+    if not (rec <= 1e-10 and rec_each <= 1e-10):
+        raise AssertionError("ensemble reconstruction beyond 1e-10")
+    t_bank, _ = timed(f"ensemble {reps} x {n}", ensemble, card)
+    ops = aten_ops(ensemble)
+    print(f"[10]   ATen calls: {ops} per ensemble, "
+          f"{ops / counts['trips']:.0f} per trip, "
+          f"{ops / len(levels):.0f} per cubic level", flush=True)
+    one, _, _, c1, l1 = counted(lambda: meitd_jit(x))
+    t_one, _ = timed(f"meitd_jit alone, 1 x {n} ({c1['trips']} trips, "
+                     f"{len(l1)} cubic levels)", lambda: meitd_jit(x), card)
+    print(f"[10] one-at-a-time speedup {reps} * t_one / t_bank = "
+          f"{reps * t_one / t_bank:.2f}  [{card}]", flush=True)
+
+    # 2. the host walk on the same signal
+    (hi, lo, resid), _, _, ch, lh = counted(lambda: meitd(x))
+    with plain_cubic():
+        ph, pl, pr = meitd(x)
+        px = xitd(x)
+    kx = xitd(x)
+    for a, b, what in ((hi, ph, "high"), (lo, pl, "low"),
+                       (resid, pr, "residual"), (kx, px, "xitd")):
+        if not bitwise_equal(a, b):
+            raise AssertionError(f"meitd {what} differs from the plain "
+                                 f"route, max abs err {max_abs_err(a, b)}")
+    hc, lc = int(one.high_count), int(one.low_count)
+    if (hc, lc) != (hi.shape[0], lo.shape[0]):
+        raise AssertionError(f"meitd counts {hi.shape[0]}, {lo.shape[0]}; "
+                             f"meitd_jit {hc}, {lc}")
+    gap = max(max_abs_err(hi, one.high[:hc]), max_abs_err(lo, one.low[:lc]),
+              max_abs_err(resid, one.residual))
+    print(f"[10] meitd 1 x {n}: {hc} + {lc} components, {ch['trips']} trips, "
+          f"{len(lh)} cubic levels, {ch['reads']} host reads "
+          f"({ch['reads'] / max(ch['trips'], 1):.2f} per trip); meitd and "
+          f"xitd bitwise the plain route; against meitd_jit max abs diff "
+          f"{gap!r} (limit 1e-9)", flush=True)
+    if not gap <= 1e-9:
+        raise AssertionError("meitd differs from meitd_jit beyond 1e-9")
+    timed(f"meitd 1 x {n}", lambda: meitd(x), card)
+
+    # 3. the 2-D ensemble at full width: 4 batched levels of 20 x 256 rows
+    img = torch.from_numpy(tile_2d(TILE_2D)).to(dev)
+
+    def component():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return statistical_component(img, gen, ITER_2D)
+
+    low2, launches2, _, _, levels2 = counted(component)
+    if [tuple(v.shape) for v, _ in levels2] != [
+            (ITER_2D, TILE_2D, TILE_2D)] * 4:
+        raise AssertionError(f"2-D levels {[v.shape for v, _ in levels2]}")
+    with plain_cubic():
+        if not bitwise_equal(low2, component()):
+            raise AssertionError("2-D: differs from the plain route")
+    worst = 0.0
+    for v, kw in levels2:
+        got = cubic_baseline_extract(v, TILE_2D + 2, **kw)
+        g64 = cubic_baseline_extract(v, TILE_2D + 2, min_extrema=10,
+                                     eval_backend="gather")
+        worst = max(worst, float((got.baseline - g64.baseline).abs().max())
+                    / float(g64.baseline.abs().max()))
+    del levels2
+    split = totalextract2d(img, torch.Generator(device=dev).manual_seed(0),
+                           ITER_2D)
+    rec2 = float((split.sum(0) - img).abs().max())
+    scale = float(img.abs().max())
+    print(f"[10] 2-D statistical_component {ITER_2D} x {TILE_2D}^2 f64: "
+          f"launches {launches2}; every launch bitwise its plain version, "
+          f"the component bitwise the plain route; each level against the "
+          f"f64 gather route within {worst!r} of max|baseline| (limit "
+          f"{CUBIC_F64_REL}); totalextract2d reconstructs to {rec2!r} "
+          f"(limit 1e-12 * {scale!r})", flush=True)
+    if not (worst <= CUBIC_F64_REL and rec2 <= 1e-12 * scale):
+        raise AssertionError("2-D beyond its limits")
+    _, by2 = timed(f"2-D statistical_component {ITER_2D} x {TILE_2D}^2",
+                   component, card)
+    useful = 4 * ITER_2D * TILE_2D * TILE_2D
+    full = MAIN_SHAPE[0] * MAIN_SHAPE[1]
+    for k in ("cubic_ksite", "cubic_neighbors", "spike_factors",
+              "spike_backsub", "level_summaries", "tile_scan"):
+        d2 = sum(t for name, t in by2.items() if k in name)
+        d8 = sum(t for name, t in level_by.items() if k in name)
+        print(f"[10]   {k}: {d2 * 1e6 / useful:.4f} ns per useful sample "
+              f"in the 2-D levels (rows of {TILE_2D}), {d8 * 1e6 / full:.4f} "
+              f"at 8x1M (phase 8)  [{card}]", flush=True)
+
+    # 4. one cubic level at the MEITD shapes, for the short-row route
+    for b in (bank, bank[:1]):
+        for route in ("fills", "gather"):
+            def level(b=b, route=route):
+                return cubic_baseline_extract(b, n + 2, min_extrema=0,
+                                              eval_backend=route)
+            ms, _ = timed(f"cubic level {tuple(b.shape)} f64, {route!r}",
+                          level, card, reps=10)
+            print(f"[10]   {aten_ops(level)} ATen calls", flush=True)
+    print(f"[10] phase 10 took {time.perf_counter() - t_phase:.1f} s (host "
+          f"clock)", flush=True)
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -1891,7 +2149,7 @@ def main() -> int:
           flush=True)
 
     # ---- phase 8: the cubic level at full size ----
-    cubic_launches, calls = phase8_cubic(x, card)
+    cubic_launches, calls, level_by = phase8_cubic(x, card)
 
     # phase 7's rows for the cubic kernels, on the inputs the cubic level
     # gave them.  Bytes: each input read once, each output written once;
@@ -1947,6 +2205,9 @@ def main() -> int:
           4 * n * (7 * rows + 2 * n_rp + n_pb) + rows * nt * 32 + rows * 56,
           40 * rows * n, shard_launches["sift_level"], shape=shape)
     del calls
+
+    # ---- phase 10: the cubic tier's callers at full width ----
+    phase10_meitd(dev, card, level_by)
 
     print(json.dumps({"kernels": entries}))
     print(card)

@@ -1,15 +1,24 @@
 """PyTorch / CUDA port of ``pyitd_tpu``.
 
-The canonical ITD sift and the cubic-spline baseline tier, with their
-hand-written Hopper kernels (``csrc/*.cu``).  Module names mirror the JAX
-package's, and the public names below are those of
+The canonical ITD sift, the cubic-spline baseline tier with their
+hand-written Hopper kernels (``csrc/*.cu``), and the cubic tier's callers:
+the MEITD family (host walk, batched walk, noise-assisted ensemble, WPE
+and the selection statistics) and the 2-D ensemble.  Module names mirror
+the JAX package's, and the public names below are those of
 ``pyitd_tpu/__init__.py``.  This package imports ``torch`` and never
 ``jax``.
 """
+from .decomp.ensemble import EnsembleResult, meitd_ensemble
 from .decomp.itd import ITD, STOP_BUDGET, STOP_FLAT, SiftResult, itd_sift
+from .decomp.itd2d import crossways_baseline, mad, totalextract2d
+from .decomp.meitd import meitd, xitd
+from .decomp.meitd_jit import meitd_jit, meitd_jit_bank
+from .decomp.serial2d import sconcatenate, sdeconcatenate
 from .ops.cubic_baseline import cubic_baseline_extract
 from .ops.extrema import count_extrema, extrema_mask, extrema_masks
 from .ops.linear_baseline import linear_baseline_extract
+from .ops.wpe import weighted_permutation_entropy
+from .utils.stats import fingerprint, sorted_median_index
 from .utils.summation import neumaier_sum, reconstruction_error
 
 __all__ = [
@@ -18,11 +27,25 @@ __all__ = [
     "SiftResult",
     "STOP_FLAT",
     "STOP_BUDGET",
+    "meitd",
+    "xitd",
+    "meitd_jit",
+    "meitd_jit_bank",
+    "meitd_ensemble",
+    "EnsembleResult",
+    "totalextract2d",
+    "crossways_baseline",
+    "mad",
+    "sconcatenate",
+    "sdeconcatenate",
     "linear_baseline_extract",
     "cubic_baseline_extract",
     "extrema_mask",
     "extrema_masks",
     "count_extrema",
+    "weighted_permutation_entropy",
     "neumaier_sum",
     "reconstruction_error",
+    "fingerprint",
+    "sorted_median_index",
 ]

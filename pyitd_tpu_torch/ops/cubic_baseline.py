@@ -279,8 +279,15 @@ def _eval_fills_fused(x: torch.Tensor, min_extrema: int):
 
 def _extract_fills(x, min_extrema: int) -> CubicBaselineResult:
     baseline, rot, nex = _eval_fills_fused(x, min_extrema)
-    baseline = baseline.to(x.dtype)
-    rotation = rot if x.dtype == torch.float32 else x - baseline
+    if x.dtype == torch.float32:
+        return CubicBaselineResult(rotation=rot, baseline=baseline,
+                                   num_extrema=nex)
+    # K8's guard passed the f32 copy of x through: a guarded row returns x
+    # itself in the input's dtype, with rotation exactly 0, as the gather
+    # route does
+    baseline = torch.where((nex < min_extrema)[..., None], x,
+                           baseline.to(x.dtype))
+    rotation = x - baseline
     return CubicBaselineResult(rotation=rotation, baseline=baseline,
                                num_extrema=nex)
 

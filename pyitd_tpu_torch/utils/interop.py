@@ -1,17 +1,16 @@
 """Moving data between numpy and the port.
 
-The sift has no parameters, so what crosses between the JAX package and
-this one is the input signal and the ``SiftResult`` layout
-``(levels, *batch, n)``, level axis first.
+The decompositions have no parameters, so what crosses between the JAX
+package and this one is the input signal and the result layouts
+(``SiftResult``'s ``(levels, *batch, n)``, level axis first;
+``MeitdResult`` and ``EnsembleResult`` field by field).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..decomp.itd import SiftResult
-
-__all__ = ["from_numpy", "sift_result_to_numpy"]
+__all__ = ["from_numpy", "as_input", "result_to_numpy"]
 
 
 def from_numpy(x, device=None) -> torch.Tensor:
@@ -19,6 +18,23 @@ def from_numpy(x, device=None) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
 
-def sift_result_to_numpy(res: SiftResult) -> SiftResult:
-    """The five ``SiftResult`` fields as numpy arrays, in the JAX layout."""
-    return SiftResult(*(t.detach().cpu().numpy() for t in res))
+def as_input(data, dtype: torch.dtype | None, device) -> torch.Tensor:
+    """An entry point's input as a ``dtype`` tensor (``None``: its own
+    dtype): a tensor stays on its own device; anything else (numpy, lists)
+    goes to ``device``, and a CUDA ``device`` without a card raises."""
+    if isinstance(data, torch.Tensor):
+        return data if dtype is None else data.to(dtype)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r} needs a CUDA device and "
+            "torch.cuda.is_available() is false; pass device='cpu' to run "
+            "on the CPU")
+    return torch.as_tensor(np.asarray(data), dtype=dtype, device=device)
+
+
+def result_to_numpy(res):
+    """One of the port's result tuples (``SiftResult``, ``MeitdResult``,
+    ``EnsembleResult``) with every field as a numpy array, in the JAX
+    layout."""
+    return type(res)(*(t.detach().cpu().numpy() for t in res))

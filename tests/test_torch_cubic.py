@@ -187,6 +187,24 @@ def test_fills_keeps_f64_and_batch_shape():
     np.testing.assert_array_equal(r1.baseline.numpy(), r64.baseline[0])
 
 
+@pytest.mark.parametrize("backend", ["gather", "fills"])
+def test_f64_guard_returns_the_row_itself(backend):
+    """A row with fewer than ``min_extrema`` extrema returns x itself in
+    f64 and a rotation of exactly 0 on both routes; the fills route
+    computes in f32 and must not pass f64(f32(x)) through (JAX's fills
+    routes do: ROADMAP queue 3)."""
+    t = np.linspace(0, 6, 256)
+    x = np.stack([np.sin(t) + 0.1 * t, np.sin(40 * t)]) * (1 + 1e-9)
+    assert not np.array_equal(x, x.astype(np.float32))
+    r = cubic_baseline_extract(_t(x), 258, min_extrema=10,
+                               eval_backend=backend)
+    assert r.num_extrema.tolist()[0] < 10 <= r.num_extrema.tolist()[1]
+    assert r.baseline.dtype == torch.float64
+    np.testing.assert_array_equal(r.baseline[0].numpy(), x[0])
+    assert not r.rotation[0].any()
+    assert r.rotation[1].abs().max() > 0.5
+
+
 def _degenerate():
     n = 32
     t = np.arange(n, dtype=float)

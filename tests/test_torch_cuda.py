@@ -20,7 +20,9 @@ run and SPIKE-block edges; K7 alone on ``tools/cubic_bench.py::
 spike_cases`` and K5 alone on the tile-edge shapes.  The shard-aware sift
 kernels (the port of K9) are bitwise their plain versions, and
 ``sharded_itd_sift`` on them is bitwise the unsharded kernel sift on
-``chip_smoke.sharded_cases``.
+``chip_smoke.sharded_cases``.  The cubic tier's callers: the MEITD
+ensemble and the 2-D ensemble through K5-K8, every launch bitwise its
+plain version and the whole result bitwise the plain route.
 The sift's trips without a summary pass: every mode of the level kernels
 (``sift_level`` emitting interior summaries, ``tile_scan`` completing them)
 bitwise its plain version on ``tools/level_bench.py::edge_cases``, the same
@@ -568,3 +570,42 @@ def test_sharded_cubic_on_the_card(device):
         assert torch.equal(nex, ref.num_extrema)
         torch.testing.assert_close(base, ref.baseline, rtol=0, atol=1e-9)
         torch.testing.assert_close(rot, ref.rotation, rtol=0, atol=1e-9)
+
+
+def test_ensemble_on_the_kernels(device):
+    """The MEITD ensemble (4 x 512) through K5-K8: every launch bitwise its
+    plain version, the whole ensemble bitwise the plain route, the mean
+    stack reconstructing the input."""
+    from chip_smoke import counted, ensemble_signal, plain_cubic, same_result
+    from pyitd_tpu_torch import meitd_ensemble
+
+    x = torch.from_numpy(ensemble_signal(512)).to(device)
+
+    def run():
+        gen = torch.Generator(device=device).manual_seed(0)
+        return meitd_ensemble(x, gen, 4, noise_scale=0.1)
+
+    got, launches, _, counts, levels = counted(run)
+    assert counts["trips"] > 0 and launches["spike_factors"] == len(levels)
+    with plain_cubic():
+        same_result(got, run(), "ensemble")
+    assert (got.mean_stack.sum(0) - x).abs().max() <= 1e-10
+
+
+def test_2d_ensemble_on_the_kernels(device):
+    """``statistical_component`` of a 2 x 64 x 64 ensemble: 4 launches of
+    each of K5-K8, each bitwise its plain version, the result bitwise the
+    plain route."""
+    from chip_smoke import counted, plain_cubic, tile_2d
+    from pyitd_tpu_torch.decomp.itd2d import statistical_component
+
+    img = torch.from_numpy(tile_2d(64)).to(device)
+
+    def run():
+        gen = torch.Generator(device=device).manual_seed(0)
+        return statistical_component(img, gen, 2)
+
+    got, launches, _, _, levels = counted(run)
+    assert launches == {k: 4 for k in launches} and len(levels) == 4
+    with plain_cubic():
+        assert bitwise_equal(got, run())

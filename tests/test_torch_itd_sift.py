@@ -36,7 +36,7 @@ from pyitd_tpu_torch import (ITD, STOP_BUDGET, STOP_FLAT, itd_sift,
                              linear_baseline_extract, neumaier_sum,
                              reconstruction_error)
 from pyitd_tpu_torch.ops import cuda_fill
-from pyitd_tpu_torch.utils.interop import from_numpy, sift_result_to_numpy
+from pyitd_tpu_torch.utils.interop import from_numpy, result_to_numpy
 from reference.itd_ref import itd_sift as ref_sift
 
 torch.set_num_threads(1)
@@ -68,7 +68,7 @@ def bitwise_equal(a: np.ndarray, b: np.ndarray) -> bool:
 
 
 def assert_matches_jax(got, want, atol):
-    got = sift_result_to_numpy(got)
+    got = result_to_numpy(got)
     for f in ("rotations", "baselines", "correction"):
         np.testing.assert_allclose(getattr(got, f),
                                    np.asarray(getattr(want, f)),
@@ -216,7 +216,7 @@ def test_kernel_route_on_cpu_is_bitwise_plain(shape, max_it, mode):
     for kw in ({}, {"store_baselines": False}, {"early_exit": True}):
         a = itd_sift(xt, max_it, endpoint_mode=mode, backend="torch", **kw)
         b = itd_sift(xt, max_it, endpoint_mode=mode, backend="kernel", **kw)
-        a, b = sift_result_to_numpy(a), sift_result_to_numpy(b)
+        a, b = result_to_numpy(a), result_to_numpy(b)
         for f in a._fields:
             assert bitwise_equal(getattr(a, f), getattr(b, f)), (kw, f)
     # CPU calls never launch a kernel
@@ -358,7 +358,11 @@ def test_import_loads_no_jax():
     code = ("import sys, pyitd_tpu_torch, pyitd_tpu_torch.ops.cuda_fill, "
             "pyitd_tpu_torch.utils.interop, pyitd_tpu_torch.parallel, "
             "pyitd_tpu_torch.parallel.comm, pyitd_tpu_torch.parallel.sharded, "
-            "pyitd_tpu_torch.parallel.batch; "
+            "pyitd_tpu_torch.parallel.batch, pyitd_tpu_torch.ops.wpe, "
+            "pyitd_tpu_torch.utils.stats, pyitd_tpu_torch.decomp.meitd, "
+            "pyitd_tpu_torch.decomp.meitd_jit, "
+            "pyitd_tpu_torch.decomp.ensemble, pyitd_tpu_torch.decomp.itd2d, "
+            "pyitd_tpu_torch.decomp.serial2d; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'pyitd_tpu' not in sys.modules, 'pyitd_tpu imported'")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -32,7 +32,7 @@ from pyitd_tpu_torch.examples import train_through_itd as trainer
 from pyitd_tpu_torch.ops import cuda_fill
 from pyitd_tpu_torch.ops.linear_baseline import (
     linear_baseline_extract_structural, structural_level_bwd)
-from pyitd_tpu_torch.utils.interop import from_numpy, sift_result_to_numpy
+from pyitd_tpu_torch.utils.interop import from_numpy, result_to_numpy
 
 torch.set_num_threads(1)
 
@@ -186,7 +186,7 @@ def test_kernel_route_grad_on_cpu_f32(monkeypatch, shape, max_it, kw):
     xp = from_numpy(x).requires_grad_()
     rp = itd_sift(xp, max_it, backend="torch", linear_backend="structural",
                   **kw)
-    a, b = sift_result_to_numpy(rk), sift_result_to_numpy(rp)
+    a, b = result_to_numpy(rk), result_to_numpy(rp)
     for f in a._fields:
         np.testing.assert_array_equal(getattr(a, f), getattr(b, f), f)
     assert calls == {"fill2": 0, "segsum": 0}
