@@ -115,7 +115,25 @@ Phases (each raises on failure, so any failure exits non-zero):
    level within ``CUBIC_F64_REL`` of the f64 gather route on its recorded
    input, ``totalextract2d`` reconstructing the tile to 1e-12 max|tile|,
    each kernel's device time per useful sample beside phase 8's; one cubic
-   level at 32 x 32,768 and 1 x 32,768 on both routes.
+   level at 32 x 32,768 and 1 x 32,768 on both routes;
+11. the FFT family at full width, with no kernel of the repo launched
+   (cuFFT, cuBLAS, eager PyTorch): ``efd`` of the EFD bench's signal
+   (``EFD_SHAPE``, 8 x 2^20, 12 bands) in f32 and f64, timed (median of
+   10, device busy, idle share, top device ops, peak memory, Msamp/s), f64
+   row 0 against ``tests/reference/efd_ref.py`` (counts exact, cerf to
+   1e-10, bands to 1e-8: the comparison JAX's int32 bounds fail), f32
+   against f64 row by row (bounds, then bands within ``EFD_F32_REL``);
+   ``iterative_max`` of row 0's spectrum (524,289 bins, f64), timed, its
+   components summing to the row; one ITD-Fourier cascade iteration of
+   the 5b signal (n = 2^20, sr = 2048, f32): the first call apart, the
+   knots per comb frequency, ``FOURIER_CHAIN`` iterations chained and
+   timed with ATen calls and the moment solves by method (all
+   ``"banded"``), the sine sift's reconstruction, the densest entry's
+   static path timed, in f32 against f64 (2e-6 of max|x|) and bitwise
+   under ``"high"`` matmul precision; the f64 cascade at ``CASCADE_N`` on the card
+   against the CPU (keep masks per iteration equal, components to 1e-10),
+   and at 2^20 driven by hand for ``CASCADE_MAX_OUTER`` iterations,
+   reconstructing x to 1e-8 whether it stops or not.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -171,6 +189,29 @@ TRAIN_MAX_IT, TRAIN_STEPS = 6, 5
 # ensemble's tile side and iterations (bench_profile.py:134-138)
 ENS_SHAPE = (32, 32768)
 TILE_2D, ITER_2D = 256, 20
+# the FFT family's cells (bench.py:207-275): EFD of 8 x 2^20 with 12
+# bands; one ITD-Fourier cascade iteration at n = 2^20, sr = 2048, chained
+# FOURIER_CHAIN times; the f64 cascade against the CPU at CASCADE_N
+EFD_SHAPE, EFD_BANDS = (8, 1 << 20), 12
+FOURIER_N, FOURIER_SR, FOURIER_CHAIN = 1 << 20, 2048, 10
+CASCADE_N, CASCADE_MAX_OUTER = 1 << 16, 50
+# the densest comb entry's knots, where JAX's slow test pins them
+# (tests/test_itd_fourier.py:279-312)
+DENSEST_KNOTS = {(1 << 20, 2048): 886785}
+# the densest entry's f32 static path against its f64 one, as a fraction of
+# max|x|: 1.1e-7 on the CPU at FOURIER_N; the bar is the one JAX's tests
+# hold the template tier's f32 routes to
+TEMPLATE_F32_REL = 2e-6
+# f32 EFD bands against the f64 bands on rows whose integer bounds agree,
+# as a fraction of max|x|: the H100 read 2.9e-7 to 3.4e-7 on the 8 rows
+# (PERF.md, Findings); the bar is about 3x that, near f32 FFT
+# roundoff at this length (2^-24 * log2(2^21) = 1.3e-6), far below what a
+# bound moved by one bin changes in a band
+EFD_F32_REL = 1e-6
+# sum(rotations) + residual of the f32 sine sift against x, as a fraction
+# of max|x|: 10 f32 subtractions, each rounding by at most half an ulp of
+# a rotation of up to about twice max|x| (about 1.2e-6 at worst)
+SIFT_F32_REL = 1e-5
 
 
 def sift_launches(levels: int) -> dict:
@@ -1379,18 +1420,19 @@ def counted(fn):
     return out, launches, sift, dict(pm.COUNTS), levels
 
 
-def timed(what: str, fn, card: str, reps: int = 3):
+def timed(what: str, fn, card: str, reps: int = 3, tag: str = "10"):
     """Median of ``reps`` CUDA-event times with min and max, device busy
     and idle share, top device kernels; returns the median ms and the
-    device time by kernel name."""
+    device time by kernel name.  ``tag``: the phase the lines belong to."""
     times = cuda_times(fn, reps=reps, warmup=1)
     dms, by_name = device_ms(fn, reps=1)
     ms = statistics.median(times)
-    print(f"[10] {what}: {ms:.4f} ms (CUDA events, median of {reps}, min "
-          f"{times[0]:.4f}, max {times[-1]:.4f}); device busy {dms:.4f} ms, "
-          f"idle share {1 - dms / ms:.3f}  [{card}]", flush=True)
+    print(f"[{tag}] {what}: {ms:.4f} ms (CUDA events, median of {reps}, "
+          f"min {times[0]:.4f}, max {times[-1]:.4f}); device busy "
+          f"{dms:.4f} ms, idle share {1 - dms / ms:.3f}  [{card}]",
+          flush=True)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    print(f"[10]   top device kernels (ms): " + "; ".join(
+    print(f"[{tag}]   top device kernels (ms): " + "; ".join(
         f"{kernel_label(k)} {v:.4f}" for k, v in top), flush=True)
     return ms, by_name
 
@@ -1532,6 +1574,367 @@ def phase10_meitd(dev, card: str, level_by: dict) -> None:
                           level, card, reps=10)
             print(f"[10]   {aten_ops(level)} ATen calls", flush=True)
     print(f"[10] phase 10 took {time.perf_counter() - t_phase:.1f} s (host "
+          f"clock)", flush=True)
+
+
+# ---- the FFT family: EFD, modified EFD, the ITD-Fourier cascade ----
+
+def efd_signal(rows: int, n: int):
+    """The EFD bench's signal (bench.py:219-224), float64."""
+    rng = np.random.default_rng(3)
+    t = np.linspace(0, 2 * np.pi, n)
+    return (np.cos(40 * t[None]) + 0.7 * np.cos(250 * t[None])
+            + 0.4 * np.cos(1200 * t[None])
+            + 0.1 * rng.normal(size=(rows, n)))
+
+
+def fourier_signal(n: int, sr: int):
+    """The ITD-Fourier bench's signal (bench.py:256-260), float64."""
+    rng = np.random.default_rng(4)
+    t = np.arange(n) / sr
+    return (np.sin(2 * np.pi * 50 * t) + 0.6 * np.sin(2 * np.pi * 220 * t)
+            + 0.2 * rng.normal(size=n))
+
+
+def efd_oracle():
+    """``tests/reference/efd_ref.py::efd``, the numpy oracle of EFD."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "reference", "efd_ref.py")
+    spec = importlib.util.spec_from_file_location("efd_ref", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.efd
+
+
+def peak_memory(fn) -> tuple[float, float]:
+    """``(peak, peak above what was live before)`` of one call of ``fn``,
+    in GB."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return peak / 1e9, (peak - base) / 1e9
+
+
+@contextlib.contextmanager
+def recorded_moments(methods: list):
+    """The template tier's moment solves, each recorded by the method it
+    resolves to."""
+    from pyitd_tpu_torch.ops import cubic_baseline as tcb
+
+    real = tcb.reference_spline_moments
+
+    def fn(knots, h, count, method="auto"):
+        methods.append(("affine" if knots.is_cuda else "scan")
+                       if method == "auto" else method)
+        return real(knots, h, count, method)
+
+    with swapped({"reference_spline_moments": fn}, tcb):
+        yield
+
+
+def drive_cascade(x, sr: int, max_outer: int, keep_modes: bool) -> dict:
+    """``itd_fourier_decomposition``'s loop driven by hand for at most
+    ``max_outer`` iterations, without its error: the keep masks per
+    iteration, the kept mode spectra (with ``keep_modes``) and their sum,
+    and the last state (``x == irfft(mode_sum) + current``)."""
+    import torch
+    from pyitd_tpu_torch.decomp.itd_fourier import cascade_iteration
+
+    keeps, specs, src = [], [], []
+    mode_sum = None
+    cur, stopped = x, False
+    for _ in range(max_outer):
+        nxt, is_mode, spectra, rot, res = cascade_iteration(cur, sr)
+        keep = is_mode.cpu().numpy()
+        keeps.append(keep)
+        if not keep.any():
+            stopped = True
+            break
+        kept = spectra[torch.from_numpy(keep).to(spectra.device)]
+        mode_sum = kept.sum(0) if mode_sum is None else mode_sum + kept.sum(0)
+        if keep_modes:
+            specs.append(kept)
+            src += np.nonzero(keep)[0].tolist()
+        cur = nxt
+    return {"keeps": keeps, "specs": torch.cat(specs) if specs else None,
+            "src": src, "mode_sum": mode_sum, "current": cur,
+            "rotations": rot, "residual": res, "stopped": stopped}
+
+
+def phase11_efd(dev, card: str) -> None:
+    """EFD at 8 x 2^20 with 12 bands in f32 and f64, and modified EFD."""
+    import torch
+    from pyitd_tpu_torch import efd, iterative_max
+
+    rows, n = EFD_SHAPE
+    x64n = efd_signal(rows, n)
+    x64 = torch.from_numpy(x64n).to(dev)
+    x32 = x64.float()
+    res = {}
+    for x in (x32, x64):
+        what = f"efd {rows} x {n}, {EFD_BANDS} bands, {x.dtype}"
+        ms, _ = timed(what, lambda x=x: efd(x, EFD_BANDS), card, reps=10,
+                      tag="11")
+        peak, extra = peak_memory(lambda x=x: efd(x, EFD_BANDS))
+        print(f"[11]   {rows * n / ms / 1e3:.2f} Msamp/s; peak device memory "
+              f"{peak:.3f} GB ({extra:.3f} GB above the input)  [{card}]",
+              flush=True)
+        res[x.dtype] = efd(x, EFD_BANDS)
+    r64, r32 = res[torch.float64], res[torch.float32]
+    for r in (r32, r64):
+        if not (tuple(r.bands.shape) == (rows, EFD_BANDS + 2, n)
+                and bool(torch.isfinite(r.bands).all())):
+            raise AssertionError(f"efd bands {tuple(r.bands.shape)}, "
+                                 "not all finite")
+
+    # f64 row 0 against the numpy oracle: the comparison JAX fails at
+    # pyitd_tpu/decomp/efd.py:161 (int32 bounds)
+    t0 = time.perf_counter()
+    want_bands, want_cerf, want_bn, m = efd_oracle()(x64n[0], EFD_BANDS)
+    t_ref = time.perf_counter() - t0
+    cnt = int(r64.count[0])
+    band_err = max_abs_err(r64.bands[0, :cnt].cpu(),
+                           torch.from_numpy(want_bands)) \
+        if cnt == want_bands.shape[0] else float("inf")
+    cerf_err = max_abs_err(r64.cerf[0, :m].cpu(), torch.from_numpy(want_cerf))
+    print(f"[11] f64 row 0 against tests/reference/efd_ref.py ({t_ref:.1f} s "
+          f"on the host): count {cnt} (oracle {want_bands.shape[0]}), bands "
+          f"max abs err {band_err!r} (limit 1e-8), cerf {cerf_err!r} (limit "
+          f"1e-10)", flush=True)
+    if not (cnt == want_bands.shape[0] and band_err <= 1e-8
+            and cerf_err <= 1e-10):
+        raise AssertionError("f64 EFD differs from the oracle")
+
+    # f32 against f64 on the card, row by row; the integer bounds are the
+    # normalized ones times half1 / pi
+    scale = float(x64.abs().max())
+    half1 = round((n // 2 + 1) / 2)
+
+    def int_bounds(r, b):
+        return (r.bounds[b].double() * half1 / np.pi).round().long()
+
+    same_rows, worst = 0, 0.0
+    for b in range(rows):
+        same = (int(r32.count[b]) == int(r64.count[b])
+                and torch.equal(int_bounds(r32, b), int_bounds(r64, b)))
+        err = max_abs_err(r32.bands[b], r64.bands[b]) / scale
+        print(f"[11]   row {b}: f32 count {int(r32.count[b])}, f64 "
+              f"{int(r64.count[b])}; bounds {'equal' if same else 'differ'};"
+              f" bands max abs diff {err!r} of max|x|", flush=True)
+        if same:
+            same_rows += 1
+            worst = max(worst, err)
+    print(f"[11] f32 against f64: {same_rows} of {rows} rows with equal "
+          f"bounds, their bands within {worst!r} of max|x| (limit "
+          f"{EFD_F32_REL})", flush=True)
+    # the bar is held on at least one row (8 of 8 when it was set)
+    if not (same_rows >= 1 and worst <= EFD_F32_REL):
+        raise AssertionError("f32 EFD: no row with the f64 bounds, or bands "
+                             "beyond EFD_F32_REL")
+    del res, r32, r64
+
+    # modified EFD on the spectrum of row 0, f64
+    row = torch.fft.rfft(x64[0]).real
+    ms, _ = timed(f"iterative_max(rfft(x[0]).real, elem=4, comb_size=12), "
+                  f"{row.shape[-1]} bins, f64",
+                  lambda: iterative_max(row, 4, 12), card, reps=5, tag="11")
+    comps = iterative_max(row, 4, 12)
+    err = max_abs_err(comps.sum(0), row) / float(row.abs().max())
+    print(f"[11] iterative_max: {tuple(comps.shape)}, the components sum to "
+          f"the row within {err!r} of max|row| (limit 1e-9)", flush=True)
+    if not err <= 1e-9:
+        raise AssertionError("iterative_max does not sum to its row")
+
+
+def phase11_fourier(dev, card: str) -> None:
+    """The ITD-Fourier cascade: one iteration at 2^20 in f32, chained;
+    the templates; the densest entry's static path; the f64 cascade
+    against the CPU and at full length."""
+    import torch
+    from pyitd_tpu_torch import itd_fourier_decomposition, itd_sine_sift
+    from pyitd_tpu_torch.decomp import itd_fourier as tif
+    from pyitd_tpu_torch.ops import cubic_baseline as tcb
+    from pyitd_tpu_torch.tools.level_bench import aten_ops
+
+    n, sr = FOURIER_N, FOURIER_SR
+    x64n = fourier_signal(n, sr)
+    x = torch.from_numpy(x64n).to(dev).float()
+    scale = float(x.abs().max())
+
+    t0 = time.perf_counter()
+    tif.cascade_iteration(x, sr)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    templates = tif._sine_template_static(sr, n)
+    print(f"[11] cascade_iteration f32, n = {n}, sr = {sr}: first call "
+          f"{first:.2f} s (host clock: the templates, their segment maps, "
+          f"their device copies)", flush=True)
+    print("[11]   knots per comb frequency: " + ", ".join(
+        f"{int(f)} Hz {t.count}" for t, f in
+        zip(templates, tif._sine_template_np(sr, n)[2])), flush=True)
+
+    # the chain, with the moment solves recorded by method
+    methods = []
+    cur, times = x, []
+    with recorded_moments(methods):
+        for _ in range(FOURIER_CHAIN):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            cur = tif.cascade_iteration(cur, sr)[0]
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+    times.sort()
+    per_it = statistics.median(times)
+    dms, by_name = device_ms(lambda: tif.cascade_iteration(x, sr), reps=3)
+    ops = aten_ops(lambda: tif.cascade_iteration(x, sr))
+    print(f"[11] {FOURIER_CHAIN} chained iterations: {per_it:.4f} ms per "
+          f"iteration (CUDA events, median, min {times[0]:.4f}, max "
+          f"{times[-1]:.4f}), {n / per_it / 1e3:.2f} Msamp/s; device busy "
+          f"{dms:.4f} ms, idle share {1 - dms / per_it:.3f}; {ops} ATen "
+          f"calls per iteration  [{card}]", flush=True)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print("[11]   top device kernels (ms): " + "; ".join(
+        f"{kernel_label(k)} {v:.4f}" for k, v in top), flush=True)
+    counts = {m: methods.count(m) for m in sorted(set(methods))}
+    print(f"[11]   moment solves by method over the chain: {counts}",
+          flush=True)
+    if counts != {"banded": FOURIER_CHAIN * len(templates)}:
+        raise AssertionError(f"moment solves {counts}")
+    if not bool(torch.isfinite(cur).all()):
+        raise AssertionError("the chained cascade is not finite")
+
+    rot, res = itd_sine_sift(x, sr)
+    rec = max_abs_err(rot.double().sum(0) + res.double(), x.double()) / scale
+    print(f"[11] itd_sine_sift f32: {tuple(rot.shape)}, sum(rotations) + "
+          f"residual against x within {rec!r} of max|x| (limit "
+          f"{SIFT_F32_REL})", flush=True)
+    if not rec <= SIFT_F32_REL:
+        raise AssertionError("the f32 sine sift does not reconstruct")
+
+    # the densest comb entry's static path: timed, f32 against f64, and
+    # under TF32-permitting matmul precision
+    tpl = templates[0]
+    if tpl.count != DENSEST_KNOTS[(n, sr)]:
+        raise AssertionError(f"densest entry: {tpl.count} knots")
+
+    def static(v):
+        return tcb._template_fast_baseline_static(v, tpl)
+
+    a = static(x)
+    gap = max_abs_err(a.double(), static(x.double())) / scale
+    t_a = statistics.median(cuda_times(lambda: static(x)))
+    d_a = device_ms(lambda: static(x), reps=3)[0]
+    it_ref = tif.cascade_iteration(x, sr)[0]
+    prev = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("high")
+        a_high = static(x)
+        it_high = tif.cascade_iteration(x, sr)[0]
+        kept = torch.get_float32_matmul_precision()
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    print(f"[11] densest entry ({tpl.count} knots), f32 static path: "
+          f"{t_a:.4f} ms (CUDA events, median of 10; device busy "
+          f"{d_a:.4f}); against f64 within {gap!r} of max|x| (limit "
+          f"{TEMPLATE_F32_REL}); under 'high' matmul precision the baseline "
+          f"is {'bitwise' if bitwise_equal(a, a_high) else 'NOT'} unchanged, "
+          f"the iteration {'bitwise' if bitwise_equal(it_ref, it_high) else 'NOT'}"
+          f" unchanged, and the setting stays {kept!r}  [{card}]", flush=True)
+    if not (gap <= TEMPLATE_F32_REL and bitwise_equal(a, a_high)
+            and bitwise_equal(it_ref, it_high) and kept == "high"):
+        raise AssertionError("densest entry: f32 path or precision")
+    del a, a_high, it_ref, it_high, rot, res
+
+    # the f64 cascade at CASCADE_N: the card against the CPU
+    xs = fourier_signal(CASCADE_N, sr)
+    scale_s = float(np.abs(xs).max())
+    t0 = time.perf_counter()
+    on = drive_cascade(torch.from_numpy(xs).to(dev), sr, CASCADE_MAX_OUTER,
+                       True)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    off = drive_cascade(torch.from_numpy(xs), sr, CASCADE_MAX_OUTER, True)
+    t_cpu = time.perf_counter() - t0
+    same_keeps = (len(on["keeps"]) == len(off["keeps"]) and all(
+        np.array_equal(a, b) for a, b in zip(on["keeps"], off["keeps"])))
+    gaps = [max_abs_err(on[k].cpu(), off[k]) / scale_s
+            for k in ("current", "rotations", "residual")]
+    if on["specs"] is not None and off["specs"] is not None:
+        gaps.append(max_abs_err(
+            torch.fft.irfft(on["specs"], CASCADE_N).cpu(),
+            torch.fft.irfft(off["specs"], CASCADE_N)) / scale_s)
+    outcomes = []
+    for device in (dev, "cpu"):
+        try:
+            comps = itd_fourier_decomposition(
+                xs, sr, max_outer=CASCADE_MAX_OUTER, device=device)
+            outcomes.append(f"{len(comps)} components")
+        except RuntimeError as e:  # the cascade's max_outer bound
+            outcomes.append(str(e))
+    print(f"[11] f64 cascade at n = {CASCADE_N}, sr = {sr}: "
+          f"{len(on['keeps'])} iterations on the card ({t_card:.2f} s), "
+          f"{len(off['keeps'])} on the CPU ({t_cpu:.2f} s), stopped "
+          f"{on['stopped']} / {off['stopped']}; keep masks "
+          f"{'equal' if same_keeps else 'DIFFER'} in every iteration; "
+          f"{len(on['src'])} / {len(off['src'])} modes; components within "
+          f"{max(gaps)!r} of max|x| (limit 1e-10); rotations kept per "
+          f"iteration {[int(k.sum()) for k in on['keeps']]}; "
+          f"itd_fourier_decomposition: {outcomes[0]!r} on the card, "
+          f"{outcomes[1]!r} on the CPU", flush=True)
+    if not (same_keeps and len(on["src"]) == len(off["src"])
+            and max(gaps) <= 1e-10 and outcomes[0] == outcomes[1]):
+        raise AssertionError("the f64 cascade differs between card and CPU")
+    del on, off
+
+    # the f64 cascade at full length, driven by hand
+    x64 = torch.from_numpy(x64n).to(dev)
+    t0 = time.perf_counter()
+    full = drive_cascade(x64, sr, CASCADE_MAX_OUTER, False)
+    torch.cuda.synchronize()
+    t_full = time.perf_counter() - t0
+    modes = (torch.fft.irfft(full["mode_sum"], n) if full["mode_sum"]
+             is not None else torch.zeros_like(x64))
+    rec = max_abs_err(modes + full["current"], x64) / float(x64.abs().max())
+    its = len(full["keeps"])
+    print(f"[11] f64 cascade at n = {n}, sr = {sr}: "
+          + ("stops" if full["stopped"] else "does not stop")
+          + f" within {CASCADE_MAX_OUTER} iterations ({its} run, "
+          f"{t_full:.2f} s host clock, {t_full / its * 1e3:.1f} ms per "
+          f"iteration); rotations kept per iteration "
+          f"{[int(k.sum()) for k in full['keeps']]}; modes + current "
+          f"reconstruct x within {rec!r} of max|x| (limit 1e-8)  [{card}]",
+          flush=True)
+    if not rec <= 1e-8:
+        raise AssertionError("the f64 cascade does not reconstruct x")
+
+
+def phase11_fft(dev, card: str) -> None:
+    """The FFT family at full width; no kernel of the repo runs in it."""
+    from pyitd_tpu_torch.ops import cuda_cubic as cc
+    from pyitd_tpu_torch.ops import cuda_fill as cf
+
+    t_phase = time.perf_counter()
+    cc.reset_launches()
+    cf.reset_launches()
+    phase11_efd(dev, card)
+    phase11_fourier(dev, card)
+    launches = {**cc.LAUNCHES, **cf.LAUNCHES}
+    print(f"[11] launches of the repo's kernels in phase 11: {launches}",
+          flush=True)
+    if any(launches.values()):
+        raise AssertionError("the FFT family launched a kernel of the repo")
+    print(f"[11] phase 11 took {time.perf_counter() - t_phase:.1f} s (host "
           f"clock)", flush=True)
 
 
@@ -2208,6 +2611,9 @@ def main() -> int:
 
     # ---- phase 10: the cubic tier's callers at full width ----
     phase10_meitd(dev, card, level_by)
+
+    # ---- phase 11: the FFT family at full width ----
+    phase11_fft(dev, card)
 
     print(json.dumps({"kernels": entries}))
     print(card)

@@ -3,18 +3,24 @@
 The canonical ITD sift, the cubic-spline baseline tier with their
 hand-written Hopper kernels (``csrc/*.cu``), and the cubic tier's callers:
 the MEITD family (host walk, batched walk, noise-assisted ensemble, WPE
-and the selection statistics) and the 2-D ensemble.  Module names mirror
+and the selection statistics), the 2-D ensemble, and the FFT family
+(EFD, modified EFD, the sine-template ITD and the ITD-Fourier cascade on
+the template cubic tier).  Module names mirror
 the JAX package's, and the public names below are those of
 ``pyitd_tpu/__init__.py``.  This package imports ``torch`` and never
 ``jax``.
 """
+from .decomp.efd import (efd, efd_real, efd_slice_max, iterative_efd,
+                         iterative_max)
 from .decomp.ensemble import EnsembleResult, meitd_ensemble
 from .decomp.itd import ITD, STOP_BUDGET, STOP_FLAT, SiftResult, itd_sift
 from .decomp.itd2d import crossways_baseline, mad, totalextract2d
+from .decomp.itd_fourier import itd_fourier_decomposition, itd_sine_sift
 from .decomp.meitd import meitd, xitd
 from .decomp.meitd_jit import meitd_jit, meitd_jit_bank
 from .decomp.serial2d import sconcatenate, sdeconcatenate
-from .ops.cubic_baseline import cubic_baseline_extract
+from .ops.cubic_baseline import (cubic_baseline_extract,
+                                 template_fast_baseline)
 from .ops.extrema import count_extrema, extrema_mask, extrema_masks
 from .ops.linear_baseline import linear_baseline_extract
 from .ops.wpe import weighted_permutation_entropy
@@ -38,8 +44,16 @@ __all__ = [
     "mad",
     "sconcatenate",
     "sdeconcatenate",
+    "efd",
+    "efd_real",
+    "iterative_efd",
+    "efd_slice_max",
+    "iterative_max",
+    "itd_sine_sift",
+    "itd_fourier_decomposition",
     "linear_baseline_extract",
     "cubic_baseline_extract",
+    "template_fast_baseline",
     "extrema_mask",
     "extrema_masks",
     "count_extrema",

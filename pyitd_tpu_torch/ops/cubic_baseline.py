@@ -1,6 +1,7 @@
-"""Cubic-spline baseline, MEITD tier — port of
-``pyitd_tpu/ops/cubic_baseline.py`` (``cubic_baseline_extract`` and what it
-runs: :78-128, 215-356, 442-585, 1123-1331).
+"""Cubic-spline baselines — port of ``pyitd_tpu/ops/cubic_baseline.py``:
+the MEITD tier (``cubic_baseline_extract`` and what it runs: :78-128,
+215-356, 442-585, 1123-1331) and the template tier
+(``template_fast_baseline``, :131-148, 682-1120; end of this module).
 
 Knots are the extrema plus both endpoints, with odd-reflection end values
 ``(3x[0]-x[1])/2`` and ``(3x[-1]-x[-2])/2`` and Frei-Osorio values
@@ -30,16 +31,18 @@ from __future__ import annotations
 import warnings
 from typing import NamedTuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .chained_pcr import _sdiv, notaknot_rows
 from .extrema import compact_indices, extrema_mask
-from .fill import shift_left, shift_right, take_last_axis
+from .fill import forward_fill_scan, shift_left, shift_right, take_last_axis
 from .linear_baseline import knot_value
-from .tridiag import _count, spline_moments
+from .tridiag import _count, reference_spline_moments, spline_moments
 
 __all__ = ["CubicBaselineResult", "segment_index", "eval_moment_spline",
-           "cubic_baseline_extract"]
+           "cubic_baseline_extract", "template_fast_baseline"]
 
 # JAX's eval backends that this package has not ported (ROADMAP.md, queue
 # 1, item 6)
@@ -381,3 +384,228 @@ def cubic_baseline_extract(x: torch.Tensor, capacity: int, *,
         return CubicBaselineResult(*_CubicFills.apply(x, capacity,
                                                       min_extrema))
     return _extract_fills(x, min_extrema)
+
+
+# ---------------------------------------------------------------------------
+# the template tier: the reference native tier's "fast" baseline on
+# caller-supplied knot positions
+# ---------------------------------------------------------------------------
+
+
+def _scatter_channels(x_like, positions, valid, channels):
+    """Per-knot ``channels`` scattered onto the signal grid at ``positions``
+    (unique where valid); invalid or out-of-range slots go to one sink slot
+    past the end, which is cut off."""
+    n = x_like.shape[-1]
+    shape = x_like.shape[:-1] + positions.shape[-1:]
+    keep = valid & (positions >= 0) & (positions < n)
+    pos = torch.where(keep, positions, n).long().expand(shape)
+    return tuple(
+        torch.zeros(x_like.shape[:-1] + (n + 1,), dtype=ch.dtype,
+                    device=x_like.device).scatter(-1, pos, ch.expand(shape))
+        [..., :n] for ch in channels)
+
+
+def _check_f32_grid(x: torch.Tensor) -> None:
+    """The closed form reads ``s = (it - pos_j) / h`` on a float sample
+    grid, which aliases past 2^24 samples in f32; f64 is exact to 2^53."""
+    if x.dtype == torch.float32 and x.shape[-1] > (1 << 24):
+        raise ValueError(
+            f"n={x.shape[-1]} exceeds the f32 sample-grid ceiling "
+            f"(2^24={1 << 24}) of template_fast_baseline; use a float64 "
+            "input.")
+
+
+_NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+class _StaticTemplate:
+    """The host constants of one static knot grid on ``n`` samples — the
+    position buffer trimmed to ``count + 2`` slots, the spacings and the
+    segment map — and their device copies per (device, dtype), made on the
+    first call that needs them.  Whoever owns the grid keeps the object
+    (``decomp/itd_fourier._sine_template_static`` caches one per comb
+    frequency), so a call neither rebuilds nor re-uploads them."""
+
+    def __init__(self, positions, count: int, n: int):
+        self.count, self.n = count, n
+        cap2 = count + 2
+        k = np.arange(cap2)
+        pos = np.zeros(cap2, np.int64)
+        pos[:count] = np.asarray(positions[:count], np.int64)
+        self.pos = pos
+        self.e_prev = np.concatenate([[0], pos[:-1]])
+        self.e_next = np.concatenate([pos[1:], [0]])
+        # h[count-1] = -e, as in the reference
+        self.h64 = np.where(k < count, (self.e_next - pos).astype(np.float64),
+                            0.0)
+        self.seg = np.searchsorted(pos[1:count], np.arange(n),
+                                   side="right").astype(np.int32)
+        self._dev = {}
+
+    def consts(self, device, dtype) -> dict:
+        key = (torch.device(device), dtype)
+        if key not in self._dev:
+            self._dev[key] = self._build(*key)
+        return self._dev[key]
+
+    def _build(self, device, dtype) -> dict:
+        npdt = _NP_DTYPE[dtype]
+        pos, count, n = self.pos, self.count, self.n
+
+        def f(a):
+            return torch.from_numpy(np.ascontiguousarray(
+                np.asarray(a).astype(npdt))).to(device)
+
+        def i64(a):
+            return torch.from_numpy(np.asarray(a, np.int64)).to(device)
+
+        span = (self.e_next - self.e_prev).astype(npdt)
+        w = (pos - self.e_prev).astype(npdt) / np.where(
+            span == 0, np.ones_like(span), span)
+        k = np.arange(count + 2)
+        return {"w": f(w), "h": f(self.h64),
+                "xe_idx": i64(np.clip(pos, 0, n - 1)), "seg": i64(self.seg),
+                "pos_f": f(pos), "lastlin": f(k == count - 2),
+                "it": f(np.arange(n))}
+
+
+def _template_fast_baseline_static(x: torch.Tensor,
+                                   tpl: _StaticTemplate) -> torch.Tensor:
+    """Static-positions path of :func:`template_fast_baseline`.
+
+    Knot positions that depend only on configuration make everything
+    positional a host constant (:class:`_StaticTemplate`), and the buffers
+    are trimmed to ``count + 2`` slots: the knot values are one gather and
+    the evaluation one row gather of a 7-channel matrix by the segment map.
+    JAX's periodic route (one-hot compaction and evaluation GEMMs,
+    ``pyitd_tpu/ops/cubic_baseline.py:682-853``) is built for the TPU's
+    matrix unit and is not ported: on the H100 it was no faster than this
+    route (PERF.md, Findings)."""
+    if x.dtype not in _NP_DTYPE:
+        raise TypeError(f"template_fast_baseline takes float32 or float64, "
+                        f"not {x.dtype}")
+    if x.shape[-1] != tpl.n:
+        raise ValueError(f"the template is laid out for n={tpl.n}, the "
+                         f"signal has {x.shape[-1]} samples")
+    count, lead = tpl.count, x.shape[:-1]
+    cap2 = count + 2
+    c = tpl.consts(x.device, x.dtype)
+
+    xe = x.index_select(-1, c["xe_idx"])
+    x_prev = F.pad(xe[..., :-1], (1, 0))
+    x_next = F.pad(xe[..., 1:], (0, 1))
+    knots = 0.5 * (x_prev + c["w"] * (x_next - x_prev)) + 0.5 * xe
+    # K[0] = x[e0]; K[count-1] is never written; K[count] reads x[0]
+    knots = knots.clone()
+    knots[..., 0] = xe[..., 0]
+    knots[..., count - 1] = 0.0
+    knots[..., count] = x[..., 0]
+    knots[..., count + 1:] = 0.0
+    # "banded": the truncated affine doubling (a 64-knot exact window)
+    moments = reference_spline_moments(knots, c["h"], count, method="banded")
+
+    # one row gather of the per-knot channels by the segment map; the
+    # coefficients derive from them
+    def shl(a):
+        return F.pad(a[..., 1:], (0, 1))
+
+    full = lead + (cap2,)
+    chan = torch.stack(
+        [c["pos_f"].expand(full), c["h"].expand(full),
+         c["lastlin"].expand(full), knots, shl(knots), moments,
+         shl(moments)], dim=-1)
+    g = chan.index_select(-2, c["seg"])  # (..., n, 7)
+    pos_j, h_j, is_lastlin = g[..., 0], g[..., 1], g[..., 2]
+    k_j, k_j1, m_j, m_j1 = g[..., 3], g[..., 4], g[..., 5], g[..., 6]
+
+    h_safe = torch.where(h_j == 0, torch.ones_like(h_j), h_j)
+    s = (c["it"] - pos_j) / h_safe
+    omt = 1.0 - s
+    # the reference's last segment is linear only
+    hh = torch.where(is_lastlin > 0, torch.zeros_like(h_j), h_j * h_j / 6.0)
+    return (omt * k_j + s * k_j1
+            + hh * ((omt * omt * omt - omt) * m_j + (s * s * s - s) * m_j1))
+
+
+def template_fast_baseline(x, positions, count, *,
+                           device="cuda") -> torch.Tensor:
+    """The reference native tier's ("fast") cubic baseline on caller-supplied
+    knot positions, on the last axis of ``x``.
+
+    ``positions[..., cap]`` is zero-padded past ``count`` (as the
+    reference's zero-initialised extrema buffers: the one-past-the-end knot
+    value reads ``x[0]``); the last knot value is never written (0) and
+    the last segment is linear only.  An out-of-range position reads the
+    clamped sample (the reference reads out of bounds there).
+
+    Given a numpy ``positions`` and an integer ``count`` (the sine-template
+    tier: positions are configuration), the static path runs
+    (:func:`_template_fast_baseline_static`) on constants made for this
+    call; a caller that reuses one grid keeps a :class:`_StaticTemplate`
+    instead, as ``decomp/itd_fourier`` does.  JAX's ``period_hint`` (its
+    TPU matrix-unit route) has no counterpart.  Otherwise the dynamic path
+    scatters the per-knot channels onto the grid and forward-fills them,
+    with ``reference_spline_moments``' ``"auto"`` method.
+
+    ``x``: a tensor stays on its device; numpy goes to ``device``.  An f32
+    signal longer than 2^24 raises (its float sample grid aliases there);
+    f64 is exact to 2^53.  Differentiable in ``x``."""
+    from ..utils.interop import as_input
+
+    x = as_input(x, None, device)
+    _check_f32_grid(x)
+    if isinstance(positions, np.ndarray) and isinstance(
+            count, (int, np.integer)):
+        return _template_fast_baseline_static(
+            x, _StaticTemplate(positions, int(count), x.shape[-1]))
+    dtype = x.dtype
+    lead = x.shape[:-1]
+    positions = torch.as_tensor(positions, device=x.device)
+    k = torch.arange(positions.shape[-1], device=x.device)
+    count = torch.as_tensor(count, device=x.device).expand(lead)
+    cnt = count[..., None]
+
+    pos = torch.where(k < cnt, positions, torch.zeros_like(positions)).long()
+    pos_f = pos.to(dtype)
+    xe = take_last_axis(x, pos)  # clamped read
+    x0 = x[..., :1]
+
+    e_prev, e_next = shift_right(pos, 0), shift_left(pos, 0)
+    x_prev, x_next = shift_right(xe, 0.0), shift_left(xe, 0.0)
+    span = (e_next - e_prev).to(dtype)
+    w = (pos - e_prev).to(dtype) / torch.where(span == 0,
+                                               torch.ones_like(span), span)
+    knots = 0.5 * (x_prev + w * (x_next - x_prev)) + 0.5 * xe
+    zero = torch.zeros_like(knots)
+    knots = torch.where(k == 0, xe, knots)
+    knots = torch.where(k == cnt - 1, zero, knots)     # never written
+    knots = torch.where(k == cnt, x0, knots)           # x[0]
+    knots = torch.where(k > cnt, zero, knots)
+    h = (e_next - pos).to(dtype)  # h[count-1] = -e[count-1]
+    h = torch.where(k < cnt, h, torch.zeros_like(h))
+    moments = reference_spline_moments(knots, h, count)
+
+    # every per-sample quantity of the closed form — pos[seg], K[seg],
+    # K[seg+1], M[seg], M[seg+1], h[seg] — is constant between knots:
+    # scatter the channels at knots 0..count-1 and forward-fill them once;
+    # samples before the first knot take knot 0's
+    chans = (pos_f, knots, shift_left(knots, 0.0), moments,
+             shift_left(moments, 0.0), h)
+    scat = _scatter_channels(x, pos, k < cnt,
+                             chans + (torch.ones_like(knots),))
+    filled = forward_fill_scan(scat, scat[-1] != 0, (0.0,) * 7)
+    seen = filled[-1] > 0
+    pos_j, k_j, k_j1, m_j, m_j1, h_j = (
+        torch.where(seen, f, ch[..., :1]) for f, ch in zip(filled[:-1], chans))
+
+    it = torch.arange(x.shape[-1], device=x.device).to(dtype)
+    h_safe = torch.where(h_j == 0, torch.ones_like(h_j), h_j)
+    s = (it - pos_j) / h_safe
+    omt = 1.0 - s
+    lin = omt * k_j + s * k_j1
+    cub = h_j * h_j / 6.0 * ((omt ** 3 - omt) * m_j + (s ** 3 - s) * m_j1)
+    # the last segment (seg == count-2) is linear only: its left knot's
+    # position identifies it (positions are unique integers)
+    pos_cnt2 = torch.gather(pos_f, -1, (cnt - 2).clamp(min=0))
+    return torch.where(pos_j == pos_cnt2, lin, lin + cub)

@@ -1,10 +1,12 @@
 """Tridiagonal solvers and cubic-spline moment systems on padded knot
-buffers — port of ``pyitd_tpu/ops/tridiag.py:231-418``.
+buffers — port of ``pyitd_tpu/ops/tridiag.py``.
 
 All work on the last axis and broadcast over leading batch axes, on
 fixed-capacity knot buffers with a per-row ``count``; lanes at or beyond
 ``count`` are inert.
 
+* :func:`reference_spline_moments` — the reference native tier's moment
+  recurrence (not an exact Thomas elimination), for the template tier;
 * :func:`thomas_solve` — exact Thomas elimination, a Python loop over the
   knot axis: the shape for small capacities on the CPU;
 * :func:`pcr_solve` — parallel cyclic reduction: ``log2(cap)`` rounds of
@@ -18,13 +20,18 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["thomas_solve", "pcr_solve", "spline_moments"]
+__all__ = ["reference_spline_moments", "thomas_solve", "pcr_solve",
+           "spline_moments"]
 
 # above this capacity the sequential Thomas loop loses to log-depth PCR on
 # the CPU; on a GPU a loop of cap dependent steps is cap launches, so PCR
 # is preferred at any capacity (JAX prefers it on the TPU for the same
 # reason)
 _PCR_MIN_CAP = 1024
+
+# truncation depth of reference_spline_moments' "banded" method: a 2^6 =
+# 64-knot exact window (see _affine_scan_banded)
+_BANDED_ROUNDS = 6
 
 
 def _prefer_pcr(cap: int, ref: torch.Tensor) -> bool:
@@ -51,6 +58,110 @@ def _shift_r(x, s, fill):
 def _shift_l(x, s, fill):
     """``out[..., i] = x[..., i + s]``, ``fill`` for the last ``s``."""
     return F.pad(x[..., s:], (0, s), value=fill)
+
+
+def _affine_scan_banded(A, B, rounds: int | None, reverse: bool = False):
+    """``c_i = A_i + B_i * c_{i-1}`` (zero initial carry) along the last
+    axis by Hillis-Steele doubling of the affine maps, reversed with
+    ``reverse``: ``rounds`` doubling steps make every contribution within a
+    ``2^rounds``-element window exact; ``None`` runs ``ceil(log2(size))``,
+    the whole scan.  Older terms are weighted by products of ``2^rounds``
+    consecutive ``B`` factors, which for the spline recurrences (|B| about
+    0.5 at uniform spacings) fall below f64 roundoff at 6 rounds."""
+    size = A.shape[-1]
+    shift = _shift_l if reverse else _shift_r
+    c, Bp = A, B
+    s = 0
+    while (1 << s) < size and (rounds is None or s < rounds):
+        sh = 1 << s
+        c = c + Bp * shift(c, sh, 0.0)
+        Bp = Bp * shift(Bp, sh, 0.0)
+        s += 1
+    return c
+
+
+def reference_spline_moments(knots, h, count, method: str = "auto"):
+    """Moment vector ``b`` as the reference native tier computes it.
+
+    ``knots[..., c]``: knot values (slot ``count`` takes part: the
+    reference reads one slot past the valid range); ``h[..., c]``: the
+    spacings ``pos[k+1] - pos[k]``; ``count``: the valid knots, an int or
+    a tensor of the batch shape.  The
+    forward pass runs over ``1 <= i <= count-1``, the backward pass over
+    ``count-2 >= i >= 0``; then ``b[0]`` and ``b[count-1]`` are set to 0.
+
+    ``method``: ``"scan"`` — the sequential recurrence in the reference's
+    order of operations, a Python loop over the knot axis (for small
+    capacities on the CPU); ``"affine"`` — both passes are affine
+    recurrences whose denominators never touch the carry, so they run as
+    log-depth doubling of the affine maps (reassociation roundoff only);
+    ``"banded"`` — the same doubling cut to ``_BANDED_ROUNDS`` rounds (the
+    recurrence's propagator decays exponentially); ``"auto"`` —
+    ``"affine"`` on a CUDA tensor and ``"scan"`` elsewhere (JAX keys the
+    same choice on the TPU backend).
+    """
+    if method == "auto":
+        method = "affine" if knots.is_cuda else "scan"
+    if method not in ("scan", "affine", "banded"):
+        raise ValueError(f"unknown method: {method!r}")
+    idx = torch.arange(knots.shape[-1], device=knots.device)
+    # a Python count stays one: a device scalar built from it would be a
+    # host-to-device copy on every call
+    cnt = count if isinstance(count, int) else _count(count, knots)
+
+    zero = torch.zeros_like(knots[..., :1])
+    h_im1 = torch.cat([torch.zeros_like(h[..., :1]), h[..., :-1]], dim=-1)
+    k_ip1 = torch.cat([knots[..., 1:], zero], dim=-1)
+    k_im1 = torch.cat([zero, knots[..., :-1]], dim=-1)
+
+    u = _safe_div(h_im1, h_im1 + h)
+    v = 1.0 - u
+    rhs = 6.0 * _safe_div(
+        _safe_div(k_ip1 - knots, h) - _safe_div(knots - k_im1, h_im1),
+        h_im1 + h)
+    active = (idx >= 1) & (idx < cnt)
+    u = torch.where(active, u, torch.zeros_like(u))
+    v = torch.where(active, v, torch.zeros_like(v))
+    b0 = torch.where(active, rhs, torch.zeros_like(rhs))
+    # the forward pass: b[i] = (b[i] - u[i] b[i-1]) / (2 - u[i] v[i-1]),
+    # with v un-normalized, as the reference has it
+    v_im1 = torch.cat([torch.zeros_like(v[..., :1]), v[..., :-1]], dim=-1)
+    act_bwd = idx <= cnt - 2
+
+    if method != "scan":
+        rounds = _BANDED_ROUNDS if method == "banded" else None
+        # forward carry: active c' = b0/d + (-u/d) c; inactive c' = c
+        d = 2.0 - u * v_im1
+        A = torch.where(active, _safe_div(b0, d), torch.zeros_like(b0))
+        B = torch.where(active, _safe_div(-u, d), torch.ones_like(u))
+        b_f = torch.where(active, _affine_scan_banded(A, B, rounds), b0)
+        # backward carry (reverse order): active c' = b_f - v c;
+        # inactive c' = b_f
+        B2 = torch.where(act_bwd, -v, torch.zeros_like(v))
+        b = _affine_scan_banded(b_f, B2, rounds, reverse=True)
+    else:
+        shape = torch.broadcast_shapes(knots.shape, active.shape)
+        active = active.expand(shape)
+        act_bwd = act_bwd.expand(shape)
+        carry = torch.zeros_like(b0[..., 0])
+        b_f = []
+        for i in range(knots.shape[-1]):
+            new = _safe_div(b0[..., i] - u[..., i] * carry,
+                            2.0 - u[..., i] * v_im1[..., i])
+            out = torch.where(active[..., i], new, b0[..., i])
+            carry = torch.where(active[..., i], out, carry)
+            b_f.append(out)
+        # walk down from the top; inactive steps pass b[i] on as the
+        # carry, so the first active step (i = count-2) sees b[count-1]
+        carry = torch.zeros_like(carry)
+        b = [None] * len(b_f)
+        for i in range(len(b_f) - 1, -1, -1):
+            carry = torch.where(act_bwd[..., i], b_f[i] - v[..., i] * carry,
+                                b_f[i])
+            b[i] = carry
+        b = torch.stack(b, dim=-1)
+    # natural ends
+    return torch.where((idx == 0) | (idx == cnt - 1), torch.zeros_like(b), b)
 
 
 def thomas_solve(lower, diag, upper, rhs, count=None) -> torch.Tensor:

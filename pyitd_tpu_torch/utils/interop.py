@@ -35,6 +35,6 @@ def as_input(data, dtype: torch.dtype | None, device) -> torch.Tensor:
 
 def result_to_numpy(res):
     """One of the port's result tuples (``SiftResult``, ``MeitdResult``,
-    ``EnsembleResult``) with every field as a numpy array, in the JAX
-    layout."""
+    ``EnsembleResult``, ``EFDResult``) with every field as a numpy array,
+    in the JAX layout."""
     return type(res)(*(t.detach().cpu().numpy() for t in res))

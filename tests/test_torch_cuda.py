@@ -27,6 +27,10 @@ The sift's trips without a summary pass: every mode of the level kernels
 (``sift_level`` emitting interior summaries, ``tile_scan`` completing them)
 bitwise its plain version on ``tools/level_bench.py::edge_cases``, the same
 bits on 20 calls, and 1 / 11 / 11 launches for the 8-iteration sift.
+The FFT family (EFD, modified EFD, the sine sift, the cascade iteration)
+launches no kernel of the repo: on the card it is held against the port
+on the CPU, its template baselines bitwise unchanged under TF32-permitting
+``"high"`` matmul precision, and its moment solves never sequential.
 """
 import numpy as np
 import pytest
@@ -609,3 +613,133 @@ def test_2d_ensemble_on_the_kernels(device):
     assert launches == {k: 4 for k in launches} and len(levels) == 4
     with plain_cubic():
         assert bitwise_equal(got, run())
+
+
+# ---- the FFT family: no kernel of the repo; the card against the CPU ----
+
+def _fft_signal(n, seed=0):
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / n
+    return (np.cos(2 * np.pi * 30 * t) + 0.7 * np.cos(2 * np.pi * 90 * t)
+            + 0.4 * np.cos(2 * np.pi * 200 * t) + 0.05 * rng.normal(size=n))
+
+
+def test_efd_on_the_card_against_the_cpu(device):
+    """EFD and the flipped-domain family of a noisy signal on the card:
+    counts and integer bounds equal to the port on the CPU, bands to 1e-12
+    (f64) and 1e-5 of max|x| (f32); no kernel of the repo launched."""
+    from pyitd_tpu_torch import efd, efd_real, iterative_max
+
+    x = np.stack([_fft_signal(4096, 0), _fft_signal(4096, 1)])
+    cuda_cubic.reset_launches()
+    cuda_fill.reset_launches()
+    for dt, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        xc = torch.from_numpy(x).to(dt)
+        got, want = efd(xc.to(device), 6), efd(xc, 6)
+        assert torch.equal(got.count.cpu(), want.count)
+        torch.testing.assert_close(got.bounds.cpu(), want.bounds, rtol=0,
+                                   atol=1e-6)
+        torch.testing.assert_close(got.bands.cpu(), want.bands, rtol=0,
+                                   atol=tol * float(xc.abs().max()))
+    row = torch.fft.rfft(torch.from_numpy(x[0])).real
+    bands, count, sort = efd_real(row.to(device), 4)
+    wb, wc, ws = efd_real(row, 4)
+    assert int(count) == int(wc) and torch.equal(sort.cpu(), ws)
+    torch.testing.assert_close(bands.cpu(), wb, rtol=0, atol=1e-10)
+    comps = iterative_max(row.to(device), 3, 4)
+    torch.testing.assert_close(comps.cpu(), iterative_max(row, 3, 4),
+                               rtol=0, atol=1e-10)
+    assert not any({**cuda_cubic.LAUNCHES, **cuda_fill.LAUNCHES}.values())
+
+
+def test_sine_sift_and_cascade_on_the_card_against_the_cpu(device):
+    """The sine sift (the template tier's static path) and one cascade
+    iteration in both modes, f64 on the card against the CPU; the moment
+    solves never resolve to the sequential ``"scan"`` on the card."""
+    from chip_smoke import recorded_moments
+    from pyitd_tpu_torch import itd_sine_sift
+    from pyitd_tpu_torch.decomp.itd_fourier import cascade_iteration
+
+    sr, n = 400, 8192
+    x = torch.from_numpy(_fft_signal(n, 2))
+    scale = float(x.abs().max())
+    methods = []
+    with recorded_moments(methods):
+        rot, res = itd_sine_sift(x.to(device), sr)
+        for mode in ("any", "valid"):
+            got = cascade_iteration(x.to(device), sr, mode=mode)
+            want = cascade_iteration(x, sr, mode=mode)
+            assert torch.equal(got[1].cpu(), want[1])
+            for a, b in zip(got[:1] + got[2:], want[:1] + want[2:]):
+                torch.testing.assert_close(
+                    a.cpu(), b, rtol=0,
+                    atol=1e-12 * max(scale, float(b.abs().max())))
+    wr, ws = itd_sine_sift(x, sr)
+    torch.testing.assert_close(rot.cpu(), wr, rtol=0, atol=1e-12 * scale)
+    torch.testing.assert_close(res.cpu(), ws, rtol=0, atol=1e-12 * scale)
+    assert "scan" not in methods and methods.count("banded") == len(methods)
+
+
+def test_template_moments_auto_is_affine_on_the_card(device):
+    """``reference_spline_moments(method="auto")`` resolves to
+    ``"affine"`` on a CUDA tensor, and the dynamic path takes it."""
+    from pyitd_tpu_torch import template_fast_baseline
+    from pyitd_tpu_torch.decomp.itd_fourier import sine_template_positions
+    from pyitd_tpu_torch.ops.tridiag import reference_spline_moments
+
+    rng = np.random.default_rng(3)
+    knots = torch.from_numpy(rng.normal(size=(3, 200))).to(device)
+    h = torch.from_numpy(rng.integers(1, 9, (3, 200)).astype(float)).to(
+        device)
+    count = torch.tensor([200, 150, 2], device=device)
+    assert torch.equal(reference_spline_moments(knots, h, count),
+                       reference_spline_moments(knots, h, count, "affine"))
+    x = torch.from_numpy(_fft_signal(2000, 4))
+    pos, cnt, _ = sine_template_positions(400, 2000, device="cpu")
+    got = template_fast_baseline(x.to(device), pos[0].to(device),
+                                 cnt[0].to(device))
+    want = template_fast_baseline(x, pos[0], cnt[0])
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-10)
+
+
+def test_template_ignores_the_callers_matmul_precision(device):
+    """Under ``"high"`` (TF32 allowed) the template tier's f32 static path
+    gives the bits it gives under ``"highest"`` (no GEMM of it may round
+    to TF32), and the caller's setting is kept."""
+    from pyitd_tpu_torch import template_fast_baseline
+    from pyitd_tpu_torch.decomp.itd_fourier import (_sine_template_np,
+                                                     itd_sine_sift)
+
+    sr, n = 2048, 1 << 16
+    x = torch.from_numpy(_fft_signal(n, 5)).float().to(device)
+    pos, cnt, _ = _sine_template_np(sr, n)
+    want = template_fast_baseline(x, pos[0], int(cnt[0]))
+    want_rot = itd_sine_sift(x, sr)[0]
+    prev = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("high")
+        got = template_fast_baseline(x, pos[0], int(cnt[0]))
+        got_rot = itd_sine_sift(x, sr)[0]
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    assert bitwise_equal(got, want) and bitwise_equal(got_rot, want_rot)
+    f64 = template_fast_baseline(x.double(), pos[0], int(cnt[0]))
+    assert float((got - f64).abs().max()) <= 2e-6 * float(x.abs().max())
+
+
+def test_fft_entry_points_send_numpy_to_the_card(device):
+    from pyitd_tpu_torch import (efd, itd_fourier_decomposition,
+                                 itd_sine_sift, template_fast_baseline)
+    from pyitd_tpu_torch.decomp.itd_fourier import _sine_template_np
+
+    x = _fft_signal(2048, 6)
+    assert efd(x, 4).bands.device.type == "cuda"
+    rot, res = itd_sine_sift(x, 400)
+    assert rot.device.type == res.device.type == "cuda"
+    pos, cnt, _ = _sine_template_np(400, 2048)
+    assert template_fast_baseline(x, pos[0],
+                                  int(cnt[0])).device.type == "cuda"
+    comps = itd_fourier_decomposition(x[:600], 600, max_outer=30)
+    assert isinstance(comps[0], np.ndarray)
+    np.testing.assert_allclose(np.sum(comps, axis=0), x[:600], atol=1e-8)

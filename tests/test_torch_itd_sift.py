@@ -362,7 +362,9 @@ def test_import_loads_no_jax():
             "pyitd_tpu_torch.utils.stats, pyitd_tpu_torch.decomp.meitd, "
             "pyitd_tpu_torch.decomp.meitd_jit, "
             "pyitd_tpu_torch.decomp.ensemble, pyitd_tpu_torch.decomp.itd2d, "
-            "pyitd_tpu_torch.decomp.serial2d; "
+            "pyitd_tpu_torch.decomp.serial2d, pyitd_tpu_torch.decomp.efd, "
+            "pyitd_tpu_torch.decomp.itd_fourier, "
+            "pyitd_tpu_torch.tools.fourier_bench; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'pyitd_tpu' not in sys.modules, 'pyitd_tpu imported'")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
