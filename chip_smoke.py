@@ -133,7 +133,27 @@ Phases (each raises on failure, so any failure exits non-zero):
    under ``"high"`` matmul precision; the f64 cascade at ``CASCADE_N`` on the card
    against the CPU (keep masks per iteration equal, components to 1e-10),
    and at 2^20 driven by hand for ``CASCADE_MAX_OUTER`` iterations,
-   reconstructing x to 1e-8 whether it stops or not.
+   reconstructing x to 1e-8 whether it stops or not;
+12. the rest of ``decomp/`` at full size, with no kernel of the repo
+   launched: ``streaming_itd`` of a 64 x 2^20 f64 audio bank at hop 256
+   (timed, Msamp/s, device busy, idle share, peak memory; the first two
+   hops not ready, every ready hop rebuilt to 1e-10; 4 channels against
+   the CPU), ``STEP_HOPS`` consecutive ``streaming_step`` calls on the
+   64-channel state (per-hop p50 and p99 beside the HOP/SR callback budget,
+   ATen calls per hop, every hop bitwise the replay's),
+   ``sharded_streaming_itd`` on the card bitwise the replay,
+   ``streaming_itd_iq`` of 8 x 2^20 complex128 at hop 1024; ``decompose_
+   signal`` and ``time_causal_stft`` of 64 x 48,000 f64 (the rebuild, the
+   CPU row by row); ``stirft`` of 64 x 2^20 f32 and ``istirft`` of one
+   channel in chained blocks against one call (f32 and f64); ``fabada`` of
+   a 1,024² image against JAX's iteration count and PSNR
+   (``FABADA_JAX``), its CUDA graph bitwise the per-iteration eager loop,
+   and ``pfabada`` of a 2^16 spectrum against the CPU; ``svmd`` of 8,192
+   samples against the CPU (mode count exactly, omega to 1e-10, modes to
+   1e-9), its graph bitwise the per-iteration eager loop on the first two
+   modes; ``accumulator_dft`` and ``hierarchical_dft`` of 4,096 x 512 f32
+   frames against ``torch.fft.fft`` (``AFT_REL``), the
+   hierarchical one bitwise under ``"high"`` matmul precision.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -1938,6 +1958,410 @@ def phase11_fft(dev, card: str) -> None:
           f"clock)", flush=True)
 
 
+# ---- the rest of decomp/: streaming, trend, Lindeberg, STIRFT, FABADA,
+# SVMD, AFT ----
+
+# the streaming bank: 64 channels of 2^20 samples (21.8 s of 48 kHz audio)
+# at the hop of examples/realtime_stream.py:40-41; the IQ bank; the real-time
+# step's run of consecutive hops
+STREAM_SHAPE, STREAM_SR, STREAM_HOP = (64, 1 << 20), 48_000, 256
+IQ_SHAPE, IQ_HOP = (8, 1 << 20), 1024
+STEP_HOPS = 1000
+# trend and Lindeberg at Untitled35's 48k samples (SURVEY.md:278); STIRFT
+TREND_SHAPE = (64, 48_000)
+STIRFT_SHAPE, STIRFT_BLOCKS = (64, 1 << 20), 4
+# FABADA's image and spectrum; JAX's run of the image on the CPU with x64
+# (iterations, PSNR of the input, PSNR of the result, dB), which the card
+# must give to 1e-6 dB
+FABADA_SIDE, PFABADA_N = 1024, 1 << 16
+FABADA_JAX = (347, 24.60190795395912, 44.179894143455876)
+# SVMD at PyITD.ipynb's 8k excerpt (SURVEY.md:222).  With 0.1 noise JAX
+# extracts 23 modes there; at the card's 0.53 ms per step that is 16 s,
+# which the phase's budget does not hold (PERF.md, Findings): the noisy case
+# is a CPU test at n = 512 (tests/test_torch_svmd.py)
+SVMD_N = 8192
+# the AFT's frames: 4,096 frames of 512, held to the FFT within JAX's bar
+# (tests/test_aft.py:56) relative to max|X|
+AFT_SHAPE, AFT_REL = (4096, 512), 5e-4
+
+
+def stream_bank(rows: int, n: int):
+    """``tests/test_streaming_native.py::chirpy`` at n samples, one seed
+    per channel."""
+    t = np.linspace(0, 1, n)
+    base = np.sin(2 * np.pi * 40 * t * (1 + t))
+    return np.stack([base + 0.1 * np.random.default_rng(s).normal(size=n)
+                     for s in range(rows)])
+
+
+def iq_bank(rows: int, n: int):
+    """``tests/test_streaming_native.py::iq_pair`` at its density (25
+    carrier cycles per 1,024 samples), scaled per channel: joint extrema in
+    every window."""
+    t = np.arange(n) / 1024
+    re = np.cos(2 * np.pi * 25 * t) * (1 + 0.3 * np.sin(2 * np.pi * 2 * t))
+    im = 0.7 * re + 0.2 + 0.02 * np.sin(2 * np.pi * 5 * t)
+    return np.stack([(re + 1j * im) * (1 + 0.1 * s) for s in range(rows)])
+
+
+def two_tone(n: int):
+    """``tests/test_svmd.py::two_tone``."""
+    t = np.arange(n) / n
+    return np.cos(2 * np.pi * 11 * t) + 0.6 * np.cos(2 * np.pi * 97 * t)
+
+
+def inner_hops(x, hop: int):
+    """The samples hop t emits, ``x[(t-1)·hop : t·hop]``, hop-major, for
+    t >= 2 (zeros before)."""
+    nh = x.shape[-1] // hop
+    blocks = x[..., :nh * hop].reshape(x.shape[:-1] + (nh, hop))
+    return blocks.movedim(-2, 0)[1:nh - 1]
+
+
+@contextlib.contextmanager
+def final_states(module, out: list):
+    """Every device loop ``module`` runs, its final state appended to
+    ``out``."""
+    real = module.run_until
+
+    def spy(step, state, **kw):
+        final = real(step, state, **kw)
+        out.append(final)
+        return final
+
+    with swapped({"run_until": spy}, module):
+        yield
+
+
+def phase12_streaming(dev, card: str) -> None:
+    """The streaming tier on the 64 x 2^20 bank and the 8 x 2^20 IQ bank;
+    the real-time step; the channel split."""
+    import torch
+    from pyitd_tpu_torch import (streaming_init, streaming_itd,
+                                 streaming_itd_iq, streaming_step)
+    from pyitd_tpu_torch.decomp import streaming as ts
+    from pyitd_tpu_torch.parallel import sharded_streaming_itd
+    from pyitd_tpu_torch.tools.level_bench import aten_ops
+
+    rows, n = STREAM_SHAPE
+    hop = STREAM_HOP
+    xn = stream_bank(rows, n)
+    x = torch.from_numpy(xn).to(dev)
+    rot, base, ready = streaming_itd(x, hop)
+    nh = n // hop
+    if ready[:2].any() or not ready[2:].all() or rot.shape != (nh, rows, hop):
+        raise AssertionError(f"streaming: ready flags or shape wrong "
+                             f"{tuple(rot.shape)}")
+    rebuilt = max_abs_err(rot[2:] + base[2:], inner_hops(x, hop))
+    if not rebuilt <= 1e-10:
+        raise AssertionError(f"streaming: rot + base vs the inner hop "
+                             f"{rebuilt}")
+    ms, _ = timed(f"streaming_itd {rows} x {n} f64, hop {hop} ({nh} hops "
+                  f"of {3 * hop}-sample windows)",
+                  lambda: streaming_itd(x, hop), card, tag="12")
+    peak, above = peak_memory(lambda: streaming_itd(x, hop))
+    per_batch = max(1, ts._CHUNK_BYTES // (rows * 3 * hop * 8))
+    print(f"[12]   {aten_ops(lambda: streaming_itd(x, hop))} ATen calls in "
+          f"{-(-nh // per_batch)} batches of {per_batch} hops (no per-hop "
+          f"host loop)", flush=True)
+    print(f"[12]   {rows * n / ms / 1e3:.1f} Msamp/s, "
+          f"{rows * n / STREAM_SR / (ms / 1e3):.0f} channel-seconds of "
+          f"{STREAM_SR} Hz audio per second; peak {peak:.3f} GB "
+          f"({above:.3f} above the input); rot + base rebuild every ready "
+          f"hop within {rebuilt:.3e}  [{card}]", flush=True)
+    cpu = streaming_itd(xn[:4], hop, device="cpu")
+    b_err = max_abs_err(base[:, :4].cpu(), cpu[1]) / np.abs(xn[:4]).max()
+    if not (torch.equal(ready[:, :4].cpu(), cpu[2]) and b_err <= 1e-10):
+        raise AssertionError(f"streaming: 4 channels against the CPU, "
+                             f"baselines {b_err}")
+    print(f"[12]   4 channels against the CPU: ready flags equal, "
+          f"baselines within {b_err:.3e} of max|x|", flush=True)
+    del cpu
+
+    # the real-time step: consecutive hops on one 64-channel state
+    state = streaming_init(hop, (rows,), device=dev)
+    hops = x[:, :STEP_HOPS * hop].reshape(rows, STEP_HOPS, hop)
+    calls = aten_ops(lambda: streaming_step(state, hops[:, 0], hop))
+    times = []
+    for k in range(STEP_HOPS):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, r, b, rd = streaming_step(state, hops[:, k], hop)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        if not (torch.equal(r, rot[k]) and torch.equal(b, base[k])
+                and torch.equal(rd, ready[k])):
+            raise AssertionError(f"streaming_step hop {k} differs from the "
+                                 f"replay")
+    budget = hop / STREAM_SR * 1e3
+    p50, p99 = np.percentile(times, [50, 99])
+    print(f"[12] streaming_step x {STEP_HOPS} on {rows} channels: per hop "
+          f"p50 {p50:.4f} ms, p99 {p99:.4f} ms, max {max(times):.4f} ms "
+          f"(CUDA events, synchronized per hop) against the {budget:.2f} ms "
+          f"callback budget (HOP/SR); {calls} ATen calls per hop; every hop "
+          f"bitwise the replay's  [{card}]", flush=True)
+
+    split = sharded_streaming_itd([str(dev)], hop)(x)
+    if not all(torch.equal(a, b) for a, b in zip(split, (rot, base, ready))):
+        raise AssertionError("sharded_streaming_itd differs from the replay")
+    print("[12] sharded_streaming_itd(['cuda:0'], 256) bitwise the replay",
+          flush=True)
+    del x, rot, base, ready, split, hops
+
+    rows, n = IQ_SHAPE
+    hop = IQ_HOP
+    z = torch.from_numpy(iq_bank(rows, n)).to(dev)
+    rot, base, ready = streaming_itd_iq(z, hop)
+    rebuilt = max_abs_err(torch.view_as_real(rot[2:] + torch.complex(
+        base[2:], base[2:])), torch.view_as_real(inner_hops(z, hop)))
+    if ready[:2].any() or not ready[2:].all() or not rebuilt <= 1e-10:
+        raise AssertionError(f"streaming IQ: ready flags or rebuild "
+                             f"{rebuilt}")
+    timed(f"streaming_itd_iq {rows} x {n} complex128, hop {hop}",
+          lambda: streaming_itd_iq(z, hop), card, tag="12")
+    print(f"[12]   IQ: rot + (1+1j) base rebuild every ready hop within "
+          f"{rebuilt:.3e}", flush=True)
+
+
+def phase12_transforms(dev, card: str) -> None:
+    """Trend, the time-causal STFT and STIRFT."""
+    import torch
+    from pyitd_tpu_torch import (compute_synthesis_window, decompose_signal,
+                                 istirft, stirft, time_causal_stft)
+
+    rows, n = TREND_SHAPE
+    t = np.linspace(-10, 10, n)
+    xn = np.stack([np.sin(t * (1 + 0.01 * s)) + 0.44 * np.cos(7 * t)
+                   + 0.01 * np.random.default_rng(s).normal(size=n)
+                   for s in range(rows)])
+    x = torch.from_numpy(xn).to(dev)
+    comps, resid = decompose_signal(x)
+    err = max_abs_err(sum(comps) + resid, x)
+    if not err <= 1e-10:
+        raise AssertionError(f"decompose_signal: rebuild {err}")
+    ms, _ = timed(f"decompose_signal {rows} x {n} f64 ({len(comps)} levels)",
+                  lambda: decompose_signal(x), card, tag="12")
+    print(f"[12]   trend: {len(comps)} levels, components + residual "
+          f"rebuild x within {err:.3e}", flush=True)
+
+    s = time_causal_stft(x)
+    want = time_causal_stft(xn, device="cpu")
+    rel = max(max_abs_err(s[i].cpu(), want[i]) / float(want[i].abs().max())
+              for i in range(rows))
+    if not rel <= 1e-10:
+        raise AssertionError(f"time_causal_stft: card vs CPU {rel}")
+    timed(f"time_causal_stft {rows} x {n} f64, defaults "
+          f"({tuple(s.shape[1:])} per row)", lambda: time_causal_stft(x),
+          card, tag="12")
+    print(f"[12]   time_causal_stft against the CPU row by row within "
+          f"{rel:.3e} of each row's max|S|", flush=True)
+    del x, s, want
+
+    rows, n = STIRFT_SHAPE
+    win = compute_synthesis_window(np.hanning(512), 128)
+    x = torch.from_numpy(stream_bank(rows, n)).to(dev)
+    x32, win32 = x.float(), torch.from_numpy(win).float().to(dev)
+    sx = stirft(x32, win32)
+    timed(f"stirft {rows} x {n} f32, n_fft 512, hop 128 "
+          f"({sx.shape[-1]} frames a row)", lambda: stirft(x32, win32),
+          card, tag="12")
+    bars = {}
+    for name, frames, dt in (("f32", sx[0], torch.float32),
+                             ("f64", stirft(x[0], torch.from_numpy(win).to(
+                                 dev)), torch.float64)):
+        syn = torch.from_numpy(np.hanning(512) * 2).to(dev, dt)
+        zero = torch.zeros(384, dtype=dt, device=dev)
+        whole, whole_buf = istirft(frames, zero, syn)
+        buf, outs = zero, []
+        for blk in torch.arange(frames.shape[1], device=dev).tensor_split(
+                STIRFT_BLOCKS):
+            out, buf = istirft(frames[:, blk], buf, syn)
+            outs.append(out)
+        scale = float(x[0].abs().max())
+        bars[name] = max(max_abs_err(torch.cat(outs), whole),
+                         max_abs_err(buf, whole_buf)) / scale
+    if not (bars["f32"] <= 1e-6 and bars["f64"] <= 1e-12):
+        raise AssertionError(f"istirft: chained blocks vs one call {bars}")
+    timed(f"istirft of one channel's {sx.shape[-1]} frames (f32)",
+          lambda: istirft(sx[0], torch.zeros(384, device=dev),
+                          torch.from_numpy(np.hanning(512) * 2).float().to(
+                              dev)), card, tag="12")
+    print(f"[12]   istirft in {STIRFT_BLOCKS} chained blocks against one "
+          f"call, output and buffer, of max|x|: f32 {bars['f32']:.3e}, f64 "
+          f"{bars['f64']:.3e}", flush=True)
+
+
+def phase12_denoise(dev, card: str) -> None:
+    """FABADA of a 1,024² image, PFABADA of a 2^16 spectrum, SVMD at 8k."""
+    import torch
+    from pyitd_tpu_torch import pfabada, psnr, svmd
+    from pyitd_tpu_torch.decomp import fabada as tf
+    from pyitd_tpu_torch.decomp import svmd as tv
+    from pyitd_tpu_torch.tools.level_bench import aten_ops
+    from pyitd_tpu_torch.utils import device_loop as dl
+
+    side = FABADA_SIDE
+    yy, xx = np.mgrid[0:side, 0:side]
+    clean = 127.5 + 100 * np.sin(xx / 37) * np.cos(yy / 53)
+    img = clean + 15 * np.random.default_rng(0).normal(size=clean.shape)
+    x = torch.from_numpy(img).to(dev)
+    cl = torch.from_numpy(clean).to(dev)
+    states = []
+    dl.reset_runs()
+    with final_states(tf, states):
+        rec = tf.fabada(x, 225.0)
+    its, run = int(states[-1]["iteration"]), dl.RUNS[-1]
+    p_in, p_out = float(psnr(x, cl)), float(psnr(rec, cl))
+    if not (its == FABADA_JAX[0] and abs(p_in - FABADA_JAX[1]) <= 1e-6
+            and abs(p_out - FABADA_JAX[2]) <= 1e-6
+            and run["graph"] == x.is_cuda):
+        raise AssertionError(f"fabada: {its} iterations, PSNR {p_in} -> "
+                             f"{p_out}, {run}; JAX {FABADA_JAX}")
+    ms, _ = timed(f"fabada {side} x {side} f64 (graph of {tf._BLOCK} "
+                  f"iterations)", lambda: tf.fabada(x, 225.0), card, tag="12")
+    # the eager loop on the card: one host read per iteration, bitwise
+    dl.GRAPHS = False
+    try:
+        tf._BLOCK, block = 1, tf._BLOCK
+        ops = aten_ops(lambda: tf.fabada(x, 225.0))
+        eager = tf.fabada(x, 225.0)
+        eager_ms = statistics.median(cuda_times(lambda: tf.fabada(x, 225.0),
+                                                reps=1, warmup=0))
+    finally:
+        dl.GRAPHS, tf._BLOCK = True, block
+    if not bitwise_equal(rec, eager):
+        raise AssertionError("fabada: the graph differs from the eager loop")
+    print(f"[12]   fabada: {its} iterations, {run['reads']} host reads "
+          f"({run['steps']} steps), PSNR {p_in:.6f} -> {p_out:.6f} dB (JAX "
+          f"on the CPU: {FABADA_JAX[0]}, {FABADA_JAX[1]:.6f} -> "
+          f"{FABADA_JAX[2]:.6f}); {ms / run['steps']:.4f} ms per step; "
+          f"bitwise the per-iteration eager loop ({eager_ms:.1f} ms, "
+          f"{ops / its:.0f} ATen calls per iteration)  [{card}]",
+          flush=True)
+
+    t = np.linspace(0, 1, PFABADA_N)
+    spec = (80 * np.exp(-((t - 0.3) ** 2) / 0.002)
+            + 50 * np.exp(-((t - 0.6) ** 2) / 0.005)
+            + 10 * np.random.default_rng(2).normal(size=t.size))
+    got = pfabada(torch.from_numpy(spec).to(dev), 10.0)
+    want = pfabada(spec, 10.0, device="cpu")
+    err = max_abs_err(got.cpu(), want) / float(want.abs().max())
+    if not err <= 1e-12:
+        raise AssertionError(f"pfabada: card vs CPU {err}")
+    timed(f"pfabada of {PFABADA_N} points", lambda: pfabada(
+        torch.from_numpy(spec).to(dev), 10.0), card, tag="12")
+    print(f"[12]   pfabada: card vs CPU within {err:.3e} of max|x|, "
+          f"{dl.RUNS[-1]['reads']} host reads", flush=True)
+
+    sig = two_tone(SVMD_N)
+    modes = []
+    dl.reset_runs()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with final_states(tv, modes):
+        u, _, om = svmd(sig, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    runs = list(dl.RUNS)
+    inner = [int(m["inner"]) for m in modes]
+    # device time over the first two modes (a whole run is ~10^5 kernels)
+    dl.reset_runs()
+    dms, _ = device_ms(lambda: svmd(sig, max_modes=2, device=dev), reps=1)
+    two = sum(r["steps"] for r in dl.RUNS) // 2
+    uc, _, omc = svmd(sig, device="cpu")
+    om_err = float(np.abs(om - omc).max()) if om.shape == omc.shape \
+        else float("inf")
+    if not (u.shape == uc.shape and om_err <= 1e-10
+            and np.abs(u - uc).max() <= 1e-9
+            and all(r["graph"] == (dev.type == "cuda") for r in runs)):
+        raise AssertionError(f"svmd: card {u.shape} {om} vs CPU {uc.shape} "
+                             f"{omc}, max {np.abs(u - uc).max()}")
+    steps = sum(r["steps"] for r in runs)
+    per_step = wall * 1e3 / steps
+    print(f"[12] svmd of {SVMD_N} f64 (two tones, defaults): {len(om)} modes, "
+          f"omega {np.array2string(om, precision=5)}; inner steps per mode "
+          f"{inner}, host reads per mode {[r['reads'] for r in runs]}; "
+          f"{wall * 1e3:.1f} ms ({wall * 1e3 / len(om):.1f} per mode, "
+          f"{per_step:.4f} per step, host clock); device busy of the first "
+          f"two modes {dms:.4f} ms in {two} steps; "
+          f"the CPU's mode count, omega within {om_err:.3e}, modes within "
+          f"{np.abs(u - uc).max():.3e}"
+          f"  [{card}]", flush=True)
+    # the blocked graph bitwise the per-iteration eager loop, two modes
+    dl.GRAPHS = False
+    try:
+        tv._BLOCK, block = 1, tv._BLOCK
+        ue, _, ome = svmd(sig, max_modes=2, device=dev)
+    finally:
+        dl.GRAPHS, tv._BLOCK = True, block
+    ug, _, omg = svmd(sig, max_modes=2, device=dev)
+    if not (np.array_equal(ug, ue) and np.array_equal(omg, ome)):
+        raise AssertionError("svmd: the graph differs from the eager loop")
+    print("[12]   svmd's first two modes: the graph bitwise the "
+          "per-iteration eager loop", flush=True)
+
+
+def phase12_aft(dev, card: str) -> None:
+    """The accumulator and hierarchical DFTs of 4,096 x 512 f32 frames."""
+    import torch
+    from pyitd_tpu_torch.decomp.aft import accumulator_dft, hierarchical_dft
+
+    x = torch.from_numpy(np.random.default_rng(5).normal(
+        size=AFT_SHAPE).astype(np.float32)).to(dev)
+    want = torch.fft.fft(x.double())
+    scale = float(want.abs().max())
+    errs = {}
+    for name, fn in (("accumulator_dft", accumulator_dft),
+                     ("hierarchical_dft", hierarchical_dft)):
+        errs[name] = max_abs_err(torch.view_as_real(fn(x).to(want.dtype)),
+                                 torch.view_as_real(want)) / scale
+        timed(f"{name} of {AFT_SHAPE[0]} x {AFT_SHAPE[1]} f32 frames",
+              lambda f=fn: f(x), card, tag="12")
+    if not all(e <= AFT_REL for e in errs.values()):
+        raise AssertionError(f"AFT against the FFT: {errs}")
+    before = torch.get_float32_matmul_precision()
+    ref = hierarchical_dft(x)
+    torch.set_float32_matmul_precision("high")
+    try:
+        high = hierarchical_dft(x)
+    finally:
+        torch.set_float32_matmul_precision(before)
+    if not bitwise_equal(torch.view_as_real(high), torch.view_as_real(ref)):
+        raise AssertionError("hierarchical_dft changes under 'high' matmul "
+                             "precision")
+    print(f"[12]   AFT against torch.fft.fft, of max|X|: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + "; hierarchical_dft bitwise the same under 'high' matmul "
+          "precision", flush=True)
+
+
+def phase12_decomp(dev, card: str) -> None:
+    """The rest of decomp/ at full size; no kernel of the repo runs in it."""
+    from pyitd_tpu_torch.ops import cuda_cubic as cc
+    from pyitd_tpu_torch.ops import cuda_fill as cf
+
+    t_phase = time.perf_counter()
+    cc.reset_launches()
+    cf.reset_launches()
+    took = {}
+    for part in (phase12_streaming, phase12_transforms, phase12_denoise,
+                 phase12_aft):
+        t0 = time.perf_counter()
+        part(dev, card)
+        took[part.__name__] = time.perf_counter() - t0
+    launches = {k: v for k, v in {**cc.LAUNCHES, **cf.LAUNCHES}.items() if v}
+    print(f"[12] launches of the repo's kernels in phase 12: {launches}",
+          flush=True)
+    if launches:
+        raise AssertionError("phase 12 launched a kernel of the repo")
+    print(f"[12] phase 12 took {time.perf_counter() - t_phase:.1f} s (host "
+          f"clock): " + ", ".join(f"{k} {v:.1f} s" for k, v in took.items())
+          + f"  [{card}]", flush=True)
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     """The least time in ms for the work, and what bounds it."""
     t_b, t_f = nbytes / HBM_BPS * 1e3, flops / F32_FLOPS * 1e3
@@ -2614,6 +3038,9 @@ def main() -> int:
 
     # ---- phase 11: the FFT family at full width ----
     phase11_fft(dev, card)
+
+    # ---- phase 12: the rest of decomp/ at full size ----
+    phase12_decomp(dev, card)
 
     print(json.dumps({"kernels": entries}))
     print(card)

@@ -1,7 +1,7 @@
 """Batch-parallel conveniences — port of ``pyitd_tpu/parallel/batch.py``.
 
 The natural parallel axis is the signal bank: rows never interact, so each
-device sifts its own rows with no collective.  Pair with
+device sifts (or streams) its own rows with no collective.  Pair with
 ``parallel.sharded`` when the time axis must also split.
 """
 from __future__ import annotations
@@ -46,9 +46,27 @@ def pjit_itd_sift(devices, max_iteration: int = 11, **kwargs):
     return fn
 
 
-def sharded_streaming_itd(*args, **kwargs):
-    """JAX's block-protocol streaming over a channel bank: not ported, it
-    waits for ``decomp/streaming.py`` (ROADMAP.md, queue 1, item 10)."""
-    raise NotImplementedError(
-        "sharded_streaming_itd needs decomp/streaming.py, which is not "
-        "ported yet (ROADMAP.md, queue 1, item 10)")
+def sharded_streaming_itd(devices, hop: int, *, iq: bool = False):
+    """Block-protocol streaming over a channel bank with the channels split
+    over ``devices`` (what JAX's ``sharded_streaming_itd`` is over a mesh's
+    'data' axis).  Every channel runs the 3-hop protocol on its own, so no
+    collective is needed.
+
+    Returns ``fn(x) -> (rotations, baselines, ready)``: ``x`` is a
+    (channels, n) tensor or the list :func:`shard_bank` made; every device
+    runs ``streaming_itd`` (``streaming_itd_iq`` with ``iq=True``) on its
+    channels, and the hop-major results are joined on the first device."""
+    from ..decomp.streaming import streaming_itd, streaming_itd_iq
+
+    run = streaming_itd_iq if iq else streaming_itd
+    devices = [torch.device(d) for d in devices]
+
+    def fn(x):
+        chunks = shard_bank(x, devices) if isinstance(x, torch.Tensor) \
+            else list(x)
+        outs = [run(c, hop) for c in chunks]
+        to = devices[0]
+        return tuple(torch.cat([o[i].to(to) for o in outs], 1)
+                     for i in range(3))
+
+    return fn

@@ -31,6 +31,11 @@ The FFT family (EFD, modified EFD, the sine sift, the cascade iteration)
 launches no kernel of the repo: on the card it is held against the port
 on the CPU, its template baselines bitwise unchanged under TF32-permitting
 ``"high"`` matmul precision, and its moment solves never sequential.
+The rest of ``decomp/`` launches no kernel of the repo either: streaming
+(scalar and IQ), the transforms, FABADA, SVMD and AFT against the port on
+the CPU; the one-hop step and the channel split bitwise the replay;
+FABADA's and SVMD's device state machines in a CUDA graph bitwise the same
+blocks eager and the per-iteration eager loop.
 """
 import numpy as np
 import pytest
@@ -743,3 +748,170 @@ def test_fft_entry_points_send_numpy_to_the_card(device):
     comps = itd_fourier_decomposition(x[:600], 600, max_outer=30)
     assert isinstance(comps[0], np.ndarray)
     np.testing.assert_allclose(np.sum(comps, axis=0), x[:600], atol=1e-8)
+
+
+# ---- the rest of decomp/: streaming, transforms, FABADA, SVMD, AFT ----
+
+def _no_repo_launch():
+    assert not any({**cuda_cubic.LAUNCHES, **cuda_fill.LAUNCHES}.values())
+
+
+@pytest.mark.parametrize("iq", [False, True], ids=["scalar", "iq"])
+def test_streaming_on_the_card(device, iq):
+    """The replay on the card against the CPU (ready flags equal, 1e-10 of
+    max|x|); the one-hop step bitwise the replay; ``sharded_streaming_itd``
+    on one card bitwise the replay; no kernel of the repo launched."""
+    from chip_smoke import iq_bank, stream_bank
+    from pyitd_tpu_torch import (streaming_init, streaming_itd,
+                                 streaming_itd_iq, streaming_step,
+                                 streaming_step_iq)
+    from pyitd_tpu_torch.parallel import sharded_streaming_itd
+
+    cuda_cubic.reset_launches()
+    cuda_fill.reset_launches()
+    hop = 128
+    x = torch.from_numpy(iq_bank(3, 4096) if iq else stream_bank(3, 4096))
+    run = streaming_itd_iq if iq else streaming_itd
+    got = run(x.to(device), hop)
+    want = run(x, hop)
+    assert torch.equal(got[2].cpu(), want[2])
+    scale = float(x.abs().max())
+    for a, b in zip(got[:2], want[:2]):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-10 * scale)
+    step = streaming_step_iq if iq else streaming_step
+    state = streaming_init(hop, (3,), x.dtype, device=device)
+    for k in range(12):
+        state, rot, base, ready = step(
+            state, x[:, k * hop:(k + 1) * hop].to(device), hop)
+        assert torch.equal(rot, got[0][k]) and torch.equal(base, got[1][k])
+        assert torch.equal(ready, got[2][k])
+    split = sharded_streaming_itd(["cuda:0"], hop, iq=iq)(x.to(device))
+    assert all(torch.equal(a, b) for a, b in zip(split, got))
+    _no_repo_launch()
+
+
+def test_transforms_on_the_card_against_the_cpu(device):
+    """Trend, the time-causal STFT and STIRFT in f64 on the card against
+    the CPU, to 1e-10 of max|x| (of max|S|)."""
+    from pyitd_tpu_torch import (compute_synthesis_window, decompose_signal,
+                                 istirft, stirft, time_causal_stft)
+
+    t = np.linspace(-10, 10, 3000)
+    x = torch.from_numpy(np.stack([np.sin(t) + 0.44 * np.cos(7 * t),
+                                   np.sin(1.3 * t) * (1 + 0.1 * t)]))
+    gc, gr = decompose_signal(x.to(device))
+    wc, wr = decompose_signal(x)
+    assert len(gc) == len(wc)
+    for a, b in zip(gc + [gr], wc + [wr]):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-10)
+    s, ws = time_causal_stft(x.to(device)), time_causal_stft(x)
+    torch.testing.assert_close(s.cpu(), ws, rtol=0,
+                               atol=1e-10 * float(ws.abs().max()))
+    win = torch.from_numpy(compute_synthesis_window(np.hanning(512), 128))
+    sx, wsx = stirft(x.to(device), win.to(device)), stirft(x, win)
+    torch.testing.assert_close(sx.cpu(), wsx, rtol=0, atol=1e-10)
+    syn = torch.from_numpy(np.hanning(512) * 2)
+    buf = torch.linspace(-1, 1, 384, dtype=torch.float64)
+    y, b = istirft(sx[0], buf.to(device), syn.to(device))
+    wy, wb = istirft(wsx[0], buf, syn)
+    torch.testing.assert_close(y.cpu(), wy, rtol=0, atol=1e-10)
+    torch.testing.assert_close(b.cpu(), wb, rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize("fn", ["fabada", "pfabada"])
+def test_fabada_graph_is_bitwise_the_eager_loop(device, fn, monkeypatch):
+    """The blocked state machine in a CUDA graph, the same block eager, and
+    the per-iteration eager loop: the same bits on the card; the card
+    against the CPU to 1e-12 of max|x|."""
+    from pyitd_tpu_torch.decomp import fabada as tf
+    from pyitd_tpu_torch.utils import device_loop as dl
+
+    rng = np.random.default_rng(1)
+    xx, yy = np.meshgrid(np.linspace(-1, 1, 96), np.linspace(-1, 1, 96))
+    img = torch.from_numpy(100 * np.exp(-(xx ** 2 + yy ** 2) / 0.2)
+                           + 8.0 * rng.normal(size=xx.shape))
+    run = getattr(tf, fn)
+    arg = 64.0 if fn == "fabada" else 8.0
+    dl.reset_runs()
+    graph = run(img.to(device), arg)
+    assert dl.RUNS[-1]["graph"]
+    monkeypatch.setattr(dl, "GRAPHS", False)
+    blocked = run(img.to(device), arg)
+    monkeypatch.setattr(tf, "_BLOCK", 1)
+    eager = run(img.to(device), arg)
+    assert not dl.RUNS[-1]["graph"]
+    assert dl.RUNS[-1]["reads"] == dl.RUNS[-1]["steps"]
+    assert bitwise_equal(graph, eager) and bitwise_equal(blocked, eager)
+    cpu = run(img, arg)
+    torch.testing.assert_close(graph.cpu(), cpu, rtol=0,
+                               atol=1e-12 * float(cpu.abs().max()))
+
+
+def test_svmd_graph_is_bitwise_the_eager_loop(device, monkeypatch):
+    """SVMD's flattened ADMM and annealing machine: graph, blocked eager and
+    per-iteration eager give the same bits on the card; the card against
+    the CPU (mode count exactly, omega to 1e-10, modes to 1e-9: the
+    reductions round otherwise on the two devices)."""
+    from chip_smoke import two_tone
+    from pyitd_tpu_torch import svmd
+    from pyitd_tpu_torch.decomp import svmd as tv
+    from pyitd_tpu_torch.utils import device_loop as dl
+
+    x = two_tone(512)
+    dl.reset_runs()
+    graph = svmd(x, max_modes=3, device=device)
+    assert all(r["graph"] for r in dl.RUNS)
+    monkeypatch.setattr(dl, "GRAPHS", False)
+    blocked = svmd(x, max_modes=3, device=device)
+    monkeypatch.setattr(tv, "_BLOCK", 1)
+    eager = svmd(x, max_modes=3, device=device)
+    for a, b, c in zip(graph, blocked, eager):
+        np.testing.assert_array_equal(a, c)
+        np.testing.assert_array_equal(b, c)
+    u, _, om = svmd(x, max_modes=3, device="cpu")
+    assert graph[0].shape == u.shape
+    np.testing.assert_allclose(graph[2], om, rtol=0, atol=1e-10)
+    np.testing.assert_allclose(graph[0], u, rtol=0, atol=1e-9)
+
+
+def test_aft_on_the_card(device):
+    """Both DFTs against the FFT within 5e-4 of max|X|; the hierarchical
+    one the same bits under ``"high"`` matmul precision."""
+    from pyitd_tpu_torch.decomp.aft import accumulator_dft, hierarchical_dft
+
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(64, 512)).astype(np.float32)).to(device)
+    want = torch.fft.fft(x.double())
+    for fn in (accumulator_dft, hierarchical_dft):
+        got = fn(x).to(want.dtype)
+        assert float((got - want).abs().max()) <= 5e-4 * float(
+            want.abs().max())
+    ref = hierarchical_dft(x)
+    prev = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("high")
+        high = hierarchical_dft(x)
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    assert bitwise_equal(torch.view_as_real(high), torch.view_as_real(ref))
+
+
+def test_decomp_entry_points_send_numpy_to_the_card(device):
+    from chip_smoke import stream_bank, two_tone
+    from pyitd_tpu_torch import (auto_sigma, decompose_signal, fabada,
+                                 iq_baseline_extract, stirft, streaming_init,
+                                 streaming_itd, svmd, time_causal_stft)
+    from pyitd_tpu_torch.decomp.aft import hierarchical_dft
+
+    x = stream_bank(2, 2048)
+    assert streaming_itd(x, 128)[0].device.type == "cuda"
+    assert streaming_init(128).window.device.type == "cuda"
+    assert iq_baseline_extract(x[0], x[1])[0].device.type == "cuda"
+    assert decompose_signal(x[0])[1].device.type == "cuda"
+    assert time_causal_stft(x[0]).device.type == "cuda"
+    assert stirft(x[0], np.hanning(512)).device.type == "cuda"
+    assert fabada(x[0], 0.01).device.type == "cuda"
+    assert auto_sigma(x[0]).device.type == "cuda"
+    assert hierarchical_dft(x[:, :64]).device.type == "cuda"
+    u, _, _ = svmd(two_tone(256), max_modes=1)
+    assert isinstance(u, np.ndarray)

@@ -364,7 +364,11 @@ def test_import_loads_no_jax():
             "pyitd_tpu_torch.decomp.ensemble, pyitd_tpu_torch.decomp.itd2d, "
             "pyitd_tpu_torch.decomp.serial2d, pyitd_tpu_torch.decomp.efd, "
             "pyitd_tpu_torch.decomp.itd_fourier, "
-            "pyitd_tpu_torch.tools.fourier_bench; "
+            "pyitd_tpu_torch.tools.fourier_bench, "
+            "pyitd_tpu_torch.decomp.streaming, pyitd_tpu_torch.decomp.trend, "
+            "pyitd_tpu_torch.decomp.lindeberg, pyitd_tpu_torch.decomp.stirft, "
+            "pyitd_tpu_torch.decomp.fabada, pyitd_tpu_torch.decomp.svmd, "
+            "pyitd_tpu_torch.decomp.aft, pyitd_tpu_torch.utils.device_loop; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'pyitd_tpu' not in sys.modules, 'pyitd_tpu imported'")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

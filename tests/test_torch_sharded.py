@@ -222,8 +222,13 @@ def test_backends_and_refusals():
     with pytest.raises(NotImplementedError, match="6.3"):
         _sift_local_kernel(x3, LocalGroup(2), n, 3, "reference",
                            fold_emit=True)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        sharded_streaming_itd(None, 4)
+    # sharded_streaming_itd is ported now (its stub raised here): the
+    # channel split runs and equals the replay it splits
+    from pyitd_tpu_torch import streaming_itd
+
+    split = sharded_streaming_itd(["cpu", "cpu"], 64)(x)
+    assert all(torch.equal(a, b) for a, b in zip(split,
+                                                 streaming_itd(x, 64)))
 
 
 @pytest.mark.parametrize("seq,backend", [(4, "kernel"), (8, "kernel"),
