@@ -153,7 +153,23 @@ Phases (each raises on failure, so any failure exits non-zero):
    1e-9), its graph bitwise the per-iteration eager loop on the first two
    modes; ``accumulator_dft`` and ``hierarchical_dft`` of 4,096 x 512 f32
    frames against ``torch.fft.fft`` (``AFT_REL``), the
-   hierarchical one bitwise under ``"high"`` matmul precision.
+   hierarchical one bitwise under ``"high"`` matmul precision;
+13. the ML trainers of ``pyitd_tpu_torch/ml/`` at full width, with no
+   kernel of the repo launched: ``ParsevalGPT`` at ``GPTConfig()`` (T.py's
+   width: block 256, vocab 256, 2 layers, 64 features, f32) on batches of
+   32 x 256 tokens that ``BatchSampler`` draws from the motif stream of
+   ``examples/train_parallel.py`` (``ML_BATCH``), ``ML_STEPS`` steps of
+   ``torch.optim.Adam(3e-3)`` under ``torch.use_deterministic_algorithms``:
+   every loss finite and the mean of the last 10 below the first; ms per
+   step (CUDA events, after ``ML_WARMUP`` steps), tokens per second,
+   device busy, idle share, ATen calls per step and peak memory; step 0's
+   loss and gradient on the card against the CPU from the same initial
+   weights and batch (``ML_CARD_REL``: f64 and f32); a checkpoint at step
+   ``ML_CKPT_STEP`` with ``save_state``, restored into a fresh model and
+   optimizer, run to the end: parameters and optimizer state bitwise those
+   of the run without the restore.  Then ``examples/train_tiny.py``: the
+   tiny LM, ``TINY_STEPS`` Wolf steps with a seeded card generator beside
+   the unigram, its last loss below the unigram's.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -162,12 +178,17 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
 
 import numpy as np
+
+# cuBLAS is deterministic only with a fixed workspace, set before the first
+# CUDA call (phase 13 runs its trainer under use_deterministic_algorithms)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 SRC = {k: "pyitd_tpu_torch/csrc/sift_level.cu"
        for k in ("level_summaries", "tile_scan", "tile_scan_edges",
@@ -232,6 +253,15 @@ EFD_F32_REL = 1e-6
 # of max|x|: 10 f32 subtractions, each rounding by at most half an ulp of
 # a rotation of up to about twice max|x| (about 1.2e-6 at worst)
 SIFT_F32_REL = 1e-5
+# phase 13: ParsevalGPT at GPTConfig() (T.py:439-447) on batches of
+# ML_BATCH x block_size tokens, Adam steps, the checkpoint's step, the
+# steps before timing; the tiny LM's Wolf steps (examples/train_tiny.py)
+ML_BATCH, ML_STEPS, ML_CKPT_STEP, ML_WARMUP = 32, 60, 30, 3
+TINY_STEPS = 500
+ML_SEED = 0
+ML_CONFIG: dict = {}  # GPTConfig overrides (none: T.py's width)
+# step 0's gradient on the card against the CPU, as a fraction of max|g|
+ML_CARD_REL = {"float64": 1e-9, "float32": 1e-4}
 
 
 def sift_launches(levels: int) -> dict:
@@ -2362,6 +2392,218 @@ def phase12_decomp(dev, card: str) -> None:
           + f"  [{card}]", flush=True)
 
 
+def gpt_step(model, opt, x, y):
+    """One training step; returns the loss, not read back."""
+    opt.zero_grad(set_to_none=True)
+    loss = model(x, y)[1]
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def gpt_model(dev, dtype):
+    """ParsevalGPT at GPTConfig() (with ``ML_CONFIG``'s overrides), its
+    weights drawn on the CPU from ``ML_SEED`` and moved to ``dev``."""
+    import torch
+    from pyitd_tpu_torch.ml import GPTConfig, ParsevalGPT
+
+    model = ParsevalGPT(GPTConfig(**ML_CONFIG), device="cpu", dtype=dtype,
+                        generator=torch.Generator().manual_seed(ML_SEED))
+    return model.to(dev)
+
+
+def gpt_batches(dev, n: int) -> list:
+    """``n`` batches of ``ML_BATCH`` x block_size tokens drawn by
+    ``BatchSampler`` from examples/train_parallel.py's stream (a 17-token
+    motif, 15% substitutions) over the config's vocabulary."""
+    from pyitd_tpu_torch.examples.train_tiny import make_stream
+    from pyitd_tpu_torch.ml import BatchSampler, GPTConfig
+
+    cfg = GPTConfig(**ML_CONFIG)
+    sampler = BatchSampler(make_stream(400_000, vocab=cfg.vocab_size),
+                           cfg.block_size, ML_BATCH, seed=1, device=dev)
+    return [sampler.sample() for _ in range(n)]
+
+
+def card_against_cpu(dev, batch, card: str) -> None:
+    """Step 0's loss and gradient on the card against the CPU, from the
+    same initial weights and batch, in f64 and f32."""
+    import torch
+
+    for dtype in (torch.float64, torch.float32):
+        grads = []
+        for where in (torch.device("cpu"), dev):
+            model = gpt_model(where, dtype)
+            loss = model(batch[0].to(where), batch[1].to(where))[1]
+            loss.backward()
+            grads.append((loss.item(), [p.grad.detach().cpu().double()
+                                        for p in model.parameters()]))
+        (lc, gc), (lg, gg) = grads
+        gmax = max(float(g.abs().max()) for g in gc)
+        gap = max(float((a - b).abs().max()) for a, b in zip(gg, gc)) / gmax
+        name = str(dtype).split(".")[-1]
+        print(f"[13] ParsevalGPT step 0 {name}, card against CPU: loss "
+              f"{lg!r} against {lc!r}; gradient max|diff| {gap:.3e} of "
+              f"max|g| {gmax:.4e} (bar {ML_CARD_REL[name]:g})  [{card}]",
+              flush=True)
+        if not (gap <= ML_CARD_REL[name]
+                and abs(lg - lc) <= ML_CARD_REL[name] * abs(lc)):
+            raise AssertionError(f"ParsevalGPT {name}: card against CPU "
+                                 f"gradient {gap}, loss {lg} / {lc}")
+
+
+def optimizer_leaves(opt) -> list:
+    """The tensors of an optimizer's state, in a fixed order."""
+    import torch
+
+    return [v for st in opt.state_dict()["state"].values()
+            for _, v in sorted(st.items()) if isinstance(v, torch.Tensor)]
+
+
+def phase13_gpt(dev, card: str) -> None:
+    """ParsevalGPT at T.py's width: training, its timing, card against
+    CPU, and the checkpoint resume."""
+    import tempfile
+    import warnings
+
+    import torch
+    from pyitd_tpu_torch.ml import GPTConfig, restore_state, save_state
+    from pyitd_tpu_torch.tools.level_bench import aten_ops
+
+    cfg = GPTConfig(**ML_CONFIG)
+    batches = gpt_batches(dev, ML_STEPS)
+    card_against_cpu(dev, batches[0], card)
+    tokens = ML_BATCH * cfg.block_size
+
+    def fresh():
+        model = gpt_model(dev, torch.float32)
+        return model, torch.optim.Adam(model.parameters(), 3e-3)
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            # the run without interruption, each step timed
+            model, opt = fresh()
+            n_params = sum(p.numel() for p in model.parameters())
+            losses, times = [], []
+            for x, y in batches:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                losses.append(gpt_step(model, opt, x, y))
+                end.record()
+                times.append((start, end))
+            torch.cuda.synchronize()
+            ms = sorted(a.elapsed_time(b) for a, b in times[ML_WARMUP:])
+            losses = torch.stack(losses).tolist()
+            # the same steps with a checkpoint and a restore on the way
+            part, popt = fresh()
+            for x, y in batches[:ML_CKPT_STEP]:
+                gpt_step(part, popt, x, y)
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "ckpt")
+                save_state(path, {"model": part.state_dict(),
+                                  "opt": popt.state_dict(),
+                                  "step": ML_CKPT_STEP})
+                del part, popt
+                resumed, ropt = fresh()
+                out = restore_state(path, {"model": resumed.state_dict(),
+                                           "opt": ropt.state_dict(),
+                                           "step": 0})
+            resumed.load_state_dict(out["model"])
+            ropt.load_state_dict(out["opt"])
+            for x, y in batches[out["step"]:]:
+                gpt_step(resumed, ropt, x, y)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    loose = sorted({str(w.message).split(".")[0] for w in caught
+                    if "deterministic" in str(w.message)})
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"ParsevalGPT losses {losses}")
+    if not np.mean(losses[-10:]) < losses[0]:
+        raise AssertionError(f"ParsevalGPT loss did not fall: {losses}")
+    med = statistics.median(ms)
+    print(f"[13] ParsevalGPT {cfg} f32, {n_params} parameters, batch "
+          f"{ML_BATCH} x {cfg.block_size}: {ML_STEPS} Adam(3e-3) steps, "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of the last 10 "
+          f"{np.mean(losses[-10:]):.4f}); {med:.4f} ms per step (CUDA events "
+          f"after {ML_WARMUP} warm-up steps, median of {len(ms)}, min "
+          f"{ms[0]:.4f}, max {ms[-1]:.4f}), {tokens / med * 1e3:.0f} tokens "
+          f"per second  [{card}]", flush=True)
+    pairs = (list(zip(model.parameters(), resumed.parameters()))
+             + list(zip(optimizer_leaves(opt), optimizer_leaves(ropt))))
+    if loose:
+        pmax = max(float(p.detach().abs().max()) for p, _ in pairs)
+        gap = max(float((a.detach().double() - b.detach().double()).abs()
+                        .max()) for a, b in pairs) / pmax
+        ok, how = gap <= 1e-6, f"within {gap:.3e} of max|p| (bar 1e-6)"
+    else:
+        ok = all(torch.equal(a, b) for a, b in pairs)
+        how = "bitwise"
+    print(f"[13] checkpoint at step {ML_CKPT_STEP} (save_state, "
+          f"restore_state into a fresh model and Adam), run to step "
+          f"{ML_STEPS}: {len(pairs)} parameter and optimizer tensors {how} "
+          f"those of the run without the restore; ops without a "
+          f"deterministic CUDA version: {loose or 'none'}", flush=True)
+    if not ok:
+        raise AssertionError("ParsevalGPT: the resumed run differs")
+
+    x, y = batches[0]
+    step = lambda: gpt_step(model, opt, x, y)  # noqa: E731
+    dms, by_name = device_ms(step)
+    calls = aten_ops(step)
+    peak, above = peak_memory(step)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[13] ParsevalGPT step: device busy {dms:.4f} ms, idle share "
+          f"{1 - dms / med:.3f}; {calls} ATen calls per step "
+          f"({med / calls * 1e3:.1f} us of step time a call); peak memory "
+          f"{peak:.3f} GB ({above:.3f} above what was live)  [{card}]",
+          flush=True)
+    print("[13]   top device kernels (ms per step): " + "; ".join(
+        f"{kernel_label(k)} {v:.4f}" for k, v in top), flush=True)
+
+
+def phase13_ml(dev, card: str) -> None:
+    """The ML trainers at full width; no kernel of the repo runs in it."""
+    import torch
+    from pyitd_tpu_torch.examples import train_tiny
+    from pyitd_tpu_torch.ops import cuda_cubic as cc
+    from pyitd_tpu_torch.ops import cuda_fill as cf
+
+    t_phase = time.perf_counter()
+    cc.reset_launches()
+    cf.reset_launches()
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")  # no TF32
+    try:
+        phase13_gpt(dev, card)
+        t0 = time.perf_counter()
+        out = train_tiny.train(TINY_STEPS, dev, log=lambda line: print(
+            f"[13] tiny LM {line}", flush=True))
+    finally:
+        torch.set_float32_matmul_precision(before)
+    print(f"[13] tiny LM (vocab {train_tiny.VOCAB}, dim {train_tiny.DIM}, "
+          f"block {train_tiny.BLOCK}, batch {train_tiny.BATCH}): "
+          f"{TINY_STEPS} Wolf steps beside the unigram, "
+          f"{out['ms_per_step']:.4f} ms per step (host clock, both models "
+          f"and the dashboard, the loss read every step; "
+          f"{time.perf_counter() - t0:.1f} s); last loss {out['loss']:.4f} "
+          f"against the unigram's {out['unigram_loss']:.4f}  [{card}]",
+          flush=True)
+    if not out["loss"] < out["unigram_loss"]:
+        raise AssertionError("the tiny LM did not beat the unigram")
+    launches = {k: v for k, v in {**cc.LAUNCHES, **cf.LAUNCHES}.items() if v}
+    print(f"[13] launches of the repo's kernels in phase 13: "
+          f"{sum(launches.values())}", flush=True)
+    if launches:
+        raise AssertionError(f"phase 13 launched kernels of the repo: "
+                             f"{launches}")
+    print(f"[13] phase 13 took {time.perf_counter() - t_phase:.1f} s (host "
+          f"clock)  [{card}]", flush=True)
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     """The least time in ms for the work, and what bounds it."""
     t_b, t_f = nbytes / HBM_BPS * 1e3, flops / F32_FLOPS * 1e3
@@ -2373,6 +2615,12 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    try:
+        import pyitd_tpu_torch  # noqa: F401
+    except ModuleNotFoundError as err:
+        print(f"chip_smoke: {err}; run it from the repository's root",
+              file=sys.stderr)
         return 1
     from pyitd_tpu_torch import ITD, itd_sift, linear_baseline_extract
     from pyitd_tpu_torch.examples import train_through_itd as trainer
@@ -3041,6 +3289,9 @@ def main() -> int:
 
     # ---- phase 12: the rest of decomp/ at full size ----
     phase12_decomp(dev, card)
+
+    # ---- phase 13: the ML trainers at full width ----
+    phase13_ml(dev, card)
 
     print(json.dumps({"kernels": entries}))
     print(card)

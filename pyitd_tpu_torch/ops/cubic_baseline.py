@@ -369,10 +369,10 @@ def cubic_baseline_extract(x: torch.Tensor, capacity: int, *,
     eval_backend = _resolve_cubic_backend(eval_backend, x)
     _check_cubic_ceiling(x, eval_backend)
     n = x.shape[-1]
-    if eval_backend == "gather":
-        return _extract_gather(x, capacity, min_extrema)
     if n < 2:
         raise ValueError(f"a signal needs at least 2 samples (got n={n})")
+    if eval_backend == "gather":
+        return _extract_gather(x, capacity, min_extrema)
     if capacity < n:
         # the fills route ignores capacity while the gather route
         # truncates knots beyond it; worst case every sample is a knot

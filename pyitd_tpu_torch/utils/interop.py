@@ -4,7 +4,9 @@ The decompositions have no parameters, so what crosses between the JAX
 package and this one is the input signal, the result layouts
 (``SiftResult``'s ``(levels, *batch, n)``, level axis first;
 ``MeitdResult`` and ``EnsembleResult`` field by field) and the streaming
-tier's carried ``StreamState`` (:func:`stream_state_from_numpy`).
+tier's carried ``StreamState`` (:func:`stream_state_from_numpy`).  The
+models of ``ml/`` carry their weights across with
+:func:`load_flax_params`.
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ import numpy as np
 import torch
 
 __all__ = ["from_numpy", "checked_device", "as_input", "result_to_numpy",
-           "stream_state_from_numpy"]
+           "stream_state_from_numpy", "load_flax_params"]
 
 
 def from_numpy(x, device=None) -> torch.Tensor:
@@ -58,3 +60,88 @@ def stream_state_from_numpy(state, device="cuda"):
     window, filled = state
     return StreamState(window=as_input(window, None, device),
                        filled=as_input(filled, torch.int32, device))
+
+
+def _dense_kernel(kernel: np.ndarray, lin) -> np.ndarray:
+    """A flax ``Dense`` kernel ``(in, out)``, or a ``DenseGeneral`` kernel
+    whose leading axes multiply to ``in`` and trailing axes to ``out``
+    (``(d, heads, d/heads)`` or ``(heads, d/heads, d)``), as the
+    ``Linear``'s ``(out, in)`` weight."""
+    for cut in range(1, kernel.ndim):
+        if (int(np.prod(kernel.shape[:cut])) == lin.in_features
+                and int(np.prod(kernel.shape[cut:])) == lin.out_features):
+            return kernel.reshape(lin.in_features, lin.out_features).T
+    raise ValueError(f"kernel {kernel.shape} does not fit Linear("
+                     f"{lin.in_features}, {lin.out_features})")
+
+
+def _leaf_target(module, name: str, value: np.ndarray):
+    """The torch parameter that flax's leaf ``name`` of ``module`` fills,
+    and the value in its layout."""
+    from torch import nn
+
+    if isinstance(module, nn.Linear):
+        if name == "kernel":
+            return module.weight, _dense_kernel(value, module)
+        if name == "bias" and module.bias is not None:
+            return module.bias, value.reshape(-1)
+    elif isinstance(module, nn.LayerNorm) and name in ("scale", "bias"):
+        target = module.weight if name == "scale" else module.bias
+        if target is not None:
+            return target, value
+    elif isinstance(module, nn.Embedding) and name == "embedding":
+        return module.weight, value
+    elif isinstance(module._parameters.get(name), nn.Parameter):
+        return module._parameters[name], value
+    return None, value
+
+
+def load_flax_params(module, params) -> None:
+    """Copy a flax parameter tree into the torch ``module``, in place.
+
+    ``params`` is the tree as nested dicts of numpy arrays (or anything
+    ``np.asarray`` takes), with or without the outer ``{"params": ...}``.
+    A sub-dict fills the child module of the same name; a ``Dense`` kernel
+    fills a ``Linear``'s weight transposed (a ``DenseGeneral`` kernel is
+    first flattened to ``(in, out)``), ``bias`` its bias; a ``LayerNorm``'s
+    ``scale`` fills ``weight``; an ``Embed``'s ``embedding`` fills
+    ``weight``; any other leaf fills the parameter of its own name.  Raises
+    ``ValueError`` on a shape that differs, a leaf with no counterpart, or
+    a parameter of ``module`` that no leaf filled."""
+    import torch
+
+    if isinstance(params, dict) and set(params) == {"params"}:
+        params = params["params"]
+    filled: set[int] = set()
+
+    def walk(mod, tree, prefix):
+        for key, val in tree.items():
+            where = f"{prefix}{key}"
+            if isinstance(val, dict):
+                child = mod._modules.get(key)
+                if child is None:
+                    raise ValueError(f"flax subtree {where!r} has no child "
+                                     f"module of that name")
+                walk(child, val, where + ".")
+                continue
+            value = np.asarray(val)
+            target, value = _leaf_target(mod, key, value)
+            if target is None:
+                raise ValueError(f"flax leaf {where!r} has no torch "
+                                 f"parameter")
+            if tuple(value.shape) != tuple(target.shape):
+                raise ValueError(f"flax leaf {where!r}: shape "
+                                 f"{tuple(value.shape)} against the torch "
+                                 f"parameter's {tuple(target.shape)}")
+            if id(target) in filled:
+                raise ValueError(f"flax leaf {where!r} fills a parameter "
+                                 f"twice")
+            with torch.no_grad():
+                target.copy_(torch.from_numpy(np.array(value)))
+            filled.add(id(target))
+
+    walk(module, params, "")
+    missing = [n for n, p in module.named_parameters()
+               if id(p) not in filled]
+    if missing:
+        raise ValueError(f"torch parameters no flax leaf filled: {missing}")

@@ -18,7 +18,12 @@
   them) bit for bit against the loop with one (rebuilt here from the same
   wrappers), trip by trip against JAX's fused sift on JAX's own baselines,
   and its wrapper calls per sift: 1 / ``levels + 1`` / ``levels + 1``;
-* ``import pyitd_tpu_torch`` loads no JAX.
+* at n = 1 the port refuses (``ValueError`` from the sift, both baseline
+  tiers and the sharded sift) where JAX returns one zero row with zero
+  correction, which does not rebuild x (ROADMAP queue 3, a difference on
+  purpose);
+* ``import pyitd_tpu_torch`` (the ``ml`` family and the examples
+  included) loads no JAX, flax or optax.
 """
 import os
 import subprocess
@@ -354,6 +359,27 @@ def test_plain_route_is_differentiable_and_kernel_route_refuses_grad():
         itd_sift(s.detach(), 3, backend="bogus")
 
 
+def test_single_sample_refused_where_jax_returns_zeros():
+    from pyitd_tpu_torch import cubic_baseline_extract
+    from pyitd_tpu_torch.parallel import LocalGroup, sharded_itd_sift
+
+    x = np.array([[2.5], [-1.0]])
+    r = jax_sift(jnp.asarray(x), 3)
+    assert np.asarray(r.rotations).shape == (5, 2, 1)
+    assert not np.asarray(r.rotations).any()
+    assert not np.asarray(r.correction).any()
+    np.testing.assert_array_equal(np.asarray(r.num_components), [1, 1])
+    rebuilt = np.asarray(r.rotations).sum(0) + np.asarray(r.correction)
+    assert np.abs(rebuilt - x).max() > 0  # JAX's result does not rebuild x
+    xt = torch.from_numpy(x)
+    for call in (lambda: itd_sift(xt, 3), lambda: itd_sift(xt[0, :1], 3),
+                 lambda: linear_baseline_extract(xt),
+                 lambda: cubic_baseline_extract(xt, 8),
+                 lambda: sharded_itd_sift(xt, LocalGroup(1), 3)):
+        with pytest.raises(ValueError, match="at least 2 samples"):
+            call()
+
+
 def test_import_loads_no_jax():
     code = ("import sys, pyitd_tpu_torch, pyitd_tpu_torch.ops.cuda_fill, "
             "pyitd_tpu_torch.utils.interop, pyitd_tpu_torch.parallel, "
@@ -368,8 +394,19 @@ def test_import_loads_no_jax():
             "pyitd_tpu_torch.decomp.streaming, pyitd_tpu_torch.decomp.trend, "
             "pyitd_tpu_torch.decomp.lindeberg, pyitd_tpu_torch.decomp.stirft, "
             "pyitd_tpu_torch.decomp.fabada, pyitd_tpu_torch.decomp.svmd, "
-            "pyitd_tpu_torch.decomp.aft, pyitd_tpu_torch.utils.device_loop; "
+            "pyitd_tpu_torch.decomp.aft, pyitd_tpu_torch.utils.device_loop, "
+            "pyitd_tpu_torch.ml, pyitd_tpu_torch.ml.activations, "
+            "pyitd_tpu_torch.ml.zoo, pyitd_tpu_torch.ml.layers, "
+            "pyitd_tpu_torch.ml.phase, pyitd_tpu_torch.ml.kalman, "
+            "pyitd_tpu_torch.ml.visualizer, pyitd_tpu_torch.ml.optimizers, "
+            "pyitd_tpu_torch.ml.parseval, pyitd_tpu_torch.ml.newgpt, "
+            "pyitd_tpu_torch.ml.tape, pyitd_tpu_torch.ml.ultramem, "
+            "pyitd_tpu_torch.ml.checkpoint, pyitd_tpu_torch.ml._init, "
+            "pyitd_tpu_torch.examples.train_tiny, "
+            "pyitd_tpu_torch.examples.train_through_itd; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert 'flax' not in sys.modules, 'flax imported'; "
+            "assert 'optax' not in sys.modules, 'optax imported'; "
             "assert 'pyitd_tpu' not in sys.modules, 'pyitd_tpu imported'")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
