@@ -169,7 +169,32 @@ Phases (each raises on failure, so any failure exits non-zero):
    optimizer, run to the end: parameters and optimizer state bitwise those
    of the run without the restore.  Then ``examples/train_tiny.py``: the
    tiny LM, ``TINY_STEPS`` Wolf steps with a seeded card generator beside
-   the unigram, its last loss below the unigram's.
+   the unigram, its last loss below the unigram's;
+14. the last of ``ml/`` and the training parallelism, with no kernel of
+   the repo launched: ``BlockFastLM`` at its full width (``BF_CONFIG``,
+   vocabulary 256) trained ``BF_STEPS`` Adam steps on phase 13's batches,
+   then serving ``SERVE_BATCH`` requests of ``SERVE_PROMPT`` prompt and
+   ``SERVE_NEW`` greedy tokens through ``blockfast_step``: per-token step
+   latency (CUDA events: p50, p99, min, max), tokens per second, ATen calls
+   per step, device busy, idle share, peak memory; the step path's hidden
+   states and logits against the full forward on the same tokens from
+   ``3 * (n_head + 1)`` tokens per layer on (``SERVE_ATOL``), and the first
+   ``SERVE_CPU_TOKENS`` tokens of each request against the CPU.  Then, on a
+   one-rank NCCL ``DeviceMesh`` (data 1, model 1): ParsevalGPT at
+   ``GPTConfig()`` through ``make_train_step`` with ``PARSEVAL_TP_RULES``,
+   in f32 against phase 13's plain loop (bitwise, or ``LOOSE_REL`` of
+   max|p| where an op has no deterministic CUDA version) and with bf16
+   compute (master weights and Adam state f32, the loss falling), ms per
+   step and tokens per second; ``ModCRTMoE`` (``MOE_EXPERTS`` experts,
+   width ``MOE_WIDTH``, capacity dispatch) on ``MOE_TOKENS`` tokens with
+   ``MOE_EP_RULES``: capacity against gather where no expert overflows,
+   step 0's gradient against the CPU's (on the card's routes),
+   ``MOE_STEPS`` Adam steps with a checkpoint at ``MOE_CKPT_STEP`` resumed
+   bitwise; ``gpipe_apply`` at pp = 1 against the sequential fold, output
+   and gradients; and ``BlockFastGPT`` at its defaults on 32 x 256
+   batches: step 0's gradient against the CPU's in f64 (``ML_CARD_REL``;
+   in f32 printed beside the f64 gradient, not held: ill-conditioned),
+   ``VTE_STEPS`` Adam steps, finite and falling.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -2460,9 +2485,10 @@ def optimizer_leaves(opt) -> list:
             for _, v in sorted(st.items()) if isinstance(v, torch.Tensor)]
 
 
-def phase13_gpt(dev, card: str) -> None:
+def phase13_gpt(dev, card: str) -> list:
     """ParsevalGPT at T.py's width: training, its timing, card against
-    CPU, and the checkpoint resume."""
+    CPU, and the checkpoint resume.  Returns the parameters after the run
+    without interruption."""
     import tempfile
     import warnings
 
@@ -2532,6 +2558,7 @@ def phase13_gpt(dev, card: str) -> None:
           f"after {ML_WARMUP} warm-up steps, median of {len(ms)}, min "
           f"{ms[0]:.4f}, max {ms[-1]:.4f}), {tokens / med * 1e3:.0f} tokens "
           f"per second  [{card}]", flush=True)
+    final = [p.detach().clone() for p in model.parameters()]
     pairs = (list(zip(model.parameters(), resumed.parameters()))
              + list(zip(optimizer_leaves(opt), optimizer_leaves(ropt))))
     if loose:
@@ -2563,10 +2590,12 @@ def phase13_gpt(dev, card: str) -> None:
           flush=True)
     print("[13]   top device kernels (ms per step): " + "; ".join(
         f"{kernel_label(k)} {v:.4f}" for k, v in top), flush=True)
+    return final
 
 
-def phase13_ml(dev, card: str) -> None:
-    """The ML trainers at full width; no kernel of the repo runs in it."""
+def phase13_ml(dev, card: str) -> list:
+    """The ML trainers at full width; no kernel of the repo runs in it.
+    Returns ParsevalGPT's parameters after its uninterrupted run."""
     import torch
     from pyitd_tpu_torch.examples import train_tiny
     from pyitd_tpu_torch.ops import cuda_cubic as cc
@@ -2578,7 +2607,7 @@ def phase13_ml(dev, card: str) -> None:
     before = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("highest")  # no TF32
     try:
-        phase13_gpt(dev, card)
+        final = phase13_gpt(dev, card)
         t0 = time.perf_counter()
         out = train_tiny.train(TINY_STEPS, dev, log=lambda line: print(
             f"[13] tiny LM {line}", flush=True))
@@ -2602,6 +2631,564 @@ def phase13_ml(dev, card: str) -> None:
                              f"{launches}")
     print(f"[13] phase 13 took {time.perf_counter() - t_phase:.1f} s (host "
           f"clock)  [{card}]", flush=True)
+    return final
+
+
+# phase 14: BlockFastLM at its full width (blockfast.py:89-96: 64 features,
+# 2 layers, 4 heads; vocabulary 256 as GPTConfig()) trained BF_STEPS Adam
+# steps on phase 13's batches, then serving SERVE_BATCH requests of a
+# SERVE_PROMPT-token prompt and SERVE_NEW greedy tokens; the step path held
+# to the full forward after the warm-up, JAX's 3 * (n_head + 1) per layer
+# (the cold start runs through the stack), and SERVE_CPU_TOKENS tokens of
+# each request against the CPU; then training over a one-rank DeviceMesh:
+# ParsevalGPT at GPTConfig() in f32 and bf16, ModCRTMoE (MOE_EXPERTS
+# experts, width MOE_WIDTH, capacity dispatch) on MOE_TOKENS tokens with a
+# checkpoint at MOE_CKPT_STEP, BlockFastGPT at its defaults (vte.py:418-427)
+# for VTE_STEPS steps, and gpipe_apply at pp = 1 over PIPE_MICRO
+# microbatches
+BF_CONFIG = dict(n_embd=64, n_layer=2, n_head=4)
+BF_STEPS = 60
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_CPU_TOKENS = 32, 256, 256, 8
+SERVE_ATOL = 1e-4  # tests/test_blockfast.py:67
+MOE_EXPERTS, MOE_WIDTH, MOE_TOKENS = 8, 64, (32, 256)
+MOE_STEPS, MOE_CKPT_STEP = 60, 30
+VTE_BATCH, VTE_STEPS = 32, 10
+VTE_CONFIG: dict = {}  # BlockFastGPT overrides (none: its defaults)
+PIPE_MICRO = 8
+# a gap as a fraction of max|value| that counts as equal where no op
+# has a deterministic CUDA version (phase 13's bar)
+LOOSE_REL = 1e-6
+
+
+def events_ms(fn, n: int) -> list:
+    """Each of ``n`` calls of ``fn`` timed by CUDA events, sorted (ms)."""
+    import torch
+
+    marks = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    return sorted(a.elapsed_time(b) for a, b in marks)
+
+
+def full_params(module) -> list:
+    """``module``'s parameters as plain tensors (a DTensor's whole
+    value)."""
+    from torch.distributed.tensor import DTensor
+
+    return [(p.full_tensor() if isinstance(p, DTensor) else p).detach()
+            for p in module.parameters()]
+
+
+def same_or_close(got: list, want: list) -> tuple[bool, str]:
+    """Bitwise, or the largest gap as a fraction of max|want|."""
+    import torch
+
+    if all(bitwise_equal(a, b) for a, b in zip(got, want)):
+        return True, "bitwise"
+    scale = max(float(b.abs().max()) for b in want)
+    gap = max(float((a.double() - b.double()).abs().max())
+              for a, b in zip(got, want)) / scale
+    return gap <= LOOSE_REL, f"within {gap:.3e} of max|p| (bar {LOOSE_REL})"
+
+
+def grads_of(model, loss_fn) -> tuple[list, float]:
+    """Gradients of ``loss_fn(model)`` (their plain values on the CPU in
+    f64) and the loss."""
+    import torch
+
+    for p in model.parameters():
+        p.grad = None
+    loss = loss_fn(model)
+    loss.backward()
+    grads = [(g.full_tensor() if hasattr(g, "full_tensor") else g)
+             .detach().cpu().double()
+             for g in (p.grad for p in model.parameters())]
+    for p in model.parameters():
+        p.grad = None
+    return grads, loss.item()
+
+
+def held_to_cpu(what, card_grads, cpu_grads, rel, card,
+                names=None) -> None:
+    gmax = max(float(g.abs().max()) for g in cpu_grads)
+    gaps = [float((a - b).abs().max()) / gmax
+            for a, b in zip(card_grads, cpu_grads)]
+    gap = max(gaps)
+    worst = "" if names is None else f", largest at {names[gaps.index(gap)]}"
+    print(f"[14] {what} step 0, card against CPU: gradient max|diff| "
+          f"{gap:.3e} of max|g| {gmax:.4e} (bar {rel:g}){worst}  [{card}]",
+          flush=True)
+    if not gap <= rel:
+        raise AssertionError(f"{what}: card against CPU gradient {gap}")
+
+
+def phase14_serve(dev, card: str) -> None:
+    """BlockFastLM trained, then served token by token."""
+    import copy
+
+    import torch
+    from pyitd_tpu_torch.ml import BlockFastLM, GPTConfig
+    from pyitd_tpu_torch.tools.level_bench import aten_ops
+
+    vocab = GPTConfig(**ML_CONFIG).vocab_size
+    model = BlockFastLM(vocab, **BF_CONFIG, device="cpu",
+                        generator=torch.Generator().manual_seed(ML_SEED)
+                        ).to(dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    batches = gpt_batches(dev, BF_STEPS + 1)
+    opt = torch.optim.Adam(model.parameters(), 3e-3)
+    t0 = time.perf_counter()
+    losses = [gpt_step(model, opt, x, y) for x, y in batches[:-1]]
+    losses = torch.stack(losses).tolist()
+    train_s = time.perf_counter() - t0
+    if not (all(np.isfinite(losses))
+            and np.mean(losses[-10:]) < losses[0]):
+        raise AssertionError(f"BlockFastLM loss did not fall: {losses}")
+    print(f"[14] BlockFastLM {BF_CONFIG} vocab {vocab}, {n_params} "
+          f"parameters: {BF_STEPS} Adam(3e-3) steps on {ML_BATCH} x "
+          f"{batches[0][0].shape[1]} batches, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (mean of the last 10 "
+          f"{np.mean(losses[-10:]):.4f}); {train_s * 1e3 / BF_STEPS:.2f} ms "
+          f"per step (host clock)  [{card}]", flush=True)
+
+    b, p, n = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
+    prompts = batches[-1][0][:b, :p]
+    model.eval()
+    with torch.no_grad():
+        states = model.init_state(b)
+        inputs, hidden, logits, marks = [], [], [], []
+        tok = prompts[:, 0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
+        wall = time.perf_counter()
+        for k in range(p + n):
+            inp = prompts[:, k] if k < p else tok
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            states, h, lg = model.step(states, inp)
+            tok = lg.argmax(-1)
+            end.record()
+            marks.append((start, end))
+            inputs.append(inp)
+            hidden.append(h)
+            logits.append(lg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - wall
+        peak = (torch.cuda.max_memory_allocated() - live) / 1e9
+        ms = sorted(a.elapsed_time(c) for a, c in marks)
+        seq = torch.stack(inputs, 1)  # (b, p + n): prompt, then generated
+        generated = seq[:, p:]
+        hidden, logits = torch.stack(hidden, 1), torch.stack(logits, 1)
+
+        def one_step():
+            model.step(states, tok)[2].argmax(-1)
+
+        calls = aten_ops(one_step)
+        dms, _ = device_ms(one_step)
+        # the full forward on the same sequences
+        x = model.wte(seq)
+        for blk in model.blocks():
+            x = blk(x)
+        full_logits = model.lm_head(x)
+    warm = 3 * (BF_CONFIG["n_head"] + 1) * BF_CONFIG["n_layer"]
+    h_gap = float((hidden - x)[:, warm:].abs().max())
+    l_gap = float((logits - full_logits)[:, warm:].abs().max())
+    early = float((logits - full_logits)[:, :warm].abs().max())
+    med = statistics.median(ms)
+    print(f"[14] served {b} requests x ({p} prompt + {n} generated) tokens "
+          f"through blockfast_step: per-token step p50 {med:.4f} ms, p99 "
+          f"{ms[int(0.99 * (len(ms) - 1))]:.4f}, min {ms[0]:.4f}, max "
+          f"{ms[-1]:.4f} (CUDA events, {len(ms)} steps of {b} tokens); "
+          f"{b / med * 1e3:.0f} tokens/s at p50, {b * (p + n) / wall:.0f} "
+          f"tokens/s over the whole run ({wall:.3f} s host clock, argmax "
+          f"included); {calls} ATen calls per step ({med / calls * 1e3:.1f} "
+          f"us of step time a call); device busy {dms:.4f} ms per step, "
+          f"idle share {1 - dms / med:.3f}; peak memory {peak:.4f} GB above "
+          f"what was live  [{card}]", flush=True)
+    print(f"[14] step path against the full BlockFastLM forward on the same "
+          f"{p + n} tokens, from position {warm} (3 * (n_head + 1) per "
+          f"layer): hidden max|diff| {h_gap:.3e}, logits {l_gap:.3e} (bar "
+          f"{SERVE_ATOL:g}); before it {early:.3e} (the cold start)  "
+          f"[{card}]", flush=True)
+    if not (h_gap <= SERVE_ATOL and l_gap <= SERVE_ATOL):
+        raise AssertionError(f"BlockFastLM step against full: {h_gap}, "
+                             f"{l_gap}")
+    # the first tokens of each request against the CPU, teacher-forced
+    cpu = copy.deepcopy(model).cpu()
+    m = SERVE_CPU_TOKENS
+    with torch.no_grad():
+        st = cpu.init_state(b)
+        seq_cpu = seq[:, :p + m].cpu()
+        out = []
+        for k in range(p + m - 1):
+            st, _, lg = cpu.step(st, seq_cpu[:, k])
+            if k >= p - 1:
+                out.append(lg.argmax(-1))
+    cpu_tokens = torch.stack(out, 1)
+    card_tokens = generated[:, :m].cpu()
+    differ = card_tokens != cpu_tokens
+    # a differing token is allowed only at a near tie of the card's logits
+    lg_card = logits[:, p - 1:p - 1 + m].cpu()
+    pick = lg_card.gather(-1, card_tokens[..., None])[..., 0]
+    alt = lg_card.gather(-1, cpu_tokens[..., None])[..., 0]
+    ties = (pick - alt).abs() <= SERVE_ATOL
+    print(f"[14] first {m} generated tokens of each of {b} requests, card "
+          f"against CPU (same weights, teacher-forced): "
+          f"{int(differ.sum())} of {differ.numel()} differ, "
+          f"{int((differ & ~ties).sum())} of them outside a near tie of the "
+          f"logits ({SERVE_ATOL:g})  [{card}]", flush=True)
+    if (differ & ~ties).any():
+        raise AssertionError("BlockFastLM: card and CPU tokens differ")
+
+
+def phase14_gpt(dev, card: str, mesh, gpt_final: list) -> None:
+    """ParsevalGPT at GPTConfig() through make_train_step in f32 (against
+    phase 13's plain loop) and bf16."""
+    import warnings
+
+    import torch
+    from pyitd_tpu_torch.ml import GPTConfig
+    from pyitd_tpu_torch.parallel.train import (PARSEVAL_TP_RULES,
+                                                make_train_step,
+                                                param_groups, shard_batch,
+                                                shard_params)
+    from pyitd_tpu_torch.tools.level_bench import aten_ops
+    from torch.func import functional_call
+
+    cfg = GPTConfig(**ML_CONFIG)
+    batches = gpt_batches(dev, ML_STEPS)
+    tokens = ML_BATCH * cfg.block_size
+    for cd in (None, torch.bfloat16):
+        model = gpt_model(dev, torch.float32)
+        shard_params(model, mesh, PARSEVAL_TP_RULES)
+        opt = torch.optim.Adam(param_groups(model), 3e-3)
+        step = make_train_step(
+            lambda q, b_: functional_call(model, q, b_)[1], opt, mesh,
+            model, compute_dtype=cd)
+        it = iter(batches)
+        torch.use_deterministic_algorithms(cd is None, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                losses = []
+                ms = events_ms(lambda: losses.append(
+                    step(shard_batch(next(it), mesh))), len(batches))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        losses = torch.stack(losses).float().tolist()
+        loose = sorted({str(w.message).split(".")[0] for w in caught
+                        if "deterministic" in str(w.message)})
+        med = statistics.median(ms[:len(ms) - ML_WARMUP])
+        name = "f32" if cd is None else "bf16 compute"
+        params = full_params(model)
+        if not (all(np.isfinite(losses))
+                and np.mean(losses[-10:]) < losses[0]):
+            raise AssertionError(f"make_train_step {name}: {losses}")
+        if cd is None:
+            ok, how = same_or_close(params, gpt_final)
+            verdict = (f"parameters {how} phase 13's plain Adam loop "
+                       f"after {ML_STEPS} steps; ops without a "
+                       f"deterministic CUDA version: {loose or 'none'}")
+        else:
+            ok = all(p.dtype == torch.float32 for p in params) and all(
+                v.dtype == torch.float32 for st in opt.state.values()
+                for v in st.values() if v.is_floating_point())
+            verdict = "master weights and Adam state f32"
+        y = batches[0]
+        calls = aten_ops(lambda: step(shard_batch(y, mesh)))
+        dms, _ = device_ms(lambda: step(shard_batch(y, mesh)))
+        print(f"[14] ParsevalGPT {name} through make_train_step on the "
+              f"(data 1, model 1) {torch.distributed.get_backend()} mesh, "
+              f"PARSEVAL_TP_RULES: loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}; {med:.4f} ms per step "
+              f"(CUDA events, median of all but the slowest "
+              f"{ML_WARMUP}, min {ms[0]:.4f}, max {ms[-1]:.4f}), "
+              f"{tokens / med * 1e3:.0f} tokens/s, {calls} ATen calls per "
+              f"step, device busy {dms:.4f} ms, idle share "
+              f"{1 - dms / med:.3f}; {verdict}  [{card}]", flush=True)
+        if not ok:
+            raise AssertionError(f"make_train_step {name}: {verdict}")
+
+
+def phase14_moe(dev, card: str, mesh) -> None:
+    """ModCRTMoE expert-parallel: capacity against gather, step 0 against
+    the CPU, training with a checkpoint resumed bitwise."""
+    import tempfile
+    import warnings
+
+    import torch
+    from pyitd_tpu_torch.ml import ModCRTMoE, restore_state, save_state
+    from pyitd_tpu_torch.parallel.train import (MOE_EP_RULES,
+                                                make_train_step,
+                                                param_groups, shard_batch,
+                                                shard_params)
+    from pyitd_tpu_torch.tools.level_bench import aten_ops
+    from torch.distributed.checkpoint.state_dict import (
+        get_optimizer_state_dict, set_optimizer_state_dict)
+    from torch.func import functional_call
+
+    rng = np.random.default_rng(ML_SEED + 14)
+    x = torch.from_numpy(rng.normal(size=MOE_TOKENS + (MOE_WIDTH,)).astype(
+        np.float32)).to(dev)
+
+    def build(where, dispatch="capacity"):
+        return ModCRTMoE(MOE_WIDTH, MOE_EXPERTS, dispatch=dispatch,
+                         device="cpu",
+                         generator=torch.Generator().manual_seed(ML_SEED)
+                         ).to(where)
+
+    def loss_of(m, xx=x):
+        return ((m(xx) - 0.5 * xx) ** 2).mean()
+
+    with torch.no_grad():
+        gather, cap = build(dev, "gather"), build(dev)
+        eid = cap.route(x.reshape(-1, MOE_WIDTH))
+        counts = torch.bincount(eid, minlength=MOE_EXPERTS)
+        capacity = int(np.ceil(eid.numel() / MOE_EXPERTS
+                               * cap.capacity_factor))
+        yg, yc = gather(x), cap(x)
+    ok, how = same_or_close([yc], [yg])
+    print(f"[14] ModCRTMoE({MOE_EXPERTS} experts, width {MOE_WIDTH}) on "
+          f"{MOE_TOKENS[0]} x {MOE_TOKENS[1]} tokens: tokens per expert "
+          f"{counts.tolist()} against capacity {capacity}; capacity "
+          f"dispatch {how} the gather dispatch  [{card}]", flush=True)
+    if int(counts.max()) > capacity or not ok:
+        raise AssertionError(f"ModCRTMoE capacity against gather: {how}")
+
+    model = build(dev)
+    shard_params(model, mesh, MOE_EP_RULES)
+    g_card, l_card = grads_of(model, loss_of)
+    cpu = build("cpu")
+    cpu_eid = cpu.route(x.reshape(-1, MOE_WIDTH).cpu())
+    flips = int((cpu_eid != eid.cpu()).sum())
+    cpu.route = lambda xf: eid.cpu()  # the card's routes: hold the experts
+    g_cpu, l_cpu = grads_of(cpu, lambda m: loss_of(m, x.cpu()))
+    print(f"[14] ModCRTMoE routes, CPU against card: {flips} of "
+          f"{eid.numel()} differ (f32 hash); the CPU gradient taken on the "
+          f"card's routes; loss {l_card!r} against {l_cpu!r}", flush=True)
+    held_to_cpu("ModCRTMoE (expert-parallel)", g_card, g_cpu,
+                ML_CARD_REL["float32"], card)
+
+    def trainer():
+        m = build(dev)
+        shard_params(m, mesh, MOE_EP_RULES)
+        o = torch.optim.Adam(param_groups(m), 1e-2)
+        st = make_train_step(
+            lambda q, b_: ((functional_call(m, q, (b_,)) - 0.5 * b_) ** 2)
+            .mean(), o, mesh, m)
+        return m, o, lambda: st(shard_batch(x, mesh))
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            m_a, o_a, step_a = trainer()
+            losses = []
+            ms = events_ms(lambda: losses.append(step_a()), MOE_CKPT_STEP)
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "ckpt")
+                save_state(path, {"model": m_a.state_dict(),
+                                  "opt": get_optimizer_state_dict(m_a, o_a),
+                                  "step": MOE_CKPT_STEP})
+                ms += events_ms(lambda: losses.append(step_a()),
+                                MOE_STEPS - MOE_CKPT_STEP)
+                m_b, o_b, step_b = trainer()
+                back = restore_state(path, {
+                    "model": m_b.state_dict(),
+                    "opt": get_optimizer_state_dict(m_b, o_b), "step": 0})
+            m_b.load_state_dict(back["model"])
+            set_optimizer_state_dict(m_b, o_b, back["opt"])
+            for _ in range(MOE_STEPS - back["step"]):
+                last_b = step_b()
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    loose = sorted({str(w.message).split(".")[0] for w in caught
+                    if "deterministic" in str(w.message)})
+    losses = torch.stack(losses).tolist()
+    ok, how = same_or_close(full_params(m_b), full_params(m_a))
+    ok = ok and last_b.item() == losses[-1]
+    ms = sorted(ms)
+    med = statistics.median(ms)
+    calls = aten_ops(step_a)
+    peak, above = peak_memory(step_a)
+    print(f"[14] ModCRTMoE expert-parallel (MOE_EP_RULES, W1 "
+          f"{m_a.W1.placements}) through make_train_step: {MOE_STEPS} "
+          f"Adam(1e-2) steps, loss {losses[0]:.6f} -> {losses[-1]:.6f}; "
+          f"{med:.4f} ms per step (CUDA events, median of {len(ms)}, min "
+          f"{ms[0]:.4f}, max {ms[-1]:.4f}), {calls} ATen calls per step, "
+          f"peak memory {peak:.3f} GB ({above:.3f} above what was live); "
+          f"checkpoint at step {MOE_CKPT_STEP} restored into a fresh "
+          f"sharded model and Adam, run to step {MOE_STEPS}: {how} the run "
+          f"without the restore, W1 restored as {m_b.W1.placements}; ops "
+          f"without a deterministic CUDA version: {loose or 'none'}  "
+          f"[{card}]", flush=True)
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0] and ok
+            and m_b.W1.placements == m_a.W1.placements):
+        raise AssertionError(f"ModCRTMoE training or resume: {how}")
+
+
+def phase14_vte(dev, card: str) -> None:
+    """BlockFastGPT at its defaults: step 0 against the CPU, then
+    ``VTE_STEPS`` Adam steps.
+
+    Step 0's gradient is held against the CPU's in f64 (``ML_CARD_REL``).
+    In f32 the card's and the CPU's gradients are printed beside their
+    distances from the f64 one, and not held to a bar: the f32 gradient is
+    ill-conditioned (``tools/vte_conditioning.py`` on the CPU: the f32
+    gradient is 3.1e-4 of max|g| from the f64 one, and 2.2e-4 to 6.9e-4
+    once every weight moves by 1e-7 of itself, while the loss moves by 4e-8
+    to 1.2e-7), so two f32 implementations need not agree within the 1e-4
+    that phase 13 holds ParsevalGPT to."""
+    import copy
+
+    import torch
+    from pyitd_tpu_torch.examples.train_tiny import make_stream
+    from pyitd_tpu_torch.ml import BatchSampler, BlockFastGPT, GPTConfig
+    from pyitd_tpu_torch.tools.level_bench import aten_ops
+
+    model = BlockFastGPT(**VTE_CONFIG, device="cpu",
+                         generator=torch.Generator().manual_seed(ML_SEED))
+    vocab = model.lm_head.out_features
+    block = GPTConfig(**ML_CONFIG).block_size  # 256, as phase 13
+    sampler = BatchSampler(make_stream(400_000, vocab=vocab), block,
+                           VTE_BATCH, seed=2, device=dev)
+    batches = [sampler.sample() for _ in range(VTE_STEPS)]
+    x0, y0 = batches[0]
+    grads = {}
+    for dtype in (torch.float64, torch.float32):
+        for where in (dev, torch.device("cpu")):
+            m = copy.deepcopy(model).to(where, dtype)
+            grads[where.type, dtype] = grads_of(
+                m, lambda m_: m_(x0.to(where), y0.to(where))[1])
+    names = [n for n, _ in model.named_parameters()]
+    (g64, l64), (c64, lc64) = grads[dev.type, torch.float64], \
+        grads["cpu", torch.float64]
+    print(f"[14] BlockFastGPT step-0 loss, f64: card {l64!r}, CPU "
+          f"{lc64!r}", flush=True)
+    held_to_cpu("BlockFastGPT f64", g64, c64, ML_CARD_REL["float64"], card,
+                names)
+    gmax = max(float(g.abs().max()) for g in c64)
+
+    def gap(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(a, b)) / gmax
+
+    g32, c32 = grads[dev.type, torch.float32][0], \
+        grads["cpu", torch.float32][0]
+    print(f"[14] BlockFastGPT step-0 gradient in f32, as fractions of "
+          f"max|g| {gmax:.4e}: card against CPU {gap(g32, c32):.3e}; card "
+          f"against the f64 gradient {gap(g32, c64):.3e}, CPU against it "
+          f"{gap(c32, c64):.3e} (printed, not held: ill-conditioned in "
+          f"f32)  [{card}]", flush=True)
+    model = model.to(dev)
+    opt = torch.optim.Adam(model.parameters(), 3e-3)
+    it = iter(batches)
+    losses = []
+    ms = events_ms(lambda: losses.append(gpt_step(model, opt, *next(it))),
+                   VTE_STEPS)
+    losses = torch.stack(losses).tolist()
+    calls = aten_ops(lambda: gpt_step(model, opt, x0, y0))
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[14] BlockFastGPT(vocab {vocab}, n_embd "
+          f"{model.lm_head.in_features}, {model.n_layer} layers, rank "
+          f"{model.block_0.convolve1.rank}; {n_params} parameters) on "
+          f"{VTE_BATCH} x {block} batches: {VTE_STEPS} Adam(3e-3) steps, "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"{statistics.median(ms):.2f} ms per step (CUDA events, median, "
+          f"min {ms[0]:.2f}, max {ms[-1]:.2f}), {calls} ATen calls per "
+          f"step  [{card}]", flush=True)
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"BlockFastGPT losses {losses}")
+
+
+def phase14_pipeline(dev, card: str) -> None:
+    """gpipe_apply at pp = 1 over the one-rank group: output and
+    gradients against the sequential fold."""
+    import torch
+    from pyitd_tpu_torch.ml import BiMLP
+    from pyitd_tpu_torch.parallel.pipeline import (gpipe_apply,
+                                                   stack_stage_params)
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.func import functional_call
+
+    pmesh = init_device_mesh(dev.type, (1,), mesh_dim_names=("pp",))
+    stage = BiMLP(MOE_WIDTH, device="cpu",
+                  generator=torch.Generator().manual_seed(ML_SEED)).to(dev)
+    rng = np.random.default_rng(ML_SEED + 15)
+    x = torch.from_numpy(rng.normal(size=(PIPE_MICRO, ML_BATCH, MOE_WIDTH))
+                         .astype(np.float32)).to(dev)
+    tgt = 0.5 * x
+    params = {n: p.detach() for n, p in stage.named_parameters()}
+    stacked = {n: a.requires_grad_() for n, a in
+               stack_stage_params([params], pmesh).items()}
+    f = gpipe_apply(lambda q, h: functional_call(stage, q, (h,)), pmesh,
+                    PIPE_MICRO)
+    y = f(stacked, x)
+    ((y - tgt) ** 2).mean().backward()
+    want = torch.stack([stage(x[m]) for m in range(PIPE_MICRO)])
+    ((want - tgt) ** 2).mean().backward()
+    ok_y, how_y = same_or_close([y.detach()], [want.detach()])
+    ok_g, how_g = same_or_close(
+        [stacked[n].grad.full_tensor()[0] for n in params],
+        [p.grad for p in stage.parameters()])
+    print(f"[14] gpipe_apply at pp = 1 over the one-rank "
+          f"{torch.distributed.get_backend()} group, "
+          f"{PIPE_MICRO} microbatches of {ML_BATCH} x {MOE_WIDTH}, a BiMLP "
+          f"stage: output {how_y} the sequential fold, gradients {how_g}  "
+          f"[{card}]", flush=True)
+    if not (ok_y and ok_g):
+        raise AssertionError("gpipe_apply against the fold")
+
+
+def phase14_ml(dev, card: str, gpt_final: list) -> None:
+    """BlockFastLM served; the training parallelism on a one-rank mesh; no
+    kernel of the repo runs in it."""
+    import torch
+    from pyitd_tpu_torch.ops import cuda_cubic as cc
+    from pyitd_tpu_torch.ops import cuda_fill as cf
+    from pyitd_tpu_torch.parallel.train import make_tp_mesh, one_rank_group
+
+    t_phase = time.perf_counter()
+    cc.reset_launches()
+    cf.reset_launches()
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")  # no TF32, as phase 13
+    took = {}
+    try:
+        t0 = time.perf_counter()
+        phase14_serve(dev, card)
+        took["serve"] = time.perf_counter() - t0
+        with one_rank_group(dev.type):
+            mesh = make_tp_mesh(device_type=dev.type)
+            for name, part in (("ParsevalGPT", lambda: phase14_gpt(
+                    dev, card, mesh, gpt_final)),
+                    ("ModCRTMoE", lambda: phase14_moe(dev, card, mesh)),
+                    ("pipeline", lambda: phase14_pipeline(dev, card))):
+                t0 = time.perf_counter()
+                part()
+                took[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        phase14_vte(dev, card)
+        took["BlockFastGPT"] = time.perf_counter() - t0
+    finally:
+        torch.set_float32_matmul_precision(before)
+    launches = {k: v for k, v in {**cc.LAUNCHES, **cf.LAUNCHES}.items() if v}
+    print(f"[14] launches of the repo's kernels in phase 14: "
+          f"{sum(launches.values())}", flush=True)
+    if launches:
+        raise AssertionError(f"phase 14 launched kernels of the repo: "
+                             f"{launches}")
+    print(f"[14] phase 14 took {time.perf_counter() - t_phase:.1f} s (host "
+          f"clock): " + ", ".join(f"{k} {v:.1f} s" for k, v in took.items())
+          + f"  [{card}]", flush=True)
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -3291,7 +3878,10 @@ def main() -> int:
     phase12_decomp(dev, card)
 
     # ---- phase 13: the ML trainers at full width ----
-    phase13_ml(dev, card)
+    gpt_final = phase13_ml(dev, card)
+
+    # ---- phase 14: BlockFastLM served; training over a DeviceMesh ----
+    phase14_ml(dev, card, gpt_final)
 
     print(json.dumps({"kernels": entries}))
     print(card)

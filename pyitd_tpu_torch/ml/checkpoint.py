@@ -39,17 +39,31 @@ def _call(fn, *args, **kwargs):
 
 def save_state(path: str | os.PathLike, state: Any) -> None:
     """Write ``state`` to the directory ``path``, replacing any checkpoint
-    there: the new one is written beside it and renamed into place."""
+    there: the new one is written beside it and renamed into place.  With
+    a process group up, every rank calls it (each writes its shards) and
+    rank 0 renames."""
+    dist = torch.distributed
+    group = dist.is_available() and dist.is_initialized()
+    lead = not group or dist.get_rank() == 0
     path = os.path.abspath(os.fspath(path))
-    tmp, old = f"{path}.writing-{os.getpid()}", f"{path}.old-{os.getpid()}"
-    shutil.rmtree(tmp, ignore_errors=True)
+    tag = "" if group else f"-{os.getpid()}"
+    tmp, old = f"{path}.writing{tag}", f"{path}.old{tag}"
+    if lead:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if group:
+        dist.barrier()
     _call(_dcp().save, state, checkpoint_id=tmp)
-    if os.path.exists(path):
-        os.rename(path, old)
-        os.rename(tmp, path)
-        shutil.rmtree(old)
-    else:
-        os.rename(tmp, path)
+    if group:
+        dist.barrier()
+    if lead:
+        if os.path.exists(path):
+            os.rename(path, old)
+            os.rename(tmp, path)
+            shutil.rmtree(old)
+        else:
+            os.rename(tmp, path)
+    if group:
+        dist.barrier()
 
 
 def _is_optimizer_state(container) -> bool:

@@ -15,15 +15,22 @@ serves both groups:
   Forward only.
 
 The ``data`` axis of JAX's mesh needs no collective; here it is the ``rows``
-axis.  Each group counts its calls by kind in ``calls`` (``halo``,
+axis.  For the training tiers (``train``, ``pipeline``, the expert-parallel
+MoE) the module also holds three differentiable collectives over a
+``torch.distributed`` group: :func:`copy_to_group` (identity, the backward
+sums over the group), :func:`reduce_from_group` (a sum, the backward the
+identity: every rank's loss reads the replicated result) and
+:func:`shift_to_next` (the pipeline's hop to the next rank).  Each group counts its calls by kind in ``calls`` (``halo``,
 ``all_gather``, ``all_reduce_sum``, ``all_reduce_min``), as
 ``ops/cuda_fill.py`` counts launches.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
-__all__ = ["LocalGroup", "DistGroup"]
+__all__ = ["LocalGroup", "DistGroup", "copy_to_group", "reduce_from_group",
+           "shift_to_next"]
 
 _KINDS = ("halo", "all_gather", "all_reduce_sum", "all_reduce_min")
 
@@ -147,9 +154,6 @@ class DistGroup(_Group):
                 "DistGroup collectives carry no gradient yet (ROADMAP.md, "
                 "queue 1, item 9); differentiate with a LocalGroup")
 
-    def _peer(self, r: int) -> int:
-        return r if self.pg is None else self._dist.get_global_rank(self.pg, r)
-
     def _shift(self, edge: torch.Tensor, fill, step: int) -> torch.Tensor:
         """Send ``edge`` to rank + step, receive rank - step's."""
         if edge.dtype == torch.bool:  # the backends move numbers
@@ -157,19 +161,8 @@ class DistGroup(_Group):
                                step) != 0
         self._no_grad(edge)
         self.calls["halo"] += 1
-        dist = self._dist
-        got = torch.empty_like(edge)
-        dst, src = self.rank + step, self.rank - step
-        ops = []
-        if 0 <= dst < self.size:
-            ops.append(dist.P2POp(dist.isend, edge.contiguous(),
-                                  self._peer(dst), self.pg))
-        if 0 <= src < self.size:
-            ops.append(dist.P2POp(dist.irecv, got, self._peer(src), self.pg))
-        if ops:
-            for req in dist.batch_isend_irecv(ops):
-                req.wait()
-        if 0 <= src < self.size:
+        got = _hop(edge.contiguous(), self.pg, step)
+        if 0 <= self.rank - step < self.size:
             return got
         fill = torch.as_tensor(fill, dtype=edge.dtype, device=edge.device)
         return fill.expand_as(edge).contiguous()
@@ -200,3 +193,85 @@ class DistGroup(_Group):
 
     def all_reduce_min(self, t: torch.Tensor) -> torch.Tensor:
         return self._reduce(t, "all_reduce_min", self._dist.ReduceOp.MIN)
+
+
+# ---- differentiable collectives over a torch.distributed group ----------
+# (the two Megatron operators, and the pipeline's one-stage hop)
+
+class _CopyToGroup(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over ``group``."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """Sum over ``group`` forward; identity backward (the result is
+    replicated, and every rank's loss reads the same value)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    return _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    return _ReduceFromGroup.apply(x, group)
+
+
+class _ShiftToNext(torch.autograd.Function):
+    """Rank r's tensor to rank r + 1 of ``group``; rank 0 receives zeros.
+    The backward hops the gradient the other way."""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        ctx.group = group
+        return _hop(y.contiguous(), group, +1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _hop(g.contiguous(), ctx.group, -1), None
+
+
+def _hop(t: torch.Tensor, group, step: int) -> torch.Tensor:
+    """``t`` to rank + step of ``group`` (``None``: the world), and rank -
+    step's received; zeros where there is no rank - step."""
+    rank, size = dist.get_rank(group), dist.get_world_size(group)
+
+    def peer(r):
+        return r if group is None else dist.get_global_rank(group, r)
+
+    got = torch.zeros_like(t)
+    dst, src = rank + step, rank - step
+    ops = []
+    if 0 <= dst < size:
+        ops.append(dist.P2POp(dist.isend, t, peer(dst), group))
+    if 0 <= src < size:
+        ops.append(dist.P2POp(dist.irecv, got, peer(src), group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return got
+
+
+def shift_to_next(y: torch.Tensor, group) -> torch.Tensor:
+    """Each rank's ``y`` on the next rank of ``group`` (zeros on rank 0),
+    differentiable."""
+    return _ShiftToNext.apply(y, group)

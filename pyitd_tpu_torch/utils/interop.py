@@ -105,9 +105,14 @@ def load_flax_params(module, params) -> None:
     fills a ``Linear``'s weight transposed (a ``DenseGeneral`` kernel is
     first flattened to ``(in, out)``), ``bias`` its bias; a ``LayerNorm``'s
     ``scale`` fills ``weight``; an ``Embed``'s ``embedding`` fills
-    ``weight``; any other leaf fills the parameter of its own name.  Raises
-    ``ValueError`` on a shape that differs, a leaf with no counterpart, or
-    a parameter of ``module`` that no leaf filled."""
+    ``weight``; any other leaf fills the parameter of its own name (the
+    MoE banks ``W1``/``W2``/``b2``, ``LinearBilinear``'s ``U``/``V``, the
+    tapes' ``U1``..``U3``, a ``Mixer``'s ``dw``).  The port's submodules
+    carry flax's names (``expert_i/Dense_k``, ``enc1``/``dec1``,
+    ``LayerNorm_k``, ``LowRankShift_0``, ``convolve1/out``), so one walk
+    fills every model of ``ml/``.  Raises ``ValueError`` on a shape that
+    differs, a leaf with no counterpart, or a parameter of ``module`` that
+    no leaf filled."""
     import torch
 
     if isinstance(params, dict) and set(params) == {"params"}:

@@ -402,8 +402,16 @@ def test_import_loads_no_jax():
             "pyitd_tpu_torch.ml.parseval, pyitd_tpu_torch.ml.newgpt, "
             "pyitd_tpu_torch.ml.tape, pyitd_tpu_torch.ml.ultramem, "
             "pyitd_tpu_torch.ml.checkpoint, pyitd_tpu_torch.ml._init, "
+            "pyitd_tpu_torch.ml.moe, pyitd_tpu_torch.ml.blockfast, "
+            "pyitd_tpu_torch.ml.vte, pyitd_tpu_torch.parallel.train, "
+            "pyitd_tpu_torch.parallel.pipeline, "
+            "pyitd_tpu_torch.tools.vte_conditioning, "
             "pyitd_tpu_torch.examples.train_tiny, "
-            "pyitd_tpu_torch.examples.train_through_itd; "
+            "pyitd_tpu_torch.examples.train_through_itd, "
+            "pyitd_tpu_torch.examples.quickstart, "
+            "pyitd_tpu_torch.examples.train_parallel, "
+            "pyitd_tpu_torch.examples.multichip, "
+            "pyitd_tpu_torch.examples.realtime_stream; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'flax' not in sys.modules, 'flax imported'; "
             "assert 'optax' not in sys.modules, 'optax imported'; "

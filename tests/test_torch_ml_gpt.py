@@ -438,16 +438,9 @@ def test_checkpoint_resume_bitwise(tmp_path, make):
 
 
 def test_ml_exports():
-    """Every name the JAX package's ``ml`` exports from the ported modules
-    (the MoE, VTE and BlockFast families wait)."""
-    later = {"BiMLP", "LinearBilinear", "ModCRTMoE", "capacity_dispatch",
-             "router_topk", "FastLearnedCellX3", "dynmix",
-             "pairwise_rot_spiral", "spiral_mix", "phase_tap",
-             "phase_transport", "subspace_iteration", "frft_time",
-             "ManifoldStage", "AutoencoderBlock", "BlockFastGPT",
-             "circular_student_t", "MOEMLP", "BlockFastBlock", "BlockFastLM",
-             "blockfast_init_state", "blockfast_step"}
-    want = set(jml.__all__) - later
+    """Every name the JAX package's ``ml`` exports, the MoE, VTE and
+    BlockFast families included."""
+    want = set(jml.__all__)
     assert want <= set(tml.__all__)
     for name in want:
         assert getattr(tml, name).__name__ == getattr(jml, name).__name__
