@@ -3,14 +3,20 @@
 //
 // Replaces: pyitd_tpu/ops/pallas_fill.py::fill2_padded (K3, via
 // fill2_pallas; kernel body _make_fill2_kernel), fillv_pallas
-// (_make_fillv_kernel), here K3's depth-1 mode, and segsum_pallas (K4,
-// _make_segsum_kernel).
+// (_make_fillv_kernel), here K3's depth-1 mode, segsum_pallas (K4,
+// _make_segsum_kernel), and linear_fill2_pallas (K2a, _linear_fill2_padded;
+// kernel body _make_linear_fill2_kernel), here K3 with the ITD knot mask
+// computed in the kernel.
 //
 // What they compute, per row, over a scan order that runs forward (t = 0,
 // 1, ...) or in reverse (t = n-1, n-2, ...):
 //   fill2   (pos, value) of the last two marked samples at or before t in
 //           scan order (with `strict`, strictly before); 0 where none.
 //           Positions are int32 sample indices derived in the kernel.
+//   linear_fill2  fill2 of the signal itself under its ITD knot mask
+//           (knot.cuh::knot_at: canonical extrema, both endpoints, the NaN
+//           quarantine), inclusive: the standalone first fill round of the
+//           cubic tier's unfused and compact routes.
 //   fillv   the value of the last marked sample at or before t; 0 if none.
 //   segsum  out[t] = v[t] + (flag[t] ? 0 : out[t-1]), one or two channels
 //           sharing the flag (t-1 meaning the previous sample in scan
@@ -20,7 +26,8 @@
 // What bounds them: bytes.  A scan does no arithmetic to speak of (selects;
 // one f32 add per sample and channel for segsum), so the least time is the
 // inputs read once and the outputs written once: at 8 x 1M, fill2 moves
-// 21 B/sample (value, mask, four outputs), fillv 9, segsum 9 or 17.
+// 21 B/sample (value, mask, four outputs), linear_fill2 20 (the signal,
+// four outputs), fillv 9, segsum 9 or 17.
 //
 // What the design does about it: one launch per call that moves exactly
 // those bytes, a single-pass scan with decoupled look-back over the tiles
@@ -47,6 +54,9 @@
 //      writes each output channel with 128-bit stores.
 // Every input is read once and every output written once, so loads and
 // stores carry the streaming hint (ld.cs / st.cs).
+// linear_fill2 reads no flags: each chunk's knot bits come from its own
+// four samples and their two neighbours, the neighbouring lanes' chunks by
+// shuffle and, at the warp's two ends in memory order, one scalar load.
 // Only aggregates are published and folded, never a running prefix, so a
 // tile waits for loads of earlier tiles and never for their look-backs, and
 // the association of every sum is fixed by the data alone: the same inputs
@@ -84,6 +94,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
+
+#include "knot.cuh"
 
 namespace {
 
@@ -358,6 +370,38 @@ __device__ __forceinline__ unsigned load_flags(const uint8_t* __restrict__ rowp,
   return REV ? __brev(bits) >> 28 : bits;
 }
 
+// bit q of the result: whether the chunk's q-th sample in scan order is a
+// knot of the row (rowp, n), from the chunk's values `v` (in scan order).
+// The neighbours in memory order are the next lane's chunk (a reverse scan:
+// the previous lane's); the warp's first and last chunk in memory order
+// read theirs.  Positions outside the row are never knots.  Every lane of
+// the warp calls this.
+template <bool REV>
+__device__ __forceinline__ unsigned knot_bits(const float* __restrict__ rowp,
+                                              int p, int n,
+                                              const float (&v)[4]) {
+  const int lane = threadIdx.x & 31;
+  float m[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) m[q] = v[REV ? 3 - q : q];
+  float left = REV ? __shfl_down_sync(FULL, m[3], 1)
+                   : __shfl_up_sync(FULL, m[3], 1);
+  float right = REV ? __shfl_up_sync(FULL, m[0], 1)
+                    : __shfl_down_sync(FULL, m[0], 1);
+  if (lane == (REV ? 31 : 0))
+    left = (p - 1 >= 0 && p - 1 < n) ? rowp[p - 1] : 0.f;
+  if (lane == (REV ? 0 : 31))
+    right = (p + 4 >= 0 && p + 4 < n) ? rowp[p + 4] : 0.f;
+  unsigned bits = 0u;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float xm1 = q == 0 ? left : m[q - 1];
+    const float xp1 = q == 3 ? right : m[q + 1];
+    if (p + q >= 0 && knot_at(xm1, m[q], xp1, p + q, n)) bits |= 1u << q;
+  }
+  return REV ? __brev(bits) >> 28 : bits;
+}
+
 // four outputs of one channel, `o` in scan order, to positions p .. p + 3
 template <bool REV>
 __device__ __forceinline__ void store4(unsigned* __restrict__ rowp, int p,
@@ -375,7 +419,8 @@ __device__ __forceinline__ void store4(unsigned* __restrict__ rowp, int p,
 }
 
 // ------------------------------------------------------------- the kernel
-template <class Op, bool REV, bool STRICT>
+// KNOTS: the flags are the knot mask of in0 (linear_fill2), `fl` unused
+template <class Op, bool REV, bool STRICT, bool KNOTS>
 __global__ void __launch_bounds__(NT, Op::WARPS / NWARP) scan_lookback(
     const float* __restrict__ in0, const float* __restrict__ in1,
     const uint8_t* __restrict__ fl, int n, int ntiles, unsigned nblocks,
@@ -416,7 +461,8 @@ __global__ void __launch_bounds__(NT, Op::WARPS / NWARP) scan_lookback(
     const bool whole = p >= 0 && p <= n - 4;
     load_values<REV>(in0 + ro, p, n, whole, v[0][c]);
     if (Op::NV > 1) load_values<REV>(in1 + ro, p, n, whole, v[Op::NV - 1][c]);
-    bits[c] = load_flags<REV>(fl + ro, p, n, whole);
+    bits[c] = KNOTS ? knot_bits<REV>(in0 + ro, p, n, v[0][c])
+                    : load_flags<REV>(fl + ro, p, n, whole);
   }
 
   auto element = [&](int c, int q) {
@@ -495,7 +541,7 @@ int tiles_per_row(const void* in0, int n) {
   return (int)(((long long)n + (aligned ? 0 : 3) + TILE - 1) / TILE);
 }
 
-template <class Op, bool REV, bool STRICT>
+template <class Op, bool REV, bool STRICT, bool KNOTS = false>
 int run_scan(const float* in0, const float* in1, const uint8_t* fl, int rows,
              int n, void* scratch, void* o0, void* o1, void* o2, void* o3,
              cudaStream_t s) {
@@ -506,7 +552,7 @@ int run_scan(const float* in0, const float* in1, const uint8_t* fl, int rows,
   Header* hdr = static_cast<Header*>(scratch);
   Desc* desc = reinterpret_cast<Desc*>(static_cast<char*>(scratch)
                                        + HEADER_BYTES);
-  scan_lookback<Op, REV, STRICT><<<(unsigned)blocks, NT, 0, s>>>(
+  scan_lookback<Op, REV, STRICT, KNOTS><<<(unsigned)blocks, NT, 0, s>>>(
       in0, in1, fl, n, ntiles, (unsigned)blocks, hdr, desc,
       static_cast<unsigned*>(o0), static_cast<unsigned*>(o1),
       static_cast<unsigned*>(o2), static_cast<unsigned*>(o3));
@@ -544,6 +590,18 @@ int pyitd_fill2(const float* v, const uint8_t* mask, int rows, int n,
   if (strict) PYITD_FILL2(false, true);
   PYITD_FILL2(false, false);
 #undef PYITD_FILL2
+}
+
+// K2a: fill2 of x under its knot mask, inclusive
+int pyitd_linear_fill2(const float* x, int rows, int n, int reverse, int* p1,
+                       float* v1, int* p2, float* v2, void* scratch,
+                       void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (reverse)
+    return run_scan<Fill2, true, false, true>(x, nullptr, nullptr, rows, n,
+                                              scratch, p1, v1, p2, v2, s);
+  return run_scan<Fill2, false, false, true>(x, nullptr, nullptr, rows, n,
+                                             scratch, p1, v1, p2, v2, s);
 }
 
 int pyitd_fillv(const float* v, const uint8_t* mask, int rows, int n,

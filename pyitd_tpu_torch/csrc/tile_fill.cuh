@@ -46,6 +46,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "knot.cuh"
+
 namespace {
 
 constexpr int TILE = 4096;            // samples per block
@@ -120,31 +122,6 @@ __device__ __forceinline__ Fwd shfl_up(const Fwd& s, int o) {
 __device__ __forceinline__ Rev shfl_down(const Rev& s, int o) {
   return {__shfl_down_sync(FULL, s.q1, o), __shfl_down_sync(FULL, s.w1, o),
           __shfl_down_sync(FULL, s.q2, o), __shfl_down_sync(FULL, s.w2, o)};
-}
-
-// ITD knot mask at sample t (pallas_fill.py::_knot_mask_flat): canonical
-// extrema with the plateau-rightmost rule, NaN differences as +inf, no
-// extremum within one sample of a NaN, both endpoints always, padding never.
-// t is the sample's index in its row of n samples, g its position in the
-// signal of ng samples (pallas_fill_sharded.py::_knot_state_sharded): a
-// sample past either end is padding.
-__device__ __forceinline__ bool knot_at(float xm1, float x0, float xp1, int t,
-                                        int n, int g, int ng) {
-  if (t >= n || g >= ng) return false;
-  if (g == 0 || g == ng - 1) return true;
-  float dxb = x0 - xm1;
-  float dxf = xp1 - x0;
-  if (isnan(dxb)) dxb = INFINITY;
-  if (isnan(dxf)) dxf = INFINITY;
-  const bool near_nan = isnan(x0) || isnan(xm1) || isnan(xp1);
-  const bool is_min = (dxb <= 0.f) && (dxf > 0.f);
-  const bool is_max = (dxb >= 0.f) && (dxf < 0.f);
-  return (is_min || is_max) && !near_nan;
-}
-
-__device__ __forceinline__ bool knot_at(float xm1, float x0, float xp1, int t,
-                                        int n) {
-  return knot_at(xm1, x0, xp1, t, n, t, n);
 }
 
 // Frei-Osorio knot value (linear_baseline.py::knot_value), alpha = 0.5

@@ -6,11 +6,11 @@ script: port of ``examples/realtime_stream.py``.
    percentiles against the callback budget HOP/SR (on the card each hop
    is synchronized before its clock stops);
 2. the offline channel-bank replay (``streaming_itd``) of the same
-   signal on a bank of channels, every ready hop equal to the step's.
-
-The JAX example also drives the native C++ tier (``pyitd_tpu.runtime``:
-``StreamingITD``, extrema reuse, ``NativePool``).  That tier is not
-ported, and this example leaves it out.
+   signal on a bank of channels, every ready hop equal to the step's;
+3. the native C++ tier on the host (``pyitd_tpu_torch.runtime``):
+   ``StreamingITD`` hop by hop with its latency percentiles, channel 0's
+   extrema reused on a second channel, and a ``NativePool`` batch with
+   the pool's tasks-per-second harness.
 
     python -m pyitd_tpu_torch.examples.realtime_stream [--device cpu]
 """
@@ -22,7 +22,7 @@ import time
 import numpy as np
 import torch
 
-from .. import streaming_init, streaming_itd, streaming_step
+from .. import runtime, streaming_init, streaming_itd, streaming_step
 
 SR = 48_000          # simulated sample rate (audio block processing)
 HOP = 256            # samples per callback (5.3 ms at 48 kHz)
@@ -60,6 +60,53 @@ def stream(x, device, n_hops=N_HOPS):
     return np.sort(lat), err, out
 
 
+def native_stream(x, n_hops=N_HOPS):
+    """Hop-by-hop native streaming of the 1-D ``x``: sorted per-hop
+    latencies (ms), hops emitted, and the emitted hops' reconstruction
+    error."""
+    s = runtime.StreamingITD(HOP)
+    lat, err, emitted = [], 0.0, 0
+    try:
+        for k in range(n_hops):
+            hop = x[k * HOP:(k + 1) * HOP]
+            t0 = time.perf_counter()
+            out = s.push(hop)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            if out is not None:
+                rot, base = out
+                err = max(err, float(np.abs(rot + base - x[(k - 1) * HOP:
+                                                           k * HOP]).max()))
+                emitted += 1
+    finally:
+        s.close()
+    return np.sort(lat), emitted, err
+
+
+def extrema_reuse(x):
+    """Channel 0's knots reused on a second channel with co-located
+    extrema: ``(knots, channel 1's reconstruction error)``."""
+    ch0 = x[:4096]
+    ch1 = 0.8 * ch0 + 0.05
+    _, _, state = runtime.baseline_extract(ch0)
+    rot1, base1, _ = runtime.baseline_extract(ch1, extrema_state=state)
+    return int(state[1][0]), float(np.abs(rot1 + base1 - ch1).max())
+
+
+def pool_batch(x, rows=8, n=2048):
+    """A (rows, n) batch across the thread pool: ``(ms, reconstruction
+    error, tasks per second of the harness)``."""
+    pool = runtime.NativePool()
+    try:
+        signals = np.stack([x[i * n:(i + 1) * n] for i in range(rows)])
+        t0 = time.perf_counter()
+        rots, bases = pool.extract_batch(signals)
+        ms = (time.perf_counter() - t0) * 1e3
+        worst = float(np.abs(rots + bases - signals).max())
+        return ms, worst, pool.bench(ntasks=20_000, task_us=5)
+    finally:
+        pool.close()
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
@@ -82,10 +129,26 @@ def main(argv=None) -> dict:
     print(f"channel bank ({args.channels} x {x.shape[1]}): "
           f"{int(ready[:, 0].sum())} ready hops per channel, recon err "
           f"{bank_err:.3e}; channel 0 bitwise the step's hops: {same}")
-    print("native C++ tier (pyitd_tpu.runtime) not ported: left out")
-    if not (err < 1e-10 and bank_err < 1e-10 and same):
+    if not runtime.native_available():
+        raise RuntimeError(f"native tier unavailable: {runtime._build_error}")
+    nlat, emitted, nerr = native_stream(x[0], args.hops)
+    print(f"native stream: {emitted}/{args.hops} hops emitted, recon err "
+          f"{nerr:.3e}, latency p50 {nlat[len(nlat) // 2]:.3f} / p99 "
+          f"{nlat[int(len(nlat) * 0.99)]:.3f} ms (host clock; callback "
+          f"budget {budget:.1f} ms)")
+    # a run shorter than the demos' windows repeats the signal to fill them
+    knots, reuse_err = extrema_reuse(np.resize(x[0], 4096))
+    print(f"extrema reuse: {knots} knots shared across channels, ch1 recon "
+          f"err {reuse_err:.3e}")
+    pool_ms, pool_err, rate = pool_batch(np.resize(x[0], 8 * 2048))
+    print(f"native pool: 8x2048 batch in {pool_ms:.2f} ms (recon err "
+          f"{pool_err:.3e}); bench {rate:,.0f} tasks/sec")
+    if not (err < 1e-10 and bank_err < 1e-10 and same and nerr < 1e-10
+            and reuse_err < 1e-10 and pool_err < 1e-10):
         raise AssertionError("streaming reconstruction failed")
-    return {"latency_ms": lat, "err": err, "bank_err": bank_err}
+    return {"latency_ms": lat, "err": err, "bank_err": bank_err,
+            "native_latency_ms": nlat, "native_err": nerr,
+            "reuse_err": reuse_err, "pool_err": pool_err}
 
 
 if __name__ == "__main__":

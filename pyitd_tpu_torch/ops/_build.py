@@ -12,6 +12,12 @@ multiply and a rounded add, as PyTorch's eager elementwise kernels compute
 it, which makes the kernels bit-comparable with their plain versions on the
 card.  No fast-math: the two-sum residuals and the NaN tests depend on
 IEEE arithmetic.
+
+The native real-time tier (``native/itd_native.cpp``, bound by
+``runtime.py``) is host code: :func:`load_host_library` builds it with the
+host C++ compiler (``$CXX``, else ``g++`` or ``c++``) and the flags of the
+JAX package's ``pyitd_tpu/native/Makefile`` (:data:`HOST_FLAGS`), into the
+same directory, under a name that hashes its source and flags.
 """
 from __future__ import annotations
 
@@ -25,7 +31,8 @@ import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build", "load_library"]
+__all__ = ["NVCC_FLAGS", "HOST_FLAGS", "build", "load_library",
+           "build_host", "load_host_library"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -57,6 +64,7 @@ _SIGNATURES = {
     "pyitd_scan_header_bytes": (),
     "pyitd_scan_desc_bytes": (),
     "pyitd_fill2": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
+    "pyitd_linear_fill2": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P),
     "pyitd_fillv": (_P, _P, _I, _I, _I, _P, _P, _P),
     "pyitd_segsum": (_I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     "pyitd_cubic_ksite": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P),
@@ -69,6 +77,10 @@ _SIGNATURES = {
                                  _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _P),
 }
+
+# the native tier: the Makefile's CXXFLAGS, then -shared and -lpthread
+HOST_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall")
+NATIVE_SRC = _PKG / "native" / "itd_native.cpp"
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -101,8 +113,9 @@ def library_path() -> Path:
 def _run(cmd: list[str]) -> subprocess.CompletedProcess:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stderr}")
+        raise RuntimeError(f"{os.path.basename(cmd[0])} failed (exit "
+                           f"{proc.returncode}): {' '.join(cmd)}\n"
+                           f"{proc.stderr}")
     return proc
 
 
@@ -141,3 +154,43 @@ def load_library() -> ctypes.CDLL:
                 else ctypes.c_int
         _loaded["lib"] = lib
     return _loaded["lib"]
+
+
+def _cxx() -> str:
+    for name in (os.environ.get("CXX"), "g++", "c++"):
+        found = name and shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler: set CXX or put g++ on PATH")
+
+
+def host_library_path() -> Path:
+    h = hashlib.sha256()
+    for f in HOST_FLAGS:
+        h.update(f.encode() + b"\0")
+    h.update(NATIVE_SRC.read_bytes())
+    return BUILD_DIR / f"libpyitd_native_{h.hexdigest()[:16]}.so"
+
+
+def build_host() -> Path:
+    """Compile the native tier if no library for this source and these
+    flags exists; returns its path.  Raises with the compiler's stderr on
+    failure."""
+    so = host_library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        lib = os.path.join(tmp, so.name)
+        _run([_cxx(), *HOST_FLAGS, "-shared", "-o", lib, str(NATIVE_SRC),
+              "-lpthread"])
+        os.replace(lib, so)
+    return so
+
+
+def load_host_library() -> ctypes.CDLL:
+    """The native tier's shared library, built and loaded once per process
+    (its bindings are ``runtime.py``'s)."""
+    if "host" not in _loaded:
+        _loaded["host"] = ctypes.CDLL(str(build_host()))
+    return _loaded["host"]

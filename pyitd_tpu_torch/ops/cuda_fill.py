@@ -1,9 +1,9 @@
 """The hand-written CUDA kernels of the sift and its backward — port of
 ``pyitd_tpu/ops/pallas_fill.py``: K1 ``sift_level_fused_padded``, its XLA
 pre-pass ``level_block_states_fwd`` and K2 ``linear_level_pallas`` in
-``csrc/sift_level.cu``; K3 ``fill2_pallas``, ``fillv_pallas`` and K4
-``segsum_pallas`` in ``csrc/fill_segsum.cu`` (see each file's header for
-the design).
+``csrc/sift_level.cu``; K3 ``fill2_pallas``, ``fillv_pallas``, K4
+``segsum_pallas`` and K2a's fills alone, ``linear_fill2_pallas``, in
+``csrc/fill_segsum.cu`` (see each file's header for the design).
 
 One level is three launches:
 
@@ -33,6 +33,9 @@ once):
   value) of the last two marked samples at or before it (reverse: the
   first two at or after it; ``strict``: strictly), 0 where none;
 * ``fillv_cuda(vals, mask, reverse)``: the same at depth one, value only;
+* ``linear_fill2_cuda(x, reverse)``: ``fill2`` of the signal under its
+  knot mask, computed in the kernel (the first fill round of the cubic
+  tier's unfused and compact routes);
 * ``segsum_cuda(vals, flags, reverse, strict)``: segmented inclusive
   running sums of one or two channels that reset at flagged samples
   (``strict``: the sum up to the previous sample in scan order).
@@ -50,7 +53,8 @@ folds across the shards.
 Each wrapper checks its tensors, launches its kernel on PyTorch's current
 stream for a CUDA tensor, and counts the launch in ``LAUNCHES``.  For a CPU
 tensor it runs the plain PyTorch version beside it (``level_summaries``,
-``tile_scan``, ``sift_level``, ``fill2``, ``fillv``, ``segsum``); those
+``tile_scan``, ``sift_level``, ``fill2``, ``linear_fill2``, ``fillv``,
+``segsum``); those
 plain versions run on any device.  A CUDA tensor never reaches a plain
 version through a wrapper.
 """
@@ -75,10 +79,11 @@ __all__ = [
     "ShardTotals",
     "level_summaries", "interior_summaries", "complete_summaries",
     "tile_scan", "level_states", "sift_level",
-    "stop_flags", "emit_row", "fill2", "fillv", "segsum",
+    "stop_flags", "emit_row", "fill2", "linear_fill2", "fillv", "segsum",
     "segsum_depth", "segsum_error_bound", "SCAN_THREADS", "SCAN_RUN",
     "level_summaries_cuda", "tile_scan_cuda", "level_states_cuda",
-    "sift_level_cuda", "fill2_cuda", "fillv_cuda", "segsum_cuda",
+    "sift_level_cuda", "fill2_cuda", "linear_fill2_cuda", "fillv_cuda",
+    "segsum_cuda",
 ]
 
 TILE = 4096  # samples per tile; the TILE of both csrc/*.cu (checked at load)
@@ -91,7 +96,7 @@ STOP_A, STOP_B, CONT = 1, 2, 4
 
 # launches per kernel wrapper, counted where the kernel is launched
 LAUNCHES = {"level_summaries": 0, "tile_scan": 0, "sift_level": 0,
-            "fill2": 0, "fillv": 0, "segsum": 0}
+            "fill2": 0, "linear_fill2": 0, "fillv": 0, "segsum": 0}
 
 
 # LAUNCHES["segsum"] by the call's number of channels
@@ -514,6 +519,13 @@ def fill2(vals: torch.Tensor, mask: torch.Tensor, reverse: bool = False,
     return out
 
 
+def linear_fill2(x: torch.Tensor, reverse: bool = False):
+    """Plain version of the ``linear_fill2`` kernel: :func:`fill2` of ``x``
+    under its knot mask (``linear_baseline.knot_mask``: the extrema of
+    ``ops/extrema.py`` and both endpoints), inclusive."""
+    return fill2(x, knot_mask(x), reverse)
+
+
 def fillv(vals: torch.Tensor, mask: torch.Tensor, reverse: bool = False):
     """Plain version of the ``fillv`` kernel: per sample, the value of the
     last marked sample at or before it (``reverse``: the first at or after
@@ -841,12 +853,13 @@ def sift_level_cuda(x: torch.Tensor, states: LevelStates, *,
     return LevelOut(base, rot, err, comp_out, interior)
 
 
-def _check_scan(chans, flags: torch.Tensor) -> None:
+def _check_scan(chans, flags: torch.Tensor | None) -> None:
     x = chans[0]
     if x.dim() != 2:
         raise ValueError(f"expected (rows, n) channels, got {tuple(x.shape)}")
     _same(x, *chans, dtype=torch.float32, shape=x.shape)
-    _same(x, flags, dtype=torch.bool, shape=x.shape)
+    if flags is not None:
+        _same(x, flags, dtype=torch.bool, shape=x.shape)
     rows, n = x.shape
     if rows < 1 or n < 1:
         raise ValueError(f"the scan kernels take non-empty rows, got "
@@ -897,6 +910,31 @@ def fill2_cuda(vals: torch.Tensor, mask: torch.Tensor, reverse: bool = False,
             v2.data_ptr(), _scan_scratch(lib, vals).data_ptr(), _stream(vals))
     _check(code, "fill2")
     LAUNCHES["fill2"] += 1
+    return p1, v1, p2, v2
+
+
+def linear_fill2_cuda(x: torch.Tensor, reverse: bool = False):
+    """``(p1, v1, p2, v2)`` of :func:`linear_fill2` for ``x`` (rows, n)
+    f32, n >= 2; positions int32.  The knot mask is computed in the
+    kernel."""
+    _check_scan((x,), None)
+    if x.shape[1] < 2:
+        raise ValueError(f"a signal needs at least 2 samples (got "
+                         f"n={x.shape[1]})")
+    if not x.is_cuda:
+        return linear_fill2(x, reverse)
+    rows, n = x.shape
+    p1, p2 = (torch.empty((rows, n), dtype=torch.int32, device=x.device)
+              for _ in range(2))
+    v1, v2 = torch.empty_like(x), torch.empty_like(x)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        code = lib.pyitd_linear_fill2(
+            x.data_ptr(), rows, n, int(reverse), p1.data_ptr(), v1.data_ptr(),
+            p2.data_ptr(), v2.data_ptr(), _scan_scratch(lib, x).data_ptr(),
+            _stream(x))
+    _check(code, "linear_fill2")
+    LAUNCHES["linear_fill2"] += 1
     return p1, v1, p2, v2
 
 

@@ -3,7 +3,8 @@
 ``prev_index`` / ``next_index`` give, per sample, the position of the most
 recent / soonest marked sample (a knot) with ``torch.cummax`` over
 ``where(mask, iota, -1)`` and its flipped twin; ``take_last_axis`` gathers
-along the last axis.  Indices are int64, PyTorch's index type.
+along the last axis, and ``forward_fill`` / ``backward_fill`` are the two
+composed.  Indices are int64, PyTorch's index type.
 
 The value fills (``forward_fill_scan`` and ``backward_fill_scan`` at depth
 one, ``forward_fill2_scan`` and ``backward_fill2_scan`` at depth two) keep
@@ -15,7 +16,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["prev_index", "next_index", "take_last_axis", "shift_left",
+__all__ = ["prev_index", "next_index", "forward_fill", "backward_fill",
+           "take_last_axis", "shift_left",
            "shift_right", "forward_fill_scan", "backward_fill_scan",
            "forward_fill2_scan", "backward_fill2_scan"]
 
@@ -60,6 +62,23 @@ def take_last_axis(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """
     n = values.shape[-1]
     return torch.gather(values, -1, idx.clamp(0, n - 1))
+
+
+def forward_fill(values: torch.Tensor, mask: torch.Tensor, *,
+                 inclusive: bool = True) -> torch.Tensor:
+    """The value at the last marked sample at or before each sample
+    (``inclusive=False``: strictly before).  Samples before the first mark
+    read ``values[..., 0]``; callers that care mask with ``prev_index(mask)
+    < 0``."""
+    return take_last_axis(values, prev_index(mask, inclusive=inclusive))
+
+
+def backward_fill(values: torch.Tensor, mask: torch.Tensor, *,
+                  inclusive: bool = True) -> torch.Tensor:
+    """The value at the next marked sample at or after each sample
+    (``inclusive=False``: strictly after).  Samples after the last mark
+    read ``values[..., -1]``."""
+    return take_last_axis(values, next_index(mask, inclusive=inclusive))
 
 
 def shift_left(a: torch.Tensor, fill) -> torch.Tensor:

@@ -12,7 +12,12 @@ serves both groups:
   CPU devices is to the JAX tests, and it is what runs on one card.
 * :class:`DistGroup` — one shard per process (``S_local == 1``) over a
   ``torch.distributed`` process group (gloo on the CPU, NCCL on cards).
-  Forward only.
+  Its halo shifts, gathers and sums are ``torch.autograd.Function`` objects whose
+  backward is the collective's transpose (the opposite shift, a sum over
+  ranks of this rank's slice, an all-reduce), so a loss that each rank
+  computes from its own shard differentiates as the sum of the ranks'
+  losses, as ``jax.grad`` through ``shard_map`` does.  Every rank runs the
+  same backward collectives in the same order.
 
 The ``data`` axis of JAX's mesh needs no collective; here it is the ``rows``
 axis.  For the training tiers (``train``, ``pipeline``, the expert-parallel
@@ -123,15 +128,13 @@ class LocalGroup(_Group):
 
 class DistGroup(_Group):
     """One time shard per process of a ``torch.distributed`` process group
-    (default: the world).  The collectives carry no gradient: a tensor that
-    requires grad raises ``NotImplementedError`` (ROADMAP.md, queue 1, item
-    9: the ``DistGroup`` gradient)."""
+    (default: the world).  Differentiable: ``all_reduce_min`` alone carries
+    no gradient (it decides flags and counts)."""
+
+    differentiable = True
 
     def __init__(self, process_group=None) -> None:
         super().__init__()
-        import torch.distributed as dist
-
-        self._dist = dist
         self.pg = process_group
         self.size = dist.get_world_size(process_group)
         self.rank = dist.get_rank(process_group)
@@ -148,24 +151,16 @@ class DistGroup(_Group):
         """This rank's slice of the result."""
         return y.squeeze(-3)
 
-    def _no_grad(self, t: torch.Tensor) -> None:
-        if t.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "DistGroup collectives carry no gradient yet (ROADMAP.md, "
-                "queue 1, item 9); differentiate with a LocalGroup")
-
     def _shift(self, edge: torch.Tensor, fill, step: int) -> torch.Tensor:
-        """Send ``edge`` to rank + step, receive rank - step's."""
+        """Send ``edge`` to rank + step, receive rank - step's; ``fill``
+        where there is no rank - step."""
         if edge.dtype == torch.bool:  # the backends move numbers
             return self._shift(edge.to(torch.uint8), int(bool(fill)),
                                step) != 0
-        self._no_grad(edge)
         self.calls["halo"] += 1
-        got = _hop(edge.contiguous(), self.pg, step)
-        if 0 <= self.rank - step < self.size:
-            return got
         fill = torch.as_tensor(fill, dtype=edge.dtype, device=edge.device)
-        return fill.expand_as(edge).contiguous()
+        return _HaloShift.apply(edge, fill.expand_as(edge), self.pg, step,
+                                not 0 <= self.rank - step < self.size)
 
     def shift_right_edge(self, edge: torch.Tensor, fill) -> torch.Tensor:
         return self._shift(edge, fill, 1)
@@ -174,25 +169,64 @@ class DistGroup(_Group):
         return self._shift(edge, fill, -1)
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        self._no_grad(t)
         self.calls["all_gather"] += 1
-        out = torch.empty((self.size,) + t.shape[1:], dtype=t.dtype,
-                          device=t.device)
-        self._dist.all_gather_into_tensor(out, t.contiguous(), group=self.pg)
-        return out
-
-    def _reduce(self, t: torch.Tensor, kind: str, op) -> torch.Tensor:
-        self._no_grad(t)
-        self.calls[kind] += 1
-        out = t.clone()
-        self._dist.all_reduce(out, op=op, group=self.pg)
-        return out
+        return _AllGather.apply(t, self.pg, self.rank, self.size)
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
-        return self._reduce(t, "all_reduce_sum", self._dist.ReduceOp.SUM)
+        """The sum over ranks, replicated; every rank's loss reads it, so
+        the backward all-reduces the gradient (the two Megatron operators
+        composed)."""
+        self.calls["all_reduce_sum"] += 1
+        return reduce_from_group(copy_to_group(t, self.pg), self.pg)
 
     def all_reduce_min(self, t: torch.Tensor) -> torch.Tensor:
-        return self._reduce(t, "all_reduce_min", self._dist.ReduceOp.MIN)
+        self.calls["all_reduce_min"] += 1
+        out = t.detach().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.MIN, group=self.pg)
+        return out
+
+
+class _HaloShift(torch.autograd.Function):
+    """``edge`` to rank + step, rank - step's received, ``fill`` (shaped
+    like ``edge``) on the rank that has no rank - step (``at_edge``).  The
+    backward is the transpose: the gradient hops back by -step (zeros
+    where there is no rank + step), and the fill's is the gradient on the
+    edge rank."""
+
+    @staticmethod
+    def forward(ctx, edge, fill, group, step, at_edge):
+        ctx.group, ctx.step, ctx.at_edge = group, step, at_edge
+        got = _hop(edge.contiguous(), group, step)
+        return fill.clone(memory_format=torch.contiguous_format) \
+            if at_edge else got
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        g_edge = _hop(g, ctx.group, -ctx.step)
+        g_fill = g if ctx.at_edge else torch.zeros_like(g)
+        return g_edge, g_fill, None, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    """Every rank's ``t`` (1, ...), stacked (size, ...) on every rank.  The
+    backward is a reduce-scatter: the gradient summed over ranks (every
+    rank's loss reads the gathered tensor), this rank's slice kept; gloo
+    has no reduce-scatter of tensors, so an all-reduce and a slice."""
+
+    @staticmethod
+    def forward(ctx, t, group, rank, size):
+        ctx.group, ctx.rank = group, rank
+        out = torch.empty((size,) + t.shape[1:], dtype=t.dtype,
+                          device=t.device)
+        dist.all_gather_into_tensor(out, t.contiguous(), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g[ctx.rank:ctx.rank + 1], None, None, None
 
 
 # ---- differentiable collectives over a torch.distributed group ----------

@@ -31,7 +31,7 @@ __all__ = ["sharded_itd_sift", "sharded_cubic_baseline"]
 
 # ---------------------------------------------------------------------------
 # shard-local helpers of the plain route (any float dtype, differentiable
-# over a LocalGroup)
+# over either group)
 # ---------------------------------------------------------------------------
 
 
@@ -380,8 +380,8 @@ def _check_grad(x, group) -> bool:
     grad = x.requires_grad and torch.is_grad_enabled()
     if grad and not getattr(group, "differentiable", False):
         raise NotImplementedError(
-            "the sharded routes differentiate over a LocalGroup only "
-            "(ROADMAP.md, queue 1, item 9: the DistGroup gradient)")
+            f"{type(group).__name__}'s collectives carry no gradient; the "
+            "sharded routes differentiate over a LocalGroup or a DistGroup")
     return grad
 
 
@@ -404,8 +404,9 @@ def sharded_itd_sift(x: torch.Tensor, group, max_iteration: int = 11, *,
     on every shard (f32; on a CPU tensor their plain versions), bit for bit
     ``itd_sift(backend="kernel")``; ``"torch"`` the plain sharded fills, any
     float dtype; ``"auto"`` is ``"kernel"`` for f32 on a CUDA tensor and
-    ``"torch"`` elsewhere.  Differentiable over a ``LocalGroup``: the kernel
-    route's backward differentiates the plain route."""
+    ``"torch"`` elsewhere.  Differentiable over either group: the kernel
+    route's backward differentiates the plain route (over a ``DistGroup``
+    each rank's gradient is that of the sum of the ranks' losses)."""
     if endpoint_mode not in ENDPOINT_MODES:
         raise ValueError(f"unknown endpoint_mode: {endpoint_mode!r}")
     if backend == "auto":
@@ -668,7 +669,7 @@ def sharded_cubic_baseline(x: torch.Tensor, group, *,
                            min_extrema: int = 10, method: str = "spike"):
     """Sequence-parallel MEITD-tier cubic baseline over ``group``'s shards;
     matches ``ops.cubic_baseline.cubic_baseline_extract``.  Plain PyTorch on
-    every device, differentiable over a ``LocalGroup``.
+    every device, differentiable over either group.
 
     ``method="spike"`` (default): every shard SPIKE-factorizes its piece of
     the grid-resident chained moment system; beyond the fills' boundary

@@ -282,10 +282,13 @@ def test_grad_passthrough_is_identity():
 
 def test_backends_resolve_and_refuse():
     x = torch.zeros(2, 64)
+    # every one of JAX's eval backends resolves (tests/test_torch_cubic_
+    # routes.py holds each against JAX's)
     for name in ("scan", "fills_packed", "fills_compact", "fills_unfused",
                  "fills_fused"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cubic_baseline_extract(x, 66, eval_backend=name)
+        r = cubic_baseline_extract(x, 66, eval_backend=name)
+        assert r.baseline.shape == x.shape and r.num_extrema.shape == (2,)
+        assert torch.equal(r.baseline, x)  # no extrema: the guard
     with pytest.raises(ValueError, match="unknown"):
         cubic_baseline_extract(x, 66, eval_backend="nope")
     with pytest.raises(ValueError, match="2\\^24"):

@@ -159,7 +159,7 @@ def test_sift_launches_one_summary_pass(device):
     assert res.stop_reason.tolist() == [2] * 4
     assert cuda_fill.LAUNCHES == {
         "level_summaries": 1, "tile_scan": 11, "sift_level": 11, "fill2": 0,
-        "fillv": 0, "segsum": 0}
+        "linear_fill2": 0, "fillv": 0, "segsum": 0}
     assert cuda_fill.MODE_LAUNCHES == {
         "sift_level_book": 10, "sift_level_emit": 10, "tile_scan_edges": 10}
 

@@ -40,7 +40,12 @@ def test_realtime_stream(capsys):
                                 "--channels", "3"])
     assert out["err"] < 1e-10 and out["bank_err"] < 1e-10
     assert len(out["latency_ms"]) == 12
-    assert "not ported" in capsys.readouterr().out
+    # the native tier: a stream, extrema reuse and a pool batch
+    assert len(out["native_latency_ms"]) == 12
+    assert max(out["native_err"], out["reuse_err"], out["pool_err"]) < 1e-10
+    text = capsys.readouterr().out
+    assert "native stream: 10/12 hops emitted" in text
+    assert "native pool: 8x2048 batch" in text
 
 
 def test_train_parallel(tmp_path, monkeypatch):

@@ -107,6 +107,22 @@ def test_value_fills_match_jax_scans(reverse):
     np.testing.assert_array_equal(gc.numpy(), np.asarray(wc))
 
 
+@pytest.mark.parametrize("inclusive", [True, False])
+def test_forward_backward_fill_match_jax(inclusive):
+    """``forward_fill`` / ``backward_fill``: values at the last / next
+    mark, ``values[..., 0]`` before the first mark and ``values[..., -1]``
+    after the last (rows with one mark and with none included)."""
+    x, m = _inputs()
+    jm, tm = jnp.asarray(m), torch.from_numpy(m)
+    for jf, tf in ((jfill.forward_fill, tfill.forward_fill),
+                   (jfill.backward_fill, tfill.backward_fill)):
+        want = np.asarray(jf(jnp.asarray(x), jm, inclusive=inclusive))
+        got = tf(torch.from_numpy(x), tm, inclusive=inclusive)
+        assert bitwise(got.numpy(), want)
+    head = tfill.forward_fill(torch.from_numpy(x), tm)[2]
+    assert bitwise(head.numpy(), np.full(N, x[2, 0]))
+
+
 @pytest.mark.parametrize("reverse", [False, True])
 def test_fill2_matches_jax_pallas(reverse):
     x, m = _inputs(seed=1)

@@ -411,7 +411,9 @@ def test_import_loads_no_jax():
             "pyitd_tpu_torch.examples.quickstart, "
             "pyitd_tpu_torch.examples.train_parallel, "
             "pyitd_tpu_torch.examples.multichip, "
-            "pyitd_tpu_torch.examples.realtime_stream; "
+            "pyitd_tpu_torch.examples.realtime_stream, "
+            "pyitd_tpu_torch.runtime; "
+            "assert pyitd_tpu_torch.runtime.native_available(); "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'flax' not in sys.modules, 'flax imported'; "
             "assert 'optax' not in sys.modules, 'optax imported'; "

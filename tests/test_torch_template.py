@@ -160,6 +160,22 @@ def test_template_static_matches_dynamic():
                                    atol=1e-12 * float(x.abs().max()))
 
 
+def test_template_period_hint_changes_nothing():
+    """``period_hint`` is JAX's knob for its TPU matrix-unit route, which
+    is not ported: with the hints JAX's comb gives (both engaged and not),
+    the result is bitwise the call's without it."""
+    sr, n = 400, 8192
+    x = torch.from_numpy(_signal(n, sr))
+    for pos_np, cnt, hint in jif._sine_template_static(sr, n):
+        a = template_fast_baseline(x, pos_np, cnt, period_hint=hint)
+        b = template_fast_baseline(x, pos_np, cnt)
+        assert torch.equal(a, b)
+        c = template_fast_baseline(x, torch.from_numpy(pos_np.copy()),
+                                   torch.tensor(cnt), period_hint=hint)
+        assert torch.equal(c, template_fast_baseline(
+            x, torch.from_numpy(pos_np.copy()), torch.tensor(cnt)))
+
+
 def test_template_static_refuses_another_length():
     tpl = tif._sine_template_static(400, 8192)[0]
     with pytest.raises(ValueError, match="laid out for n=8192"):
