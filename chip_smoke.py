@@ -38,11 +38,15 @@ Phases (each raises on failure, so any failure exits non-zero):
    wrapper swapped for its plain version) bitwise; K7 alone bitwise on
    ``tools/cubic_bench.py::spike_cases``; the sequence-parallel
    tier on ``sharded_cases`` at 2, 4 and 8 time shards, both endpoint modes,
-   stop A and stop B: ``sharded_itd_sift`` on the shard-aware kernels
-   against the same call with every wrapper swapped for its plain version
-   and against the unsharded kernel sift of the whole signal, all bitwise,
-   and ``sharded_cubic_baseline`` (both methods, f64) against the gather
-   route of the whole signal to 1e-10;
+   stop A and stop B: ``sharded_itd_sift`` on the shard-aware kernels,
+   without ``fold_emit`` and with it (``PYITD_FOLD_EMIT=1``: each level
+   emits the next trip's tile summaries), launches and collectives
+   counted, against each other, against the same call with every wrapper
+   swapped for its plain version and against the unsharded kernel sift of
+   the whole signal, all bitwise, the same on ``fold_emit_layouts`` (the
+   shard's last sample mid-tile, on a tile's first or last sample, in one
+   partial tile), and ``sharded_cubic_baseline`` (both methods, f64)
+   against the gather route of the whole signal to 1e-10;
 3. the main path at full size: the bench signal, 8 x 1,000,000 f32,
    ``itd_sift(x, 8, store_baselines=False)`` (10 levels), with every kernel
    launch counted (one ``level_summaries``, of the input; one ``tile_scan``
@@ -88,19 +92,25 @@ Phases (each raises on failure, so any failure exits non-zero):
    route), finite, timed forward + backward, and its peak memory;
 9. the sequence-parallel tier at full width: the bench signal at
    8 x 4,194,304 f32, ``max_iteration=8``, over 4 time shards of 1,048,576
-   resident on the one card (``LocalGroup(4)``): launches and collectives
-   counted, every launch of the shard-aware kernels bitwise its plain
-   version on the route's own inputs, the result bitwise the unsharded
-   ``itd_sift`` of the same signal, the compensated reconstruction held to
-   1e-10; the sharded and the unsharded sift timed (median of 10, device
-   busy, idle share, top device kernels), the cross-shard fold alone (host
-   ms, ATen calls); the same signal as one shard of a one-rank NCCL
+   resident on the one card (``LocalGroup(4)``), the main path on the
+   ``fold_emit`` route (one ``level_summaries``, 11 scans completing the
+   emitted summaries, 11 levels): launches, their modes and collectives
+   counted on both routes, every launch of the shard-aware kernels bitwise
+   its plain version on each route's own inputs, the two routes bitwise
+   each other and the unsharded ``itd_sift`` of the same signal, the
+   compensated reconstruction held to 1e-10; both routes timed in turns
+   (without, with, with, without; CUDA events, median of 10, device busy,
+   idle share, top device kernels) and the unsharded sift, the emitting
+   and the plain ``sift_level<SHARD>`` per launch, a trip's summaries on
+   each route, the cross-shard fold alone (host ms, ATen calls); the same
+   signal as one shard of a one-rank NCCL
    ``DistGroup`` bitwise ``LocalGroup(1)``; the gradient of the sharded
    kernel route at 8 x 262,144 (the plain sharded route's autograd holds
    every intermediate: the full width does not fit) against the unsharded
    plain sift's; one sharded cubic level (``method="spike"``) at 8 x 4M
    against ``cubic_baseline_extract`` of the whole signal; then phase 7's
-   rows for the shard-aware kernels at these shapes;
+   rows for the shard-aware kernels at these shapes, the emitting level
+   and the scan completing its summaries among them;
 10. the cubic tier's callers at full width, every cubic level counted
    (launches of K5-K8 and of the pre-pass, one each per level), every
    launch bitwise its plain version and each whole route bitwise its plain
@@ -248,7 +258,8 @@ SRC.update({k: "pyitd_tpu_torch/csrc/cubic.cu"
             for k in ("cubic_ksite", "cubic_neighbors", "spike_backsub_eval")})
 SRC["spike_factors"] = "pyitd_tpu_torch/csrc/spike.cu"
 SIFT_KERNELS = ("level_summaries", "tile_scan", "sift_level")
-SRC.update({"sharded_" + k: SRC[k] for k in SIFT_KERNELS})
+SRC.update({"sharded_" + k: SRC[k] for k in SIFT_KERNELS
+             + ("sift_level_emit", "tile_scan_edges")})
 REPLACES = {
     "level_summaries": "pyitd_tpu/ops/pallas_fill.py:1398",
     "tile_scan": "pyitd_tpu/ops/pallas_fill.py:1398",
@@ -266,9 +277,12 @@ REPLACES = {
     "spike_factors": "pyitd_tpu/ops/pallas_spike.py:176",
     "spike_backsub_eval": "pyitd_tpu/ops/pallas_spike.py:262",
 }
-# K9: the three sift kernels with the shard arguments compiled in
+# K9: the three sift kernels with the shard arguments compiled in; with
+# fold_emit the level emits (the kernel's fold_emit=True) and the scan
+# completes its summaries (states_from_folds, XLA in JAX)
 REPLACES.update({"sharded_" + k: "pyitd_tpu/ops/pallas_fill_sharded.py:199"
-                 for k in SIFT_KERNELS})
+                 for k in SIFT_KERNELS + ("sift_level_emit",)})
+REPLACES["sharded_tile_scan_edges"] = "pyitd_tpu/parallel/sharded.py:489"
 # The cubic level's f32 baseline against the f64 gather route, as a
 # fraction of max|baseline|: the bar of the JAX tests
 # (tests/test_cubic.py:195, 248-253).
@@ -541,6 +555,38 @@ def sharded_cases():
         [np.sin(1.5 * t).astype(np.float32), noisy(1, 2048)[0]])
     yield "length no shard count divides (2, 1003)", noisy(2, 1003)
     yield "length no shard count divides (2, 9001)", noisy(2, 9001)
+
+
+def fold_emit_layouts() -> dict:
+    """Shard lengths that put the sample an emitting level leaves out, the
+    shard's last (its right neighbour is the next shard's first), mid-tile,
+    on a tile's first sample, on a tile's last sample, and in a single
+    partial tile."""
+    from pyitd_tpu_torch.ops.cuda_fill import TILE
+
+    return {"mid-tile": 2 * TILE + 700, "tile-first": 2 * TILE + 1,
+            "tile-last": 2 * TILE, "one partial tile": 512}
+
+
+def fold_emit_signal(n_loc: int, seq: int):
+    """Three rows of ``seq * n_loc`` f32 for the ``fold_emit`` route: a
+    spike on a tile's first sample inside shard 0 (shard 1's first sample
+    where a shard has one tile) and one on the last shard's first sample;
+    NaN across the boundary of shards 0 and 1; a triangle wave on a ramp,
+    which stops flat after two components beside rows that run on."""
+    from pyitd_tpu_torch.ops.cuda_fill import TILE
+
+    n = seq * n_loc
+    rng = np.random.default_rng(n_loc + seq)
+    t = np.linspace(0, 2 * np.pi, n)
+    x = np.stack([np.sin(15 * t) + 0.1 * rng.normal(size=n),
+                  np.sin(5 * t * (1 + 0.2 * t)) + 0.05 * rng.normal(size=n),
+                  np.abs(t * 1.5 / np.pi % 2 - 1) + 0.1 * t]
+                 ).astype(np.float32)
+    x[0, TILE if n_loc > TILE else n_loc] = 8.0
+    x[0, (seq - 1) * n_loc] = -8.0
+    x[1, n_loc - 1:n_loc + 2] = np.nan
+    return x
 
 
 def sift_loss(r):
@@ -1128,6 +1174,35 @@ def phase8_cubic(x, card: str):
 
 # ---- the sequence-parallel tier ----
 
+@contextlib.contextmanager
+def fold_emit_flag(on: bool):
+    """``PYITD_FOLD_EMIT`` set (``on``) or unset for the block, then as it
+    was: the sharded kernel route's only lever, as in JAX."""
+    old = os.environ.pop("PYITD_FOLD_EMIT", None)
+    if on:
+        os.environ["PYITD_FOLD_EMIT"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("PYITD_FOLD_EMIT", None)
+        if old is not None:
+            os.environ["PYITD_FOLD_EMIT"] = old
+
+
+def sharded_route_counts(trips: int, fold: bool) -> tuple[dict, dict]:
+    """The sift kernels' launches and, of those, the modes in one sharded
+    kernel sift of ``trips`` trips, with ``fold_emit`` or without."""
+    from pyitd_tpu_torch.ops import cuda_fill as cf
+
+    launches = {k: trips if k in SIFT_KERNELS else 0 for k in cf.LAUNCHES}
+    modes = dict.fromkeys(cf.MODE_LAUNCHES, 0)
+    modes["sift_level_book"] = trips - 1
+    if fold:
+        launches["level_summaries"] = 1
+        modes.update({k: trips - 1 for k in modes})
+    return launches, modes
+
+
 def plain_sift_kernels():
     """The three sift kernel wrappers swapped for their plain versions."""
     from pyitd_tpu_torch.ops import cuda_fill as cf
@@ -1200,6 +1275,37 @@ def phase2_sharded(dev) -> None:
     from pyitd_tpu_torch.parallel import (LocalGroup, sharded_cubic_baseline,
                                           sharded_itd_sift)
 
+    def both_routes(x, seq, mode, mi, what):
+        """The route without ``fold_emit`` and with it, launches and
+        collectives counted, the two bitwise each other; returns the
+        first."""
+        out = None
+        for fold in (False, True):
+            group = LocalGroup(seq)
+            cf.reset_launches()
+            with fold_emit_flag(fold):
+                got = sharded_itd_sift(x, group, mi, endpoint_mode=mode,
+                                       backend="kernel")
+            trips = mi + 3
+            want_l, want_m = sharded_route_counts(trips, fold)
+            want_c = {"halo": 2 * trips, "all_gather": trips,
+                      "all_reduce_sum": trips, "all_reduce_min": 0}
+            if (dict(cf.LAUNCHES), dict(cf.MODE_LAUNCHES), group.calls) != (
+                    want_l, want_m, want_c):
+                raise AssertionError(f"{what}, fold_emit={fold}: launches "
+                                     f"{dict(cf.LAUNCHES)} by mode "
+                                     f"{dict(cf.MODE_LAUNCHES)}, collectives "
+                                     f"{group.calls}")
+            if out is None:
+                out = got
+            else:
+                same_sift(got, out, what + " with fold_emit against the "
+                          "route without it")
+        same_sift(out, sift_tuple(itd_sift(
+            x, mi, endpoint_mode=mode, store_baselines=False,
+            backend="kernel")), what + " against the unsharded sift")
+        return out
+
     for name, xn in sharded_cases():
         x = torch.from_numpy(xn).to(dev)
         reasons = set()
@@ -1208,27 +1314,12 @@ def phase2_sharded(dev) -> None:
                              ("reference", 2), ("natural", 2)):
                 what = f"sharded sift {name}, {seq} shards, {mode}, " \
                     f"max_iteration={mi}"
-                group = LocalGroup(seq)
-                cf.reset_launches()
-                got = sharded_itd_sift(x, group, mi, endpoint_mode=mode,
-                                       backend="kernel")
-                trips = mi + 3
-                want_l = {k: trips if k in SIFT_KERNELS else 0
-                          for k in cf.LAUNCHES}
-                want_c = {"halo": 2 * trips, "all_gather": trips,
-                          "all_reduce_sum": trips, "all_reduce_min": 0}
-                if dict(cf.LAUNCHES) != want_l or group.calls != want_c:
-                    raise AssertionError(f"{what}: launches "
-                                         f"{dict(cf.LAUNCHES)}, collectives "
-                                         f"{group.calls}")
-                with plain_sift_kernels():
+                got = both_routes(x, seq, mode, mi, what)
+                with plain_sift_kernels(), fold_emit_flag(False):
                     plain = sharded_itd_sift(x, LocalGroup(seq), mi,
                                              endpoint_mode=mode,
                                              backend="kernel")
                 same_sift(got, plain, what + " against plain versions")
-                same_sift(got, sift_tuple(itd_sift(
-                    x, mi, endpoint_mode=mode, store_baselines=False,
-                    backend="kernel")), what + " against the unsharded sift")
                 reasons.update(got[2].tolist())
         cub = ""
         if not bool(torch.isnan(x).any()):
@@ -1250,14 +1341,30 @@ def phase2_sharded(dev) -> None:
             cub = (f"; sharded cubic (spike, gather) f64 within {worst!r} of "
                    f"the gather route")
         print(f"[2] sharded {name}: 2, 4, 8 shards x both endpoint modes x "
-              f"max_iteration 2, 6: kernel route == plain versions == "
-              f"unsharded kernel sift bitwise, stop reasons seen "
-              f"{sorted(reasons)}{cub}", flush=True)
+              f"max_iteration 2, 6: kernel route == fold_emit route == "
+              f"plain versions == unsharded kernel sift bitwise, stop reasons "
+              f"seen {sorted(reasons)}{cub}", flush=True)
+    # the layouts of the sample an emitting level leaves out
+    for layout, n_loc in fold_emit_layouts().items():
+        reasons = set()
+        for seq in (2, 4, 8):
+            x = torch.from_numpy(fold_emit_signal(n_loc, seq)).to(dev)
+            for mode, mi in (("reference", 6), ("natural", 2)):
+                reasons.update(both_routes(
+                    x, seq, mode, mi, f"fold_emit layout {layout}, {seq} "
+                    f"shards of {n_loc}, {mode}, max_iteration={mi}"
+                )[2].tolist())
+        print(f"[2] fold_emit layout {layout} (n_loc {n_loc}): 2, 4, 8 "
+              f"shards x both endpoint modes: fold_emit route == kernel "
+              f"route == unsharded kernel sift bitwise, stop reasons seen "
+              f"{sorted(reasons)}", flush=True)
 
 
 def phase9_sharded(dev, card: str):
-    """The sequence-parallel tier at full width; returns the launches of
-    its main-path run and the recorded calls of the shard-aware kernels."""
+    """The sequence-parallel tier at full width; its main path is the
+    ``fold_emit`` route.  Returns the launches of the main-path run, their
+    modes, and the recorded calls of the shard-aware kernels in the route
+    without ``fold_emit`` and in the route with it."""
     import os
     import tempfile
 
@@ -1278,24 +1385,36 @@ def phase9_sharded(dev, card: str):
     x = torch.from_numpy(bench_signal(rows, n)).to(dev)
     group = LocalGroup(seq)
 
-    def sharded():
-        return sharded_itd_sift(x, group, mi)
+    def sharded():  # the route without fold_emit
+        with fold_emit_flag(False):
+            return sharded_itd_sift(x, group, mi)
+
+    def sharded_fold():
+        with fold_emit_flag(True):
+            return sharded_itd_sift(x, group, mi)
 
     def whole():
         return itd_sift(x, mi, store_baselines=False)
 
-    torch.cuda.synchronize()
-    cf.reset_launches()
-    group.reset_calls()
-    res = sharded()
-    torch.cuda.synchronize()
-    launches, calls_c = dict(cf.LAUNCHES), dict(group.calls)
-    want_l = {k: trips if k in SIFT_KERNELS else 0 for k in launches}
     want_c = {"halo": 2 * trips, "all_gather": trips, "all_reduce_sum": trips,
               "all_reduce_min": 0}
-    if launches != want_l or calls_c != want_c:
-        raise AssertionError(f"sharded {label}: launches {launches}, "
-                             f"collectives {calls_c}")
+
+    def counted(fn, fold):
+        torch.cuda.synchronize()
+        cf.reset_launches()
+        group.reset_calls()
+        out = fn()
+        torch.cuda.synchronize()
+        got = (dict(cf.LAUNCHES), dict(cf.MODE_LAUNCHES), dict(group.calls))
+        want_l, want_m = sharded_route_counts(trips, fold)
+        if got != (want_l, want_m, want_c):
+            raise AssertionError(f"sharded {label}, fold_emit={fold}: "
+                                 f"launches {got[0]} by mode {got[1]}, "
+                                 f"collectives {got[2]}")
+        return out, got
+
+    # the main path: the fold_emit route, the counts set to 0 just before
+    res, (launches, modes, calls_c) = counted(sharded_fold, True)
     if tuple(res[0].shape) != (levels, rows, n) or not bool(
             torch.isfinite(res[0]).all()):
         raise AssertionError(f"sharded {label}: rotations not finite or "
@@ -1308,25 +1427,40 @@ def phase9_sharded(dev, card: str):
     if not recon <= 1e-10:
         raise AssertionError(f"sharded {label}: compensated reconstruction "
                              f"error {recon}")
+    default, (d_launches, d_modes, _) = counted(sharded, False)
+    same_sift(res, default, f"sharded {label}: fold_emit against the route "
+              f"without it")
+    del default
     ref = whole()
     same_sift(res, sift_tuple(ref), f"sharded {label} against the unsharded "
               f"sift")
     del ref
-    calls = {}
-    with recorded_sift(calls):
-        again = sharded()
-    same_sift(res, again, f"sharded {label} against a second run")
-    del again
-    print(f"[9] sharded sift {label}, max_iteration={mi}: launches "
-          f"{launches}; collectives {calls_c} ({trips} trips: 2 halo "
-          f"exchanges, 1 gather, 1 sum each); every launch bitwise its plain "
-          f"version; bitwise the unsharded kernel sift; num_components "
+    calls, calls_fold = {}, {}
+    for rec, fn in ((calls, sharded), (calls_fold, sharded_fold)):
+        with recorded_sift(rec):
+            again = fn()
+        same_sift(res, again, f"sharded {label} against a second run")
+        del again
+    print(f"[9] sharded sift {label}, max_iteration={mi}, fold_emit: "
+          f"launches {launches} by mode {modes}; without fold_emit "
+          f"{d_launches} by mode {d_modes}; collectives {calls_c} in both "
+          f"({trips} trips: 2 halo exchanges, 1 gather, 1 sum each); every "
+          f"launch of both routes bitwise its plain version; the two routes "
+          f"bitwise each other and the unsharded kernel sift; num_components "
           f"{res[1].tolist()}, stop_reason {res[2].tolist()}; compensated "
           f"reconstruction error {recon!r}", flush=True)
     del res
 
-    for what, fn in (("sharded", sharded), ("unsharded", whole)):
-        times = cuda_times(fn)
+    # the A/B in turns (without, with, with, without), then the unsharded
+    routes = {"sharded": sharded, "sharded, fold_emit": sharded_fold}
+    ab = {k: [] for k in routes}
+    for what in ("sharded", "sharded, fold_emit", "sharded, fold_emit",
+                 "sharded"):
+        ab[what] += cuda_times(routes[what], reps=5)
+    routes["unsharded"] = whole
+    ab["unsharded"] = cuda_times(whole)
+    for what, fn in routes.items():
+        times = sorted(ab[what])
         dms, by_name = device_ms(fn)
         ms = statistics.median(times)
         print(f"[9] {what} sift {rows}x{n}: {ms:.4f} ms/sift (CUDA events, "
@@ -1337,6 +1471,23 @@ def phase9_sharded(dev, card: str):
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
         print(f"[9]   top device kernels, {what} (ms/sift): " + "; ".join(
             f"{kernel_label(k)} {v:.4f}" for k, v in top), flush=True)
+
+    # per launch on trip 1's inputs: what fold_emit adds to a level and
+    # takes from a trip's summaries
+    def one(rec, k):
+        args, kw, _ = rec[k][1]
+        return device_ms(lambda: getattr(cf, k + "_cuda")(*args, **kw))[0]
+
+    lvl_ms, emit_ms = one(calls, "sift_level"), one(calls_fold, "sift_level")
+    sum_ms, scan_ms = (one(calls, "level_summaries"),
+                       one(calls, "tile_scan"))
+    edges_ms = one(calls_fold, "tile_scan")
+    print(f"[9] per launch, {rows * seq} shard rows of {n // seq} (profiler "
+          f"device time): sift_level<SHARD> {lvl_ms:.4f} ms, emitting "
+          f"{emit_ms:.4f} ms ({emit_ms / lvl_ms - 1:+.3f}); a trip's "
+          f"summaries: level_summaries<SHARD> + tile_scan {sum_ms:.4f} + "
+          f"{scan_ms:.4f} ms without fold_emit, tile_scan completing the "
+          f"emitted ones {edges_ms:.4f} ms with it  [{card}]", flush=True)
 
     # the comm layer alone: the cross-shard fold of one trip's totals
     args, kw, _ = calls["level_summaries"][1]
@@ -1446,7 +1597,7 @@ def phase9_sharded(dev, card: str):
     if not rel <= CUBIC_F64_REL:
         raise AssertionError("sharded cubic beyond its limit against the "
                              "unsharded level")
-    return launches, calls
+    return launches, modes, calls, calls_fold
 
 
 # ---- the cubic tier's callers: MEITD and the 2-D ensemble ----
@@ -3765,7 +3916,8 @@ def main() -> int:
     # the level before it emitted
     want = {k: sift_launches(levels).get(k, 0) for k in launches}
     want_modes = {"sift_level_book": levels, "sift_level_emit": levels,
-                  "tile_scan_edges": levels}
+                  "sift_level_shard_emit": 0, "tile_scan_edges": levels,
+                  "tile_scan_shard_edges": 0}
     if launches != want or modes != want_modes:
         raise AssertionError(f"launches {launches} by mode {modes}, expected "
                              f"{want} and {want_modes}")
@@ -4254,9 +4406,10 @@ def main() -> int:
     del calls, x
 
     # ---- phase 9: the sequence-parallel tier at full width ----
-    shard_launches, calls = phase9_sharded(dev, card)
+    shard_launches, shard_modes, calls, calls_fold = phase9_sharded(dev, card)
 
-    # phase 7's rows for the shard-aware kernels on trip 1's inputs: each
+    # phase 7's rows for the shard-aware kernels on trip 1's inputs (the
+    # route without fold_emit; launches: the main path's, with it): each
     # kernel row is one (shard, row) pair of 1,048,576 samples
     (xs, sh), _, s_err = calls["level_summaries"][1]
     rows, n = xs.shape
@@ -4283,7 +4436,23 @@ def main() -> int:
           lambda: cf.sift_level(xs, states, **plain_kw),
           4 * n * (7 * rows + 2 * n_rp + n_pb) + rows * nt * 32 + rows * 56,
           40 * rows * n, shard_launches["sift_level"], shape=shape)
-    del calls
+    # the fold_emit route's trip 1: the level also emits its baseline's
+    # interior summaries, and the next scan completes them with each tile's
+    # edge samples and the shard's last, against the halos
+    (xs, states), kw, e_err = calls_fold["sift_level"][1]
+    plain_kw = dict(kw, out_row=torch.empty_like(kw["out_row"]))
+    entry("sharded_sift_level_emit", e_err,
+          lambda: cf.sift_level_cuda(xs, states, **kw),
+          lambda: cf.sift_level(xs, states, **plain_kw),
+          4 * n * (7 * rows + 2 * n_rp + n_pb) + rows * nt * 68 + rows * 56,
+          42 * rows * n, shard_modes["sift_level_shard_emit"], shape=shape)
+    (summ,), kw, te_err = calls_fold["tile_scan"][1]
+    entry("sharded_tile_scan_edges", te_err,
+          lambda: cf.tile_scan_cuda(summ, **kw),
+          lambda: cf.tile_scan(summ, **kw),
+          rows * nt * (36 + 24 + 32) + rows * (8 + 32 + 12 + 12), 0,
+          shard_modes["tile_scan_shard_edges"], shape=shape)
+    del calls, calls_fold
 
     # ---- phase 10: the cubic tier's callers at full width ----
     phase10_meitd(dev, card, level_by)

@@ -75,6 +75,17 @@
 // it decides the stop flags; sift_level combines the shard's prefix and
 // suffix into each tile's seeds and takes the global end-knot values as
 // arguments.  With SHARD off the code is what it was.
+//
+// A shard's summaries from the trip before (fold_emit,
+// pallas_fill_sharded.py::_make_level_fused_sharded_kernel(fold_emit=True)
+// and parallel/sharded.py::states_from_folds).  With SHARD and EMIT,
+// sift_level numbers the interior summary's knots by global position and
+// also leaves out the shard's last real sample (local n - 1), wherever it
+// falls: its knot test needs the next shard's first baseline sample, which
+// this launch computes in another block.  tile_scan, given the shard
+// arguments, completes each tile with its first and last sample and the
+// shard's last one, with the halos of this trip's input as the neighbours
+// beyond the row, so a sharded sift too summarises only its input.
 
 // The chunk layout, the knot test, the tile summary and the bitmap live in
 // tile_fill.cuh, shared with the cubic tier's kernels in cubic.cu.
@@ -124,38 +135,50 @@ level_summaries_kernel(const float* __restrict__ x, int n, int ntiles, Shard sh,
 // One tile's summary.  With `edges` (a row of the signal the interior
 // summaries were taken from) the summary covers the tile's interior only
 // and is completed here with the tile's first and last sample, whose knot
-// tests read their neighbours from the row.
+// tests read their neighbours from the row, and on a time shard (`shard`)
+// with the shard's last sample: the row starts at position off of a
+// signal of ng samples, between the samples hl and hr.
 struct TileSum {
   Fwd f;
   Rev r;
   int c;
 };
 
+// the sample at t of an edge row as a one-knot state, if it is a knot
+__device__ __forceinline__ void add_edge(TileSum& s, float xm1, float x0,
+                                         float xp1, int t, int n, int g,
+                                         int ng, bool before) {
+  if (!knot_at(xm1, x0, xp1, t, n, g, ng)) return;
+  if (before) {
+    s.f = fwd_combine(Fwd{g, x0, -1, 0.f}, s.f);
+    s.r = rev_combine(Rev{g, x0, -1, 0.f}, s.r);
+  } else {
+    s.f = fwd_combine(s.f, Fwd{g, x0, -1, 0.f});
+    s.r = rev_combine(s.r, Rev{g, x0, -1, 0.f});
+  }
+  s.c += 1;
+}
+
 __device__ __forceinline__ TileSum load_summary(
     size_t o, int k, const int* __restrict__ fpos,
     const float* __restrict__ fval, const int* __restrict__ rpos,
     const float* __restrict__ rval, const int* __restrict__ cnt,
-    const float* __restrict__ edges, int n) {
+    const float* __restrict__ edges, int n, bool shard, int off, int ng,
+    float hl, float hr) {
   TileSum s{{fpos[2 * o], fval[2 * o], fpos[2 * o + 1], fval[2 * o + 1]},
             {rpos[2 * o], rval[2 * o], rpos[2 * o + 1], rval[2 * o + 1]},
             cnt[o]};
   if (edges == nullptr) return s;
-  const int t0 = k * TILE, t1 = t0 + TILE - 1;
-  const float a0 = edges[t0];
-  if (knot_at(t0 > 0 ? edges[t0 - 1] : 0.f, a0,
-              t0 + 1 < n ? edges[t0 + 1] : 0.f, t0, n)) {
-    s.f = fwd_combine(Fwd{t0, a0, -1, 0.f}, s.f);
-    s.r = rev_combine(Rev{t0, a0, -1, 0.f}, s.r);
-    s.c += 1;
-  }
-  if (t1 < n) {
-    const float a1 = edges[t1];
-    if (knot_at(edges[t1 - 1], a1, t1 + 1 < n ? edges[t1 + 1] : 0.f, t1, n)) {
-      s.f = fwd_combine(s.f, Fwd{t1, a1, -1, 0.f});
-      s.r = rev_combine(s.r, Rev{t1, a1, -1, 0.f});
-      s.c += 1;
-    }
-  }
+  // in position order: the first sample, the interior, the shard's last
+  // sample inside the tile, the tile's last sample
+  const int t0 = k * TILE, t1 = t0 + TILE - 1, tl = n - 1;
+  add_edge(s, t0 > 0 ? edges[t0 - 1] : hl, edges[t0],
+           t0 + 1 < n ? edges[t0 + 1] : hr, t0, n, off + t0, ng, true);
+  if (shard && tl > t0 && tl < t1)
+    add_edge(s, edges[tl - 1], edges[tl], hr, tl, n, off + tl, ng, false);
+  if (t1 < n)
+    add_edge(s, edges[t1 - 1], edges[t1], t1 + 1 < n ? edges[t1 + 1] : hr,
+             t1, n, off + t1, ng, false);
   return s;
 }
 
@@ -166,14 +189,15 @@ __device__ __forceinline__ TileSum load_summary(
 // re-walk that writes each tile's exclusive prefix / suffix.  The fills only
 // select, so any association gives the same bits.  With ftot_pos it also
 // writes the row's inclusive totals (the last two and the first two knots
-// of the whole row): a time shard's side of the cross-shard fold.
+// of the whole row): a time shard's side of the cross-shard fold.  With
+// edges and sh.offset the rows are time shards (load_summary).
 constexpr int SCAN_NT = 256;
 
 __global__ void __launch_bounds__(SCAN_NT) tile_scan_kernel(
     int ntiles, const int* __restrict__ fpos, const float* __restrict__ fval,
     const int* __restrict__ rpos, const float* __restrict__ rval,
     const int* __restrict__ cnt, const float* __restrict__ edges, int n,
-    int* __restrict__ fpos_ex, float* __restrict__ fval_ex,
+    Shard sh, int* __restrict__ fpos_ex, float* __restrict__ fval_ex,
     int* __restrict__ rpos_ex, float* __restrict__ rval_ex,
     int* __restrict__ nex, int* __restrict__ flags,
     int* __restrict__ done, int* __restrict__ reason, int* __restrict__ ncomp,
@@ -189,8 +213,14 @@ __global__ void __launch_bounds__(SCAN_NT) tile_scan_kernel(
   const int k0 = min(tid * per, ntiles), k1 = min(k0 + per, ntiles);
   const size_t rb = (size_t)row * ntiles;
   const float* er = edges == nullptr ? nullptr : edges + (size_t)row * n;
+  const bool shard = er != nullptr && sh.offset != nullptr;
+  const int off = shard ? sh.offset[row] : 0;
+  const int ng = shard ? sh.n_global : n;
+  const float hl = shard ? sh.halo_l[row] : 0.f;
+  const float hr = shard ? sh.halo_r[row] : 0.f;
   auto summary = [&](int k) {
-    return load_summary(rb + k, k, fpos, fval, rpos, rval, cnt, er, n);
+    return load_summary(rb + k, k, fpos, fval, rpos, rval, cnt, er, n, shard,
+                        off, ng, hl, hr);
   };
 
   Fwd fa = fwd_none();
@@ -318,7 +348,6 @@ sift_level_kernel(
     int* __restrict__ ifpos, float* __restrict__ ifval,
     int* __restrict__ irpos, float* __restrict__ irval,
     int* __restrict__ icnt) {
-  static_assert(!(SHARD && EMIT), "a shard's edge samples need its halos");
   __shared__ __align__(16) float s_x[TILE];
   __shared__ unsigned s_bits[TILE / 32];
   __shared__ Ends s_we[EMIT ? NWARP : 1];
@@ -549,12 +578,15 @@ sift_level_kernel(
       const float e[6] = {j0 > 0 ? s_x[j0 - 1] : 0.f, bout[c][0], bout[c][1],
                           bout[c][2], bout[c][3],
                           j0 + 4 < TILE ? s_x[j0 + 4] : 0.f};
-      ibits[c] = chunk_knots(e, base + j0, n, base + j0, n);
+      ibits[c] = chunk_knots(e, base + j0, n, gbase + j0, ng);
       if (j0 == 0) ibits[c] &= ~1u;             // the tile's first sample
       if (j0 + 4 == TILE) ibits[c] &= ~8u;      // and its last: tile_scan's
+      // and a shard's last, whose right neighbour is the next shard's
+      const int q = n - 1 - (base + j0);
+      if (SHARD && q >= 0 && q < 4) ibits[c] &= ~(1u << q);
     }
     const size_t o = (size_t)row * ntiles + tile;
-    tile_summary(bout, ibits, base, s_we, ifpos + 2 * o, ifval + 2 * o,
+    tile_summary(bout, ibits, gbase, s_we, ifpos + 2 * o, ifval + 2 * o,
                  irpos + 2 * o, irval + 2 * o, icnt + o);
   }
 }
@@ -596,25 +628,33 @@ int pyitd_level_summaries(const float* x, int rows, int n, int ntiles,
 
 // edges == nullptr: the summaries are whole tiles'.  Otherwise they cover
 // each tile's interior, and edges is the (rows, n) signal they were taken
-// from: the tiles' first and last samples are tested here.
+// from: the tiles' first and last samples are tested here.  With offset
+// (edges only) each row is a time shard, as in pyitd_level_summaries, and
+// its last sample is tested here too.
 int pyitd_tile_scan(int rows, int ntiles, const int* fpos, const float* fval,
                     const int* rpos, const float* rval, const int* cnt,
-                    const float* edges, int n, int* fpos_ex, float* fval_ex,
+                    const float* edges, int n, int n_global,
+                    const int* offset, const float* halo_l,
+                    const float* halo_r, int* fpos_ex, float* fval_ex,
                     int* rpos_ex, float* rval_ex, int* nex, int* flags,
                     int* done, int* reason, int* ncomp, int trip,
                     int max_iteration, int* ftot_pos, float* ftot_val,
                     int* rtot_pos, float* rtot_val, void* stream) {
   const int threads = min(SCAN_NT, 32 * ((ntiles + 31) / 32));
+  Shard sh{};
+  sh.n_global = n_global; sh.offset = offset;
+  sh.halo_l = halo_l; sh.halo_r = halo_r;
   tile_scan_kernel<<<rows, threads, 0, (cudaStream_t)stream>>>(
-      ntiles, fpos, fval, rpos, rval, cnt, edges, n, fpos_ex, fval_ex, rpos_ex,
-      rval_ex, nex, flags, done, reason, ncomp, trip, max_iteration, ftot_pos,
-      ftot_val, rtot_pos, rtot_val);
+      ntiles, fpos, fval, rpos, rval, cnt, edges, n, sh, fpos_ex, fval_ex,
+      rpos_ex, rval_ex, nex, flags, done, reason, ncomp, trip, max_iteration,
+      ftot_pos, ftot_val, rtot_pos, rtot_val);
   return (int)cudaGetLastError();
 }
 
-// ifpos != nullptr (whole rows only): also write the interior summaries of
-// the baseline, (rows, ntiles, 2) positions and values and (rows, ntiles)
-// counts, for pyitd_tile_scan with edges = base.
+// ifpos != nullptr: also write the interior summaries of the baseline,
+// (rows, ntiles, 2) positions and values and (rows, ntiles) counts, for
+// pyitd_tile_scan with edges = base (and, for time shards, the shard
+// arguments of the next trip).
 int pyitd_sift_level(const float* x, int rows, int n, int ntiles,
                      const int* fpos, const float* fval, const int* rpos,
                      const float* rval, const int* flags, const float* rotp,
@@ -631,7 +671,6 @@ int pyitd_sift_level(const float* x, int rows, int n, int ntiles,
   cudaStream_t s = (cudaStream_t)stream;
   const Shard sh{n_global, offset, halo_l, halo_r, b_first,
                  b_last,   pre_pos, pre_val, suf_pos, suf_val};
-  if (offset != nullptr && ifpos != nullptr) return (int)cudaErrorInvalidValue;
 #define PYITD_LAUNCH(B, R, S, E)                                             \
   do {                                                                       \
     if (B) {  /* per launch: the attribute belongs to the current device */  \
@@ -651,7 +690,9 @@ int pyitd_sift_level(const float* x, int rows, int n, int ntiles,
 #define PYITD_LAUNCH_BOOK(S, E)                           \
   if (bookkeeping) { PYITD_LAUNCH_END(true, S, E); }      \
   else { PYITD_LAUNCH_END(false, S, E); }
-  if (offset != nullptr) {  // time shards
+  if (offset != nullptr && ifpos != nullptr) {  // time shards
+    PYITD_LAUNCH_BOOK(true, true)
+  } else if (offset != nullptr) {
     PYITD_LAUNCH_BOOK(true, false)
   } else if (ifpos != nullptr) {
     PYITD_LAUNCH_BOOK(false, true)

@@ -52,8 +52,9 @@ _SIGNATURES = {
     "pyitd_tile_size": (),
     "pyitd_level_summaries": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                               _P, _P),
-    "pyitd_tile_scan": (_I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
-                        _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
+    "pyitd_tile_scan": (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P,
+                        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
+                        _P, _P, _P),
     "pyitd_sift_level": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
                          _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),

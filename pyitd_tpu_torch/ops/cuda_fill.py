@@ -48,7 +48,10 @@ numbered by global position, the cells beside the row hold the neighbour
 shards' edge samples, and ``sift_level_cuda`` combines the knots before and
 after the shard into every tile's seeds.  ``tile_scan_cuda(totals=True)``
 also returns each row's inclusive totals, which ``parallel/sharded.py``
-folds across the shards.
+folds across the shards.  ``sift_level_cuda(..., shard=..., emit=True)``
+also leaves out each shard's last sample, whose knot test needs the next
+shard's first baseline sample, and ``tile_scan_cuda(..., edges_from=...,
+shard=...)`` completes it with the next trip's halos (JAX's ``fold_emit``).
 
 Each wrapper checks its tensors, launches its kernel on PyTorch's current
 stream for a CUDA tensor, and counts the launch in ``LAUNCHES``.  For a CPU
@@ -103,10 +106,12 @@ LAUNCHES = {"level_summaries": 0, "tile_scan": 0, "sift_level": 0,
 SEGSUM_LAUNCHES = {1: 0, 2: 0}
 
 # of LAUNCHES["sift_level"], those with the sift's bookkeeping and those
-# that emit interior summaries; of LAUNCHES["tile_scan"], those that
-# complete interior summaries with the tiles' edge samples
+# that emit interior summaries, and of these the ones on time shards; of
+# LAUNCHES["tile_scan"], those that complete interior summaries with the
+# tiles' edge samples, and of these the ones on time shards
 MODE_LAUNCHES = {"sift_level_book": 0, "sift_level_emit": 0,
-                 "tile_scan_edges": 0}
+                 "sift_level_shard_emit": 0, "tile_scan_edges": 0,
+                 "tile_scan_shard_edges": 0}
 
 
 def reset_launches() -> None:
@@ -269,46 +274,65 @@ def level_summaries(x: torch.Tensor,
     return _summarize(m, pos, _tiled(x, 0.0, nt).reshape(rows, -1), off)
 
 
-def interior_summaries(x: torch.Tensor) -> TileSummaries:
+def interior_summaries(x: torch.Tensor,
+                       shard: ShardArgs | None = None) -> TileSummaries:
     """The summaries of ``x`` over each tile's interior, samples 1 ..
     ``TILE - 2`` of the tile: what ``sift_level(..., emit=True)`` returns
     for its baseline.  A tile's first and last sample are left to
-    ``tile_scan(..., edges_from=x)``."""
+    ``tile_scan(..., edges_from=x)``.  With ``shard`` (``offset`` and
+    ``n_global``; the halos reach only samples left out) positions are
+    global and the shard's last sample, local ``n - 1``, is left out too:
+    its right neighbour is the next shard's first sample."""
     rows, n = x.shape
     nt = _ntiles(n)
-    m, pos, off, _ = _shard_frame(x, None, nt)
+    m, pos, off, _ = _shard_frame(x, shard, nt)
     m = m.clone()
     m[..., 0] = m[..., TILE - 1] = False
+    if shard is not None:
+        m.view(rows, -1)[:, n - 1] = False
     return _summarize(m, pos, _tiled(x, 0.0, nt).reshape(rows, -1), off)
 
 
-def complete_summaries(interior: TileSummaries,
-                       x: torch.Tensor) -> TileSummaries:
+def complete_summaries(interior: TileSummaries, x: torch.Tensor,
+                       shard: ShardArgs | None = None) -> TileSummaries:
     """Interior summaries of ``x`` completed with every tile's first and
-    last sample: equal to ``level_summaries(x)``."""
+    last sample and, with ``shard``, the shard's last sample, tested
+    against the halos: equal to ``level_summaries(x, shard)``."""
     rows, n = x.shape
     nt = _ntiles(n)
-    m, pos, _, _ = _shard_frame(x, None, nt)
+    m, pos, _, _ = _shard_frame(x, shard, nt)
     xt = _tiled(x, 0.0, nt)
 
-    def state(j):  # the one-sample state of local sample j of every tile
-        k = m[..., j]
-        p = torch.where(k, pos[..., j], -1).to(torch.int32)
-        v = torch.where(k, xt[..., j], 0.0)
+    def state(k, p, v):  # one-sample states where the mask k holds
+        p = torch.where(k, p, -1).to(torch.int32)
+        v = torch.where(k, v, 0.0)
         return p, v, torch.full_like(p, -1), torch.zeros_like(v)
+
+    def at(j):  # local sample j of every tile
+        return state(m[..., j], pos[..., j], xt[..., j])
 
     def pack(t):
         return torch.stack([t[0], t[2]], -1), torch.stack([t[1], t[3]], -1)
 
-    first, last = state(0), state(TILE - 1)
     f = (interior.fpos[..., 0], interior.fval[..., 0],
          interior.fpos[..., 1], interior.fval[..., 1])
     r = (interior.rpos[..., 0], interior.rval[..., 0],
          interior.rpos[..., 1], interior.rval[..., 1])
-    fpos, fval = pack(_fwd_combine(_fwd_combine(first, f), last))
-    rpos, rval = pack(_rev_combine(_rev_combine(first, r), last))
+    # in position order: first, interior, the shard's last sample inside
+    # the tile, last
+    first, last = at(0), at(TILE - 1)
+    f, r = _fwd_combine(first, f), _rev_combine(first, r)
     cnt = interior.cnt + (m[..., 0].to(torch.int32)
                           + m[..., TILE - 1].to(torch.int32))
+    k, j = divmod(n - 1, TILE)
+    if shard is not None and 0 < j < TILE - 1:
+        here = torch.zeros_like(m[..., 0])
+        here[:, k] = m[:, k, j]
+        mid = state(here, pos[..., j], xt[..., j])
+        f, r = _fwd_combine(f, mid), _rev_combine(r, mid)
+        cnt = cnt + here.to(torch.int32)
+    fpos, fval = pack(_fwd_combine(f, last))
+    rpos, rval = pack(_rev_combine(r, last))
     return TileSummaries(fpos, fval, rpos, rval, cnt)
 
 
@@ -367,13 +391,15 @@ def stop_flags(nex, carry: SiftCarry | None, trip: int, max_iteration: int):
 
 def tile_scan(summ: TileSummaries, carry: SiftCarry | None = None,
               trip: int = 0, max_iteration: int = 0, totals: bool = False,
-              edges_from: torch.Tensor | None = None):
+              edges_from: torch.Tensor | None = None,
+              shard: ShardArgs | None = None):
     """Plain version of the ``tile_scan`` kernel: the :class:`LevelStates`,
     and with ``totals`` also the rows' :class:`ShardTotals`.  With
     ``edges_from`` (the (rows, n) signal) ``summ`` covers the tiles'
-    interiors and is completed with their first and last samples first."""
+    interiors and is completed with their first and last samples first
+    (:func:`complete_summaries`; with ``shard``, of time shards)."""
     if edges_from is not None:
-        summ = complete_summaries(summ, edges_from)
+        summ = complete_summaries(summ, edges_from, shard)
     fpos, fval, ft = _exclusive(summ.fpos, summ.fval, _fwd_combine, False)
     rpos, rval, rt = _exclusive(summ.rpos, summ.rval, _rev_combine, True)
     nex = (summ.cnt.sum(-1) - 2).to(torch.int32)
@@ -421,7 +447,8 @@ def sift_level(x: torch.Tensor, states: LevelStates, *,
     ``emit`` also the baseline's :func:`interior_summaries`.  With
     ``shard`` the rows are time shards: positions are global, the seeds
     take in the knots of the shards before and after, and the end-knot
-    values are the global ones."""
+    values are the global ones; ``emit`` then also leaves out each shard's
+    last sample."""
     rows, n = x.shape
     nt = _ntiles(n)
     m, pos, _, ng = _shard_frame(x, shard, nt)
@@ -490,7 +517,7 @@ def sift_level(x: torch.Tensor, states: LevelStates, *,
 
     rotation = x - baseline
     out = LevelOut(baseline, rotation, two_sum_err(x, -baseline, rotation),
-                   None, interior_summaries(baseline) if emit else None)
+                   None, interior_summaries(baseline, shard) if emit else None)
     if rotp is None:
         return out
     f = states.flags[:, None]
@@ -728,29 +755,38 @@ def level_summaries_cuda(x: torch.Tensor,
 def tile_scan_cuda(summ: TileSummaries, carry: SiftCarry | None = None,
                    trip: int = 0, max_iteration: int = 0,
                    totals: bool = False,
-                   edges_from: torch.Tensor | None = None):
+                   edges_from: torch.Tensor | None = None,
+                   shard: ShardArgs | None = None):
     """Exclusive per-tile seeds, extrema counts and (with ``carry``) the
     trip's stop flags; ``carry`` is updated in place.  With ``totals`` the
     result is ``(LevelStates, ShardTotals)``: also each row's last two and
     first two knots.  With ``edges_from``, the (rows, n) f32 signal,
     ``summ`` holds its tiles' interior summaries (``sift_level_cuda(...,
     emit=True).interior``) and every tile's first and last sample is
-    tested here."""
+    tested here; with ``shard`` too (``offset``, ``halo_l``, ``halo_r``,
+    ``n_global`` of ``edges_from``'s rows, which are time shards) also each
+    shard's last sample."""
     rows, nt = summ.cnt.shape
     ref = summ.fval
     _same(ref, summ.fpos, summ.rpos, summ.cnt, dtype=torch.int32)
     _same(ref, summ.fval, summ.rval, dtype=torch.float32, shape=(rows, nt, 2))
     if carry is not None:
         _same(ref, *carry, dtype=torch.int32, shape=(rows,))
-    n = 0
+    if shard is not None and edges_from is None:
+        raise ValueError("shard completes summaries: it needs edges_from")
+    n, sh = 0, (0, None, None, None)
     if edges_from is not None:
-        _check_signal(edges_from)
+        _check_signal(edges_from, shard)
         n = edges_from.shape[1]
         _same(ref, edges_from, shape=(rows, n))
         if _ntiles(n) != nt:
             raise ValueError(f"summaries of {nt} tiles for rows of {n}")
+        if shard is not None:
+            sh = (shard.n_global, shard.offset.data_ptr(),
+                  shard.halo_l.data_ptr(), shard.halo_r.data_ptr())
     if not ref.is_cuda:
-        return tile_scan(summ, carry, trip, max_iteration, totals, edges_from)
+        return tile_scan(summ, carry, trip, max_iteration, totals, edges_from,
+                         shard)
     pos = torch.empty((2, rows, nt, 2), dtype=torch.int32, device=ref.device)
     val = torch.empty((2, rows, nt, 2), dtype=torch.float32, device=ref.device)
     tpos = tval = None
@@ -769,13 +805,14 @@ def tile_scan_cuda(summ: TileSummaries, carry: SiftCarry | None = None,
         code = _lib().pyitd_tile_scan(
             rows, nt, summ.fpos.data_ptr(), summ.fval.data_ptr(),
             summ.rpos.data_ptr(), summ.rval.data_ptr(), summ.cnt.data_ptr(),
-            _ptr(edges_from), n,
+            _ptr(edges_from), n, *sh,
             pos[0].data_ptr(), val[0].data_ptr(), pos[1].data_ptr(),
             val[1].data_ptr(), nex.data_ptr(), flags.data_ptr(), done,
             reason, ncomp, trip, max_iteration, *tot, _stream(ref))
     _check(code, "tile_scan")
     LAUNCHES["tile_scan"] += 1
     MODE_LAUNCHES["tile_scan_edges"] += edges_from is not None
+    MODE_LAUNCHES["tile_scan_shard_edges"] += shard is not None
     states = LevelStates(nex, flags, pos[0], val[0], pos[1], val[1])
     if not totals:
         return states
@@ -799,14 +836,12 @@ def sift_level_cuda(x: torch.Tensor, states: LevelStates, *,
     f32) it also writes the previous extraction's output row into
     ``out_row`` and returns the updated compensation.  With ``shard`` (every
     field set) the rows are time shards and ``states`` the seeds from the
-    shard's own tiles.  With ``emit`` (whole rows only) the result's
-    ``interior`` holds the baseline's summaries over each tile's interior,
-    for ``tile_scan_cuda(..., edges_from=baseline)``."""
+    shard's own tiles.  With ``emit`` the result's ``interior`` holds the
+    baseline's summaries over each tile's interior (on time shards without
+    each shard's last sample), for ``tile_scan_cuda(...,
+    edges_from=baseline, shard=...)``."""
     if endpoint_mode not in ("reference", "natural"):
         raise ValueError(f"unknown endpoint_mode: {endpoint_mode!r}")
-    if emit and shard is not None:
-        raise ValueError("a time shard's edge samples need its halos: emit "
-                         "takes whole rows")
     _check_signal(x, shard, seeds=True)
     rows, n = x.shape
     nt = _ntiles(n)
@@ -850,6 +885,7 @@ def sift_level_cuda(x: torch.Tensor, states: LevelStates, *,
     LAUNCHES["sift_level"] += 1
     MODE_LAUNCHES["sift_level_book"] += book
     MODE_LAUNCHES["sift_level_emit"] += emit
+    MODE_LAUNCHES["sift_level_shard_emit"] += emit and shard is not None
     return LevelOut(base, rot, err, comp_out, interior)
 
 

@@ -14,6 +14,8 @@ JAX's mesh.  Results equal the unsharded functions': the kernel route of
 """
 from __future__ import annotations
 
+import os
+
 import torch
 
 from ..ops import cuda_fill as cf
@@ -212,9 +214,10 @@ def _sift_local(x, group, n_global, max_iteration, endpoint_mode):
 
 # ---------------------------------------------------------------------------
 # the kernel route: each trip runs the three sift kernels on every shard
-# (one launch each: a kernel row is one (shard, row) pair); across shards
-# per trip: 2 halo exchanges, ONE gather of the stacked 8-scalar-per-row
-# boundary states, ONE sum (knot count + the two global end-knot values)
+# (one launch each: a kernel row is one (shard, row) pair), or with
+# fold_emit two of them after the first trip; across shards per trip: 2
+# halo exchanges, ONE gather of the stacked 8-scalar-per-row boundary
+# states, ONE sum (knot count + the two global end-knot values)
 # ---------------------------------------------------------------------------
 
 
@@ -268,10 +271,16 @@ def _sift_local_kernel(x3, group, n_global, max_iteration, endpoint_mode,
     with the pre-pass split around the cross-shard fold and the stop
     decision taken from the global count, on the device; each row is written
     in place into ``rotations[level]``.  ``x3`` (S_local, rows, n_loc) f32;
-    returns the outputs in the same layout."""
-    if fold_emit:
-        raise NotImplementedError(
-            "fold_emit is not ported (ROADMAP.md, queue 1, item 6.3)")
+    returns the outputs in the same layout.
+
+    ``fold_emit`` (default: the ``PYITD_FOLD_EMIT`` environment flag, as in
+    JAX): only the input is summarised by ``level_summaries``; every level
+    but the last emits its baseline's interior summaries and the next
+    trip's ``tile_scan`` completes them with the tiles' edge samples and
+    each shard's last sample, read against the halos that trip exchanges
+    anyway.  The same collectives, bit for bit the same result."""
+    if fold_emit is None:
+        fold_emit = bool(os.environ.get("PYITD_FOLD_EMIT"))
     levels = max_iteration + 2
     s_local, rows, n_loc = x3.shape
     dev = x3.device
@@ -295,14 +304,19 @@ def _sift_local_kernel(x3, group, n_global, max_iteration, endpoint_mode,
         return (torch.where(rank_col == s0, 0.5 * b3[..., l0], minus0)
                 + torch.where(rank_col == s1, 0.5 * b3[..., l1], minus0))
 
-    def level(base, carry=None, trip=0, **book):
-        """One trip on ``base`` (S_local * rows, n_loc)."""
+    def level(base, interior=None, carry=None, trip=0, emit=False, **book):
+        """One trip on ``base`` (S_local * rows, n_loc), whose interior
+        summaries the level before it emitted, if it did."""
         b3 = base.view(s_local, rows, n_loc)
         halo_l, halo_r = _shard_halos(b3, group)
         shard = cf.ShardArgs(n_global, offset, halo_l.reshape(-1),
                              halo_r.reshape(-1))
-        states, tot = cf.tile_scan_cuda(cf.level_summaries_cuda(base, shard),
-                                        totals=True)
+        if interior is None:
+            states, tot = cf.tile_scan_cuda(
+                cf.level_summaries_cuda(base, shard), totals=True)
+        else:
+            states, tot = cf.tile_scan_cuda(interior, totals=True,
+                                            edges_from=base, shard=shard)
         if group.size > 1:
             seeds = _fold_states_both(tot, group, s_local)
         else:
@@ -323,18 +337,22 @@ def _sift_local_kernel(x3, group, n_global, max_iteration, endpoint_mode,
             b_last=per_row(tot3[:, 2].float()), pre_pos=seeds[0],
             pre_val=seeds[1], suf_pos=seeds[2], suf_val=seeds[3])
         return cf.sift_level_cuda(base, states, endpoint_mode=endpoint_mode,
-                                  shard=shard, **book)
+                                  shard=shard, emit=emit, **book)
 
     x2 = x3.reshape(s_local * rows, n_loc)
-    first = level(x2)
+    first = level(x2, emit=fold_emit)
     rot, base, perr = first.rotation, first.baseline, first.sub_err
+    interior = first.interior
     zero = x2 * 0
     out_rot = torch.empty((levels,) + x2.shape, dtype=x2.dtype, device=dev)
     carry = cf.SiftCarry.zeros(rows, dev)
     prev_base, comp = zero, zero
     for i in range(levels):
-        new = level(base, carry, i, rotp=rot, pbase=prev_base, perr=perr,
-                    comp=comp, out_row=out_rot[i])
+        # the last trip's baseline is extracted no further
+        new = level(base, interior, carry, i,
+                    emit=fold_emit and i + 1 < levels, rotp=rot,
+                    pbase=prev_base, perr=perr, comp=comp, out_row=out_rot[i])
+        interior = new.interior
         comp = new.comp
         rot, prev_base, base, perr = new.rotation, base, new.baseline, \
             new.sub_err
@@ -347,9 +365,10 @@ class _KernelShardedSift(torch.autograd.Function):
     backward differentiates the plain sharded route on the saved input."""
 
     @staticmethod
-    def forward(ctx, x3, group, n_global, max_iteration, endpoint_mode):
+    def forward(ctx, x3, group, n_global, max_iteration, endpoint_mode,
+                fold_emit=None):
         ctx.args = (group, n_global, max_iteration, endpoint_mode)
-        out = _sift_local_kernel(x3, *ctx.args)
+        out = _sift_local_kernel(x3, *ctx.args, fold_emit)
         ctx.save_for_backward(x3)
         ctx.mark_non_differentiable(out[1], out[2])
         ctx.set_materialize_grads(False)
@@ -367,7 +386,7 @@ class _KernelShardedSift(torch.autograd.Function):
             if pairs:
                 (gx,) = torch.autograd.grad([o for o, _ in pairs], xr,
                                             [g for _, g in pairs])
-        return gx, None, None, None, None
+        return gx, None, None, None, None, None
 
 
 def _as_rows(x):
@@ -404,7 +423,9 @@ def sharded_itd_sift(x: torch.Tensor, group, max_iteration: int = 11, *,
     on every shard (f32; on a CPU tensor their plain versions), bit for bit
     ``itd_sift(backend="kernel")``; ``"torch"`` the plain sharded fills, any
     float dtype; ``"auto"`` is ``"kernel"`` for f32 on a CUDA tensor and
-    ``"torch"`` elsewhere.  Differentiable over either group: the kernel
+    ``"torch"`` elsewhere.  The kernel route honours the ``PYITD_FOLD_EMIT``
+    environment flag as JAX's does (each level emits the next trip's tile
+    summaries; the same bits).  Differentiable over either group: the kernel
     route's backward differentiates the plain route (over a ``DistGroup``
     each rank's gradient is that of the sum of the ranks' losses)."""
     if endpoint_mode not in ENDPOINT_MODES:

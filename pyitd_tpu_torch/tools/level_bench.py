@@ -178,9 +178,10 @@ def host_parts(x) -> None:
     pos = torch.empty((2, rows, nt, 2), dtype=torch.int32, device=x.device)
     val = torch.empty((2, rows, nt, 2), dtype=torch.float32, device=x.device)
     small = torch.empty((2, rows), dtype=torch.int32, device=x.device)
-    scan_args = (rows, nt, *(t.data_ptr() for t in summ), None, 0,
-                 pos[0].data_ptr(), val[0].data_ptr(), pos[1].data_ptr(),
-                 val[1].data_ptr(), small[0].data_ptr(), small[1].data_ptr(),
+    scan_args = (rows, nt, *(t.data_ptr() for t in summ), None, 0, 0, None,
+                 None, None, pos[0].data_ptr(), val[0].data_ptr(),
+                 pos[1].data_ptr(), val[1].data_ptr(), small[0].data_ptr(),
+                 small[1].data_ptr(),
                  None, None, None, 0, 0, None, None, None, None,
                  cf._stream(x))
     parts = {

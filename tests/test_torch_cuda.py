@@ -161,7 +161,9 @@ def test_sift_launches_one_summary_pass(device):
         "level_summaries": 1, "tile_scan": 11, "sift_level": 11, "fill2": 0,
         "linear_fill2": 0, "fillv": 0, "segsum": 0}
     assert cuda_fill.MODE_LAUNCHES == {
-        "sift_level_book": 10, "sift_level_emit": 10, "tile_scan_edges": 10}
+        "sift_level_book": 10, "sift_level_emit": 10,
+        "sift_level_shard_emit": 0, "tile_scan_edges": 10,
+        "tile_scan_shard_edges": 0}
 
 
 def test_itd_class_runs_numpy_f64_on_the_kernels(device):

@@ -162,8 +162,14 @@ def test_new_modes_check_their_arguments():
                          torch.zeros(3), *(torch.zeros((3, 2), dtype=d)
                                            for d in (torch.int32,
                                                      torch.float32) * 2))
-    with pytest.raises(ValueError, match="whole rows"):
-        cf.sift_level_cuda(x, states, shard=shard, emit=True)
+    # time shards emit too (the sharded fold_emit): the interior summaries
+    # leave out each shard's last sample, and a shard's edge completion
+    # needs the signal they were taken from
+    out = cf.sift_level_cuda(x, states, shard=shard, emit=True)
+    want = cf.interior_summaries(out.baseline, shard)
+    assert all(torch.equal(a, b) for a, b in zip(out.interior, want))
+    with pytest.raises(ValueError, match="edges_from"):
+        cf.tile_scan_cuda(interior, shard=shard)
     with pytest.raises(ValueError, match="tiles"):
         cf.tile_scan_cuda(interior, edges_from=x[:, :100].contiguous())
     with pytest.raises(ValueError, match="float32"):

@@ -218,10 +218,14 @@ def test_backends_and_refusals():
     with pytest.raises(ValueError, match="at least one shard"):
         LocalGroup(0)
     assert LocalGroup.differentiable and DistGroup.differentiable
+    # fold_emit: each level emits the next trip's tile summaries, and the
+    # result is the route's without it
     x3, n = LocalGroup(2).to_shards(x.float())
-    with pytest.raises(NotImplementedError, match="6.3"):
-        _sift_local_kernel(x3, LocalGroup(2), n, 3, "reference",
-                           fold_emit=True)
+    emit = _sift_local_kernel(x3, LocalGroup(2), n, 3, "reference",
+                              fold_emit=True)
+    plain = _sift_local_kernel(x3, LocalGroup(2), n, 3, "reference",
+                               fold_emit=False)
+    assert all(bitwise_equal(a, b) for a, b in zip(emit, plain))
     # sharded_streaming_itd is ported now (its stub raised here): the
     # channel split runs and equals the replay it splits
     from pyitd_tpu_torch import streaming_itd
@@ -236,16 +240,22 @@ def test_backends_and_refusals():
 def test_collective_budget_per_trip(seq, backend):
     """Per trip of the kernel route: 2 halo exchanges, ONE gather of the
     stacked boundary states, ONE sum (knot count + end knots), as
-    tests/test_sharded.py:214-254 pins for JAX; the plain route's fills
-    gather per channel and are not pinned, only counted."""
+    tests/test_sharded.py:214-254 pins for JAX, with ``fold_emit`` too; the
+    plain route's fills gather per channel and are not pinned, only
+    counted."""
     x = torch.from_numpy(bank(4, 1024).astype(np.float32))
     max_it = 4
     trips = (max_it + 2) + 1  # levels + the initial extraction
     group = LocalGroup(seq)
     sharded_itd_sift(x, group, max_it, backend=backend)
     if backend == "kernel":
-        assert group.calls == {"halo": 2 * trips, "all_gather": trips,
-                               "all_reduce_sum": trips, "all_reduce_min": 0}
+        budget = {"halo": 2 * trips, "all_gather": trips,
+                  "all_reduce_sum": trips, "all_reduce_min": 0}
+        assert group.calls == budget
+        group.reset_calls()
+        x3, n = group.to_shards(x)
+        _sift_local_kernel(x3, group, n, max_it, "reference", fold_emit=True)
+        assert group.calls == budget
     else:
         assert group.calls["halo"] % trips == 0 and group.calls["halo"] > 0
         assert group.calls["all_reduce_min"] == 0
