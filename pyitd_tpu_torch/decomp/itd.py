@@ -23,6 +23,7 @@ from ..ops import cuda_fill as cf
 from ..ops.linear_baseline import (ENDPOINT_MODES, check_kernel_input,
                                    linear_baseline_extract,
                                    linear_baseline_extract_structural)
+from ..utils.spans import span, spanned
 
 __all__ = ["itd_sift", "SiftResult", "ITD", "STOP_RUNNING", "STOP_FLAT",
            "STOP_BUDGET"]
@@ -167,6 +168,7 @@ def _itd_sift_torch(x, max_iteration, endpoint_mode, store_baselines,
     )
 
 
+@spanned("pyitd.sift")
 def _itd_sift_kernel(x, max_iteration, endpoint_mode, store_baselines,
                      early_exit):
     """The loop of the JAX ``_itd_sift_fused``: per trip one tile scan
@@ -174,7 +176,8 @@ def _itd_sift_kernel(x, max_iteration, endpoint_mode, store_baselines,
     that writes the row in place.  Only the input's tiles are summarised
     by a pass of their own: every level emits its baseline's interior
     summaries for the next trip's scan, which completes them with each
-    tile's two edge samples."""
+    tile's two edge samples.  A call is the profiler span ``pyitd.sift``,
+    each trip ``pyitd.trip`` (``utils/spans.py``)."""
     levels = max_iteration + 2
     batch_shape, n = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, n).contiguous()
@@ -195,26 +198,29 @@ def _itd_sift_kernel(x, max_iteration, endpoint_mode, store_baselines,
     prev_base, comp = zero, zero
 
     for i in range(levels):
-        states = cf.tile_scan_cuda(interior, carry, trip=i,
-                                   max_iteration=max_iteration,
-                                   edges_from=base)
-        # the last trip's baseline is extracted no further
-        new = cf.sift_level_cuda(base, states, endpoint_mode=endpoint_mode,
-                                 rotp=rot, pbase=prev_base, perr=perr,
-                                 comp=comp, out_row=out_rot[i],
-                                 emit=i + 1 < levels)
-        interior = new.interior
-        if store_baselines:
-            cont = (states.flags & cf.CONT)[:, None] != 0
-            torch.where(cont, base, torch.zeros_like(base), out=out_base[i])
-        comp = new.comp
-        rot, prev_base, base, perr = new.rotation, base, new.baseline, \
-            new.sub_err
-        if early_exit and i + 1 < levels and bool((carry.done != 0).all()):
-            out_rot[i + 1:] = 0
+        with span("pyitd.trip"):
+            states = cf.tile_scan_cuda(interior, carry, trip=i,
+                                       max_iteration=max_iteration,
+                                       edges_from=base)
+            # the last trip's baseline is extracted no further
+            new = cf.sift_level_cuda(base, states,
+                                     endpoint_mode=endpoint_mode, rotp=rot,
+                                     pbase=prev_base, perr=perr, comp=comp,
+                                     out_row=out_rot[i], emit=i + 1 < levels)
+            interior = new.interior
             if store_baselines:
-                out_base[i + 1:] = 0
-            break
+                cont = (states.flags & cf.CONT)[:, None] != 0
+                torch.where(cont, base, torch.zeros_like(base),
+                            out=out_base[i])
+            comp = new.comp
+            rot, prev_base, base, perr = new.rotation, base, new.baseline, \
+                new.sub_err
+            if early_exit and i + 1 < levels \
+                    and bool((carry.done != 0).all()):
+                out_rot[i + 1:] = 0
+                if store_baselines:
+                    out_base[i + 1:] = 0
+                break
 
     return SiftResult(
         rotations=out_rot.reshape((levels,) + batch_shape + (n,)),
@@ -231,7 +237,9 @@ class _KernelSift(torch.autograd.Function):
     replays the loop with structural levels on the kernels (forward levels
     and adjoint fills) and differentiates the replay, whose forward equals
     the kernel forward bit for bit.  ``num_components`` and
-    ``stop_reason`` are not differentiable."""
+    ``stop_reason`` are not differentiable.  The backward is the profiler
+    span ``pyitd.sift_bwd``, its replay ``pyitd.replay``; each level's
+    adjoint inside it is ``pyitd.level_bwd``."""
 
     @staticmethod
     def forward(ctx, x, max_iteration, endpoint_mode, store_baselines,
@@ -244,12 +252,15 @@ class _KernelSift(torch.autograd.Function):
         return tuple(res)
 
     @staticmethod
+    @spanned("pyitd.sift_bwd")
     def backward(ctx, g_rot, g_base, _g_ncomp, _g_reason, g_corr):
         (x,) = ctx.saved_tensors
         with torch.enable_grad():
             xr = x.detach().requires_grad_()
-            res = _itd_sift_torch(xr, *ctx.args, linear_backend="structural",
-                                  level_backend="kernel")
+            with span("pyitd.replay"):
+                res = _itd_sift_torch(xr, *ctx.args,
+                                      linear_backend="structural",
+                                      level_backend="kernel")
             pairs = [(o, g) for o, g in ((res.rotations, g_rot),
                                          (res.baselines, g_base),
                                          (res.correction, g_corr))

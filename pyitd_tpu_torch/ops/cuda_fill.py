@@ -54,7 +54,10 @@ shard's first baseline sample, and ``tile_scan_cuda(..., edges_from=...,
 shard=...)`` completes it with the next trip's halos (JAX's ``fold_emit``).
 
 Each wrapper checks its tensors, launches its kernel on PyTorch's current
-stream for a CUDA tensor, and counts the launch in ``LAUNCHES``.  For a CPU
+stream for a CUDA tensor, and counts the launch in ``LAUNCHES``.  Each call
+runs inside the profiler span ``pyitd.<wrapper>`` (``utils/spans.py``:
+recorded only while a profiler is on), so a trace counts the launches where
+they are made and holds each launch inside its wrapper's span.  For a CPU
 tensor it runs the plain PyTorch version beside it (``level_summaries``,
 ``tile_scan``, ``sift_level``, ``fill2``, ``linear_fill2``, ``fillv``,
 ``segsum``); those
@@ -73,6 +76,7 @@ from .fill import (backward_fill2_scan, backward_fill_scan,
                    shift_left, shift_right)
 from .linear_baseline import (interp, knot_mask, knot_mask_at, knot_value,
                               two_sum_err)
+from ..utils.spans import spanned
 
 __all__ = [
     "TILE", "STOP_A", "STOP_B", "CONT", "LAUNCHES", "SEGSUM_LAUNCHES",
@@ -726,6 +730,7 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+@spanned("pyitd.level_summaries")
 def level_summaries_cuda(x: torch.Tensor,
                          shard: ShardArgs | None = None) -> TileSummaries:
     """Per-tile knot summaries of ``x`` (rows, n) f32; with ``shard`` of
@@ -752,6 +757,7 @@ def level_summaries_cuda(x: torch.Tensor,
     return TileSummaries(pos[0], val[0], pos[1], val[1], cnt)
 
 
+@spanned("pyitd.tile_scan")
 def tile_scan_cuda(summ: TileSummaries, carry: SiftCarry | None = None,
                    trip: int = 0, max_iteration: int = 0,
                    totals: bool = False,
@@ -826,6 +832,7 @@ def level_states_cuda(x: torch.Tensor, carry: SiftCarry | None = None,
     return tile_scan_cuda(level_summaries_cuda(x), carry, trip, max_iteration)
 
 
+@spanned("pyitd.sift_level")
 def sift_level_cuda(x: torch.Tensor, states: LevelStates, *,
                     endpoint_mode: str = "reference", rotp=None, pbase=None,
                     perr=None, comp=None, out_row=None,
@@ -927,6 +934,7 @@ def _scan_scratch(lib, x: torch.Tensor) -> torch.Tensor:
     return buf
 
 
+@spanned("pyitd.fill2")
 def fill2_cuda(vals: torch.Tensor, mask: torch.Tensor, reverse: bool = False,
                strict: bool = False):
     """``(p1, v1, p2, v2)`` of :func:`fill2` for ``vals`` (rows, n) f32 and
@@ -949,6 +957,7 @@ def fill2_cuda(vals: torch.Tensor, mask: torch.Tensor, reverse: bool = False,
     return p1, v1, p2, v2
 
 
+@spanned("pyitd.linear_fill2")
 def linear_fill2_cuda(x: torch.Tensor, reverse: bool = False):
     """``(p1, v1, p2, v2)`` of :func:`linear_fill2` for ``x`` (rows, n)
     f32, n >= 2; positions int32.  The knot mask is computed in the
@@ -974,6 +983,7 @@ def linear_fill2_cuda(x: torch.Tensor, reverse: bool = False):
     return p1, v1, p2, v2
 
 
+@spanned("pyitd.fillv")
 def fillv_cuda(vals: torch.Tensor, mask: torch.Tensor,
                reverse: bool = False) -> torch.Tensor:
     """:func:`fillv` of ``vals`` (rows, n) f32 and ``mask`` (rows, n)
@@ -994,6 +1004,7 @@ def fillv_cuda(vals: torch.Tensor, mask: torch.Tensor,
     return out
 
 
+@spanned("pyitd.segsum")
 def segsum_cuda(vals, flags: torch.Tensor, reverse: bool = False,
                 strict: bool = False):
     """:func:`segsum` of one or two (rows, n) f32 channels (a tensor or a

@@ -37,6 +37,7 @@ from .extrema import count_extrema, extrema_mask
 from .fill import (backward_fill2_scan, backward_fill_scan,
                    forward_fill2_scan, next_index, prev_index, shift_left,
                    take_last_axis)
+from ..utils.spans import spanned
 
 __all__ = ["linear_baseline_extract", "LinearBaselineResult", "two_sum_err",
            "knot_mask", "knot_mask_at", "structural_level_bwd",
@@ -423,6 +424,7 @@ class _StructuralLevel(torch.autograd.Function):
         return tuple(r)
 
     @staticmethod
+    @spanned("pyitd.level_bwd")
     def backward(ctx, g_rot, g_base, _g_nex, g_err):
         (x,) = ctx.saved_tensors
 
