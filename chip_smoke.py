@@ -25,7 +25,11 @@ Phases (each raises on failure, so any failure exits non-zero):
    (``scan_protocol_cases``: rows and arrays off a 16-byte boundary, 1
    tile, 1 tile + 1, 245 tiles with a row that has no mark, 256 x 16,384,
    and 8 x 1M, more blocks than the card holds at once), and the same
-   segsum call 20 times bitwise the same; the level adjoint on the
+   segsum call 20 times bitwise the same; the level adjoint's own kernels
+   (``bwd_knots``, ``bwd_pre``, ``bwd_post``) against their plain versions
+   to rtol = atol = 0 on ``level_bwd_cases`` (edge shapes, rows of 3 to 5
+   samples, plateaus, rows and arrays off a 16-byte boundary, 256 x 16,384
+   and 8 x 1M); the level adjoint on the
    kernels against the plain route (rtol = atol = 2e-4, and no more than
    1.5x the plain route's error against an f64 truth, plus 1e-6); the
    ``ITD`` class on a numpy float64 signal through the sift kernels; the
@@ -60,12 +64,14 @@ Phases (each raises on failure, so any failure exits non-zero):
    of both held bitwise equal;
 5. the main path's gradient at full size: the same signal with
    ``requires_grad``, loss ``sum(rotations^2) + 0.7 * sum(correction)``,
-   ``.backward()``; launches counted, the gradient finite and held against
+   ``.backward()``; launches counted (per level adjoint two fill2, two
+   segsum and one of each adjoint kernel), the gradient finite and held against
    the plain structural route (``backend="torch",
    linear_backend="structural"``) and both against an f64 truth, and
    against plain scans with the planted faults rejected; forward +
-   backward and forward alone timed (median of 10), device busy time,
-   idle share, top device kernels and peak memory;
+   backward and forward alone timed (median of 10), device busy time by
+   group (sift, scan and adjoint kernels, PyTorch ops), idle share, top
+   device kernels and peak memory;
 6. the trainer of ``examples/train_through_itd.py`` at 8 x 1,000,000 with
    ``max_iteration=6``: 5 Adam steps (lr 3e-2) through the kernel sift, each
    loss finite, the step-0 taps gradient held against the plain structural
@@ -76,7 +82,9 @@ Phases (each raises on failure, so any failure exits non-zero):
    with the bookkeeping, the same emitting interior summaries, ``tile_scan``
    completing them with the tiles' edge samples (bitwise the scan of
    ``level_summaries`` of the same baseline), ``sift_level`` without the
-   bookkeeping (K2); the scans and the level kernels also on the input of
+   bookkeeping (K2); the scans and the level adjoint's own kernels, these
+   also at 256 x 16,384 with the launches of one counted gradient there;
+   the scans and the level kernels also on the input of
    the sift's last level, where knots are sparse and the scans' look-back
    is longest; the cubic
    kernels K5-K8 likewise after phase 8, on the inputs the cubic level
@@ -252,11 +260,14 @@ SRC = {k: "pyitd_tpu_torch/csrc/sift_level.cu"
        for k in ("level_summaries", "tile_scan", "tile_scan_edges",
                  "sift_level", "sift_level_emit", "sift_level_k2")}
 SRC.update({k: "pyitd_tpu_torch/csrc/fill_segsum.cu"
-            for k in ("fill2", "fillv", "segsum", "segsum_1ch",
-                      "linear_fill2")})
+            for k in ("fill2", "fillv", "segsum", "linear_fill2")})
 SRC.update({k: "pyitd_tpu_torch/csrc/cubic.cu"
             for k in ("cubic_ksite", "cubic_neighbors", "spike_backsub_eval")})
 SRC["spike_factors"] = "pyitd_tpu_torch/csrc/spike.cu"
+# the level adjoint's own kernels: they replace no TPU kernel, but fuse the
+# XLA glue of JAX's structural adjoint
+ADJOINT_KERNELS = ("bwd_knots", "bwd_pre", "bwd_post")
+SRC.update({k: "pyitd_tpu_torch/csrc/level_bwd.cu" for k in ADJOINT_KERNELS})
 SIFT_KERNELS = ("level_summaries", "tile_scan", "sift_level")
 SRC.update({"sharded_" + k: SRC[k] for k in SIFT_KERNELS
              + ("sift_level_emit", "tile_scan_edges")})
@@ -271,12 +282,13 @@ REPLACES = {
     "linear_fill2": "pyitd_tpu/ops/pallas_fill.py:738",
     "fillv": "pyitd_tpu/ops/pallas_fill.py:363",
     "segsum": "pyitd_tpu/ops/pallas_fill.py:503",
-    "segsum_1ch": "pyitd_tpu/ops/pallas_fill.py:503",
     "cubic_ksite": "pyitd_tpu/ops/pallas_fill.py:1590",
     "cubic_neighbors": "pyitd_tpu/ops/pallas_fill.py:1691",
     "spike_factors": "pyitd_tpu/ops/pallas_spike.py:176",
     "spike_backsub_eval": "pyitd_tpu/ops/pallas_spike.py:262",
 }
+REPLACES.update({k: "none: the XLA glue of pyitd_tpu/ops/linear_baseline.py:"
+                    "315 (_structural_level_bwd)" for k in ADJOINT_KERNELS})
 # K9: the three sift kernels with the shard arguments compiled in; with
 # fold_emit the level emits (the kernel's fold_emit=True) and the scan
 # completes its summaries (states_from_folds, XLA in JAX)
@@ -738,6 +750,95 @@ def check_scan_protocol(dev) -> None:
                                      f"inputs differ")
         print(f"[2] segsum {name}: 20 calls on the same inputs bitwise the "
               f"same", flush=True)
+
+
+def level_bwd_cases():
+    """The shapes and layouts for the level adjoint's fused kernels, each
+    (name, f32 array, element offset of every input from an aligned
+    address): phase 2's cases (a NaN quarantine, tile edges, 2 samples, a
+    constant and a monotone row), rows of 3 to 5 samples (the end-knot
+    additions overlap, the first and last knots gather), plateaus and flat
+    runs, rows and arrays off a 16-byte boundary (a chunk holds the end of
+    one row and the start of the next; every access scalar), and the
+    benchmark's and the main path's shapes."""
+    rng = np.random.default_rng(18)
+    for name, x in phase2_cases():
+        yield name, x, 0
+    for rows, n in ((4, 3), (3, 4), (5, 5)):
+        yield f"({rows}, {n})", rng.normal(size=(rows, n)).astype(
+            np.float32), 0
+    flat = np.round(rng.normal(size=(4, 5000)) * 1.5).astype(np.float32)
+    flat[1, 1000:3000] = 2.0
+    flat[2] = np.repeat(rng.normal(size=50), 100)
+    yield "plateaus and flat runs (4, 5000)", flat, 0
+    t = np.linspace(0, 2 * np.pi, 4097)
+    off = (np.sin(9 * t)[None] + 0.3 * rng.normal(size=(3, 4097))).astype(
+        np.float32)
+    yield "rows off a 16-byte boundary (3, 4097)", off, 0
+    yield "arrays off a 16-byte boundary (3, 4097)", off, 1
+    yield "arrays off by 3 floats (2, 130)", off[:2, :130].copy(), 3
+    yield "(256, 16384)", eeg_signal(*EEG_SHAPE), 0
+    yield "(8, 1000000)", bench_signal(*MAIN_SHAPE), 0
+
+
+def check_level_bwd(name, x, offset: int = 0) -> bool:
+    """``bwd_knots``, ``bwd_pre`` and ``bwd_post`` on the card against
+    their plain versions on ``x``'s level adjoint (random cotangents, both
+    endpoint modes): rtol = atol = 0, NaN equal to NaN and +0 to -0.
+    ``offset``: every input starts that many elements past an aligned
+    address.  Returns whether every output was also bitwise its plain
+    version's."""
+    import torch
+    from pyitd_tpu_torch.ops import cuda_fill as cf
+
+    rng = np.random.default_rng(x.shape[1] + 2)
+    cts = [torch.from_numpy(rng.normal(size=tuple(x.shape)).astype(
+        np.float32)).to(x.device) for _ in range(3)]
+
+    def moved(*ts):
+        return tuple(off_boundary(t, offset) for t in ts) if offset else ts
+
+    x, *cts = moved(x, *cts)
+    bitwise = True
+
+    def same(what, got, want):
+        nonlocal bitwise
+        for a, b in zip(got, want):
+            torch.testing.assert_close(
+                a, b, rtol=0, atol=0, equal_nan=True,
+                msg=lambda m: f"{what} {name}: {m}")
+            bitwise = bitwise and bitwise_equal(a, b)
+
+    knots, f_next = cf.bwd_knots_cuda(x)
+    same("bwd_knots", (knots, f_next), cf.bwd_knots(x))
+    knots, f_next = moved(knots, f_next)
+    fwd = moved(*cf.fill2_cuda(x, knots))
+    bwd = moved(*cf.fill2_cuda(x, knots, True, True))
+    for mode in ("reference", "natural"):
+        pre = cf.bwd_pre_cuda(x, *cts, fwd, bwd, mode)
+        same(f"bwd_pre {mode}", pre, cf.bwd_pre(x, *cts, fwd, bwd, mode))
+        seg_a = moved(*cf.segsum_cuda(pre[:2], f_next, reverse=True))
+        seg_e = moved(*cf.segsum_cuda(pre[2:4], knots, strict=True))
+        (gx,) = moved(pre[4])
+        same(f"bwd_post {mode}",
+             (cf.bwd_post_cuda(knots, gx, seg_a, seg_e, fwd[2], bwd[0]),),
+             (cf.bwd_post(knots, gx, seg_a, seg_e, fwd[2], bwd[0]),))
+    return bitwise
+
+
+def check_level_bwd_cases(dev) -> None:
+    """``check_level_bwd`` on ``level_bwd_cases``."""
+    import torch
+
+    for name, xn, offset in level_bwd_cases():
+        bitwise = check_level_bwd(name, torch.from_numpy(xn).to(dev),
+                                  offset)
+        torch.cuda.synchronize()
+        print(f"[2] level adjoint kernels, {name}, inputs {offset} floats "
+              f"past an aligned address: bwd_knots, bwd_pre, bwd_post equal "
+              f"their plain versions (rtol = atol = 0), "
+              f"{'bitwise' if bitwise else 'but for the sign of a zero'}",
+              flush=True)
 
 
 def check_adjoint(name, x, rng, tight: bool) -> tuple[float, float]:
@@ -3899,6 +4000,7 @@ def main() -> int:
           f"f32 on the kernels, bitwise the plain f32 sift; launches "
           f"{itd_launches}", flush=True)
     check_scan_protocol(dev)
+    check_level_bwd_cases(dev)
     phase2_cubic(dev)
     phase2_sharded(dev)
 
@@ -3986,12 +4088,13 @@ def main() -> int:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # forward and replay: levels + 1 extractions each, the replay's each
     # with a pre-pass of its own; every extraction of the replay but the
-    # last trip's reaches the loss: two fill2 and four segsum calls each
+    # last trip's reaches the loss: two fill2 and two segsum calls each,
+    # and one of each of the adjoint's own kernels
     want = {"level_summaries": levels + 2, "tile_scan": 2 * (levels + 1),
             "sift_level": 2 * (levels + 1), "fill2": 2 * levels,
-            "linear_fill2": 0, "fillv": 0, "segsum": 4 * levels}
-    if grad_launches != want or segsum_launches != {1: 2 * levels,
-                                                    2: 2 * levels}:
+            "linear_fill2": 0, "fillv": 0, "segsum": 2 * levels,
+            "bwd_knots": levels, "bwd_pre": levels, "bwd_post": levels}
+    if grad_launches != want or segsum_launches != {1: 0, 2: 2 * levels}:
         raise AssertionError(f"gradient launches {grad_launches}, segsum by "
                              f"channels {segsum_launches}, expected {want}")
     g = xg.grad.detach().clone()
@@ -4056,24 +4159,31 @@ def main() -> int:
           f"alone {f:.4f} ms (min {f_ms[0]:.4f}, max {f_ms[-1]:.4f}); ratio "
           f"{fb / f:.2f}; device busy {fb_dms:.4f} ms, idle share "
           f"{1 - fb_dms / fb:.3f}  [{card}]", flush=True)
-    groups = {"sift kernels": 0.0, "scan kernels": 0.0, "PyTorch ops": 0.0}
+    groups = {"sift kernels": 0.0, "scan kernels": 0.0,
+              "adjoint kernels": 0.0, "PyTorch ops": 0.0}
     for k, v in fb_by_name.items():
         if any(s in k for s in ("sift_level_kernel", "level_summaries_kernel",
                                 "tile_scan_kernel")):
             groups["sift kernels"] += v
         elif "scan_lookback" in k:
             groups["scan kernels"] += v
+        elif any(f"{s}_kernel" in k for s in ADJOINT_KERNELS):
+            groups["adjoint kernels"] += v
         else:
             groups["PyTorch ops"] += v
     print("[5]   device time by group (ms per forward + backward): "
           + "; ".join(f"{k} {v:.4f}" for k, v in groups.items()), flush=True)
-    # one launch per scan call: 2 fill2 and 4 segsum calls per level
+    # one launch per call: 2 fill2 and 2 segsum calls per level, and one of
+    # each adjoint kernel
     scan_kernels = device_launches(fwd_bwd, "scan_lookback")
+    adj_kernels = device_launches(fwd_bwd, "bwd_")
     print(f"[5]   scan kernel launches per forward + backward: "
-          f"{scan_kernels} for {6 * levels} calls", flush=True)
-    if scan_kernels != 6 * levels:
+          f"{scan_kernels} for {4 * levels} calls; adjoint kernel launches "
+          f"{adj_kernels} for {3 * levels} calls", flush=True)
+    if scan_kernels != 4 * levels or adj_kernels != 3 * levels:
         raise AssertionError(f"{scan_kernels} scan kernel launches for "
-                             f"{6 * levels} scan calls")
+                             f"{4 * levels} scan calls, {adj_kernels} "
+                             f"adjoint kernel launches for {3 * levels}")
     top = sorted(fb_by_name.items(), key=lambda kv: -kv[1])[:8]
     print("[5]   top device kernels (ms per forward + backward): " + "; ".join(
         f"{kernel_label(k)} {v:.4f}" for k, v in top), flush=True)
@@ -4124,7 +4234,8 @@ def main() -> int:
         raise AssertionError(f"trainer losses {losses}")
     t_levels = TRAIN_MAX_IT + 2
     if (train_launches["fill2"] != 2 * t_levels * TRAIN_STEPS
-            or train_launches["segsum"] != 4 * t_levels * TRAIN_STEPS):
+            or train_launches["segsum"] != 2 * t_levels * TRAIN_STEPS
+            or train_launches["bwd_post"] != t_levels * TRAIN_STEPS):
         raise AssertionError(f"trainer launches {train_launches}")
     print(f"[6] trainer 8x1M max_iteration={TRAIN_MAX_IT}: {TRAIN_STEPS} Adam "
           f"steps, losses {losses}; {step_ms:.2f} ms per step (host clock, "
@@ -4179,7 +4290,8 @@ def main() -> int:
               f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, "
               f"{flops / 1e6:.1f} MFLOP); {count} launches  [{card}]",
               flush=True)
-        entries.append({"name": name, "route": "cuda", "source": SRC[name],
+        entries.append({"name": name, "shape": shape, "route": "cuda",
+                        "source": SRC[name],
                         "replaces": REPLACES[name], "launches": count,
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": b_ms, "bound_by": b_by,
@@ -4295,24 +4407,68 @@ def main() -> int:
     chans = tuple(torch.randn(MAIN_SHAPE, generator=gen, device=dev)
                   for _ in range(2))
     s_err, s_ratio = segsum_within_bound(chans, f_next, True, "8x1M")
-    s1_err, s1_ratio = segsum_within_bound(chans[0], knots, True, "8x1M",
-                                           strict=True)
-    # the knot-neighbor read: one nonzero term per segment, so exact
-    push = torch.where(knots, chans[0], 0.0)
-    if not torch.equal(cf.segsum_cuda(push, knots, True, True),
-                       cf.segsum(push, knots, True, True)):
-        raise AssertionError("segsum 8x1M: knot read not exact")
     print(f"[7] segsum at 8x1M: 2 channels within {s_ratio:.4f} of "
-          f"segsum_error_bound, 1 channel (strict) within {s1_ratio:.4f}; "
-          f"the knot read exact", flush=True)
+          f"segsum_error_bound", flush=True)
     entry("segsum", s_err, lambda: cf.segsum_cuda(chans, f_next, True),
           lambda: cf.segsum(chans, f_next, True), rows * n * (8 + 1 + 8),
           2 * rows * n, segsum_launches[2], exact=False)
-    # the adjoint's knot reads: one channel, strict, over the knots
-    entry("segsum_1ch", s1_err,
-          lambda: cf.segsum_cuda(chans[0], knots, True, True),
-          lambda: cf.segsum(chans[0], knots, True, True),
-          rows * n * (4 + 1 + 4), rows * n, segsum_launches[1], exact=False)
+
+    # the level adjoint's own kernels on the same level input, at 8x1M and
+    # at the benchmark's 256 x 16,384 (the first level of its bank)
+    def adjoint_entries(xa, shape, counts):
+        r, m = xa.shape
+        cgen = torch.Generator(device=dev).manual_seed(6)
+        cts = [torch.randn(xa.shape, generator=cgen, device=dev)
+               for _ in range(3)]
+        kk = cf.bwd_knots_cuda(xa)
+        kn, fn_ = kk
+        fw = cf.fill2_cuda(xa, kn)
+        bw = cf.fill2_cuda(xa, kn, True, True)
+        pre = cf.bwd_pre_cuda(xa, *cts, fw, bw)
+        sa = cf.segsum_cuda(pre[:2], fn_, reverse=True)
+        se = cf.segsum_cuda(pre[2:4], kn, strict=True)
+        post = cf.bwd_post_cuda(kn, pre[4], sa, se, fw[2], bw[0])
+        errs = {
+            "bwd_knots": max(max_abs_err(a, b)
+                             for a, b in zip(kk, cf.bwd_knots(xa))),
+            "bwd_pre": max(max_abs_err(a, b) for a, b in zip(
+                pre, cf.bwd_pre(xa, *cts, fw, bw))),
+            "bwd_post": max_abs_err(post, cf.bwd_post(
+                kn, pre[4], sa, se, fw[2], bw[0]))}
+        calls = {
+            "bwd_knots": (lambda: cf.bwd_knots_cuda(xa),
+                          lambda: cf.bwd_knots(xa)),
+            "bwd_pre": (lambda: cf.bwd_pre_cuda(xa, *cts, fw, bw),
+                        lambda: cf.bwd_pre(xa, *cts, fw, bw)),
+            "bwd_post": (lambda: cf.bwd_post_cuda(kn, pre[4], sa, se, fw[2],
+                                                  bw[0]),
+                         lambda: cf.bwd_post(kn, pre[4], sa, se, fw[2],
+                                             bw[0]))}
+        # bytes a sample: x in, two masks out; x, three cotangents and the
+        # fills' eight channels in, five channels out; a mask, the direct
+        # term, four sums and two positions in, the gradient out (the
+        # gathers are L2 reads); flops a sample, about
+        per = {"bwd_knots": (4 + 2, 0), "bwd_pre": (48 + 20, 40),
+               "bwd_post": (29 + 4, 10)}
+        for k in ADJOINT_KERNELS:
+            entry(k, errs[k], *calls[k], r * m * per[k][0],
+                  r * m * per[k][1], counts[k], shape=shape)
+
+    adjoint_entries(base, "8x1M", grad_launches)
+    # the launches of one counted 256 x 16,384 gradient, as the benchmark's
+    # eeg_16k.grad cell takes it
+    xeg = xe.clone().requires_grad_()
+    cf.reset_launches()
+    sift_loss(itd_sift(xeg, EEG_MAX_IT, store_baselines=False)).backward()
+    torch.cuda.synchronize()
+    eeg_launches = dict(cf.LAUNCHES)
+    del xeg
+    if any(eeg_launches[k] != EEG_MAX_IT + 2 for k in ADJOINT_KERNELS):
+        raise AssertionError(f"256x16k gradient launches {eeg_launches}, "
+                             f"expected {EEG_MAX_IT + 2} of each adjoint "
+                             f"kernel")
+    xe1 = cf.sift_level_cuda(xe, cf.level_states_cuda(xe)).baseline
+    adjoint_entries(xe1, "256x16k", eeg_launches)
 
     # the same scans on the input of the backward's last level, where the
     # knots are sparse and a tile looks back furthest
@@ -4329,18 +4485,14 @@ def main() -> int:
         if not bitwise_equal(a, b):
             raise AssertionError("fill2 on the last level's input differs")
     d_err, d_ratio = segsum_within_bound(chans, d_next, True, "last level")
-    d1_err, d1_ratio = segsum_within_bound(chans[0], dknots, True,
-                                           "last level", strict=True)
     deep_ms = {
         "fill2": device_ms(lambda: cf.fill2_cuda(deep, dknots))[0],
         "fillv": device_ms(lambda: cf.fillv_cuda(deep, dknots))[0],
-        "segsum": device_ms(lambda: cf.segsum_cuda(chans, d_next, True))[0],
-        "segsum_1ch": device_ms(
-            lambda: cf.segsum_cuda(chans[0], dknots, True, True))[0]}
+        "segsum": device_ms(lambda: cf.segsum_cuda(chans, d_next, True))[0]}
     print(f"[7] scans on the input of the backward's last level (knots per "
           f"row {per_row}, of {n}; level 1 has {knots.sum(-1).tolist()}): "
-          f"fill2 bitwise, segsum within {d_ratio:.4f} and {d1_ratio:.4f} of "
-          f"its bound (max abs err {d_err!r}, {d1_err!r}); kernel ms per "
+          f"fill2 bitwise, segsum within {d_ratio:.4f} of its bound (max "
+          f"abs err {d_err!r}); kernel ms per "
           f"call (profiler device time) "
           + ", ".join(f"{k} {v:.4f}" for k, v in deep_ms.items())
           + f"  [{card}]", flush=True)

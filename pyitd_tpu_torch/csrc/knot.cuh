@@ -1,5 +1,7 @@
-// The ITD knot test, shared by the sift's and the cubic tier's tile kernels
-// (tile_fill.cuh) and by the scan kernels' linear_fill2 (fill_segsum.cu).
+// The ITD knot test and the Frei-Osorio knot value, shared by the sift's and
+// the cubic tier's tile kernels (tile_fill.cuh), the scan kernels'
+// linear_fill2 (fill_segsum.cu) and the level adjoint's kernels
+// (level_bwd.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -30,6 +32,14 @@ __device__ __forceinline__ bool knot_at(float xm1, float x0, float xp1, int t,
 __device__ __forceinline__ bool knot_at(float xm1, float x0, float xp1, int t,
                                         int n) {
   return knot_at(xm1, x0, xp1, t, n, t, n);
+}
+
+// Frei-Osorio knot value (linear_baseline.py::knot_value), alpha = 0.5
+__device__ __forceinline__ float knot_value(int kpos, float kval, int lpos,
+                                            float lval, int rpos, float rval) {
+  const float span = (float)(rpos - lpos);
+  const float w = (float)(kpos - lpos) / (span == 0.f ? 1.f : span);
+  return 0.5f * (lval + w * (rval - lval)) + 0.5f * kval;
 }
 
 }  // namespace

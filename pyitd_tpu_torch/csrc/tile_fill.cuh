@@ -124,14 +124,6 @@ __device__ __forceinline__ Rev shfl_down(const Rev& s, int o) {
           __shfl_down_sync(FULL, s.q2, o), __shfl_down_sync(FULL, s.w2, o)};
 }
 
-// Frei-Osorio knot value (linear_baseline.py::knot_value), alpha = 0.5
-__device__ __forceinline__ float knot_value(int kpos, float kval, int lpos,
-                                            float lval, int rpos, float rval) {
-  const float span = (float)(rpos - lpos);
-  const float w = (float)(kpos - lpos) / (span == 0.f ? 1.f : span);
-  return 0.5f * (lval + w * (rval - lval)) + 0.5f * kval;
-}
-
 // x[base-1 .. base+TILE] of one row into shared memory; lo for x[-1], hi
 // for x[n], zeros further off the row
 __device__ __forceinline__ void stage_tile(const float* __restrict__ xr, int n,

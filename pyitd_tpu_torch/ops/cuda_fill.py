@@ -3,7 +3,9 @@
 pre-pass ``level_block_states_fwd`` and K2 ``linear_level_pallas`` in
 ``csrc/sift_level.cu``; K3 ``fill2_pallas``, ``fillv_pallas``, K4
 ``segsum_pallas`` and K2a's fills alone, ``linear_fill2_pallas``, in
-``csrc/fill_segsum.cu`` (see each file's header for the design).
+``csrc/fill_segsum.cu``; and the level adjoint's per-sample work, which
+replaces no TPU kernel (the XLA glue of JAX's structural adjoint), in
+``csrc/level_bwd.cu`` (see each file's header for the design).
 
 One level is three launches:
 
@@ -40,6 +42,21 @@ once):
   running sums of one or two channels that reset at flagged samples
   (``strict``: the sum up to the previous sample in scan order).
 
+A level's adjoint (``linear_baseline.structural_level_bwd``) runs two
+``fill2`` and two ``segsum`` calls between three kernels of its own, each
+one launch over every sample:
+
+* ``bwd_knots_cuda(x)``: the knot mask and its one-left shift;
+* ``bwd_pre_cuda(x, g_rot, g_base, g_err, fwd, bwd, endpoint_mode)``: from
+  the two fills' channels, the four cotangent channels that the segment
+  sums take and the gradient's direct term;
+* ``bwd_post_cuda(knots, gx, seg_a, seg_e, p2p, n1p)``: from the segment
+  sums, the gradient.
+
+The torch route of the adjoint calls the plain ``bwd_pre`` and
+``bwd_post`` directly, around its own fills and cumulative-sum segment
+sums, on any dtype and batch shape.
+
 The three sift kernels also run on time shards of a longer signal (the
 port of K9, ``pyitd_tpu/ops/pallas_fill_sharded.py``): with a
 :class:`ShardArgs`, a kernel row is one (shard, row) pair that starts at
@@ -60,8 +77,8 @@ recorded only while a profiler is on), so a trace counts the launches where
 they are made and holds each launch inside its wrapper's span.  For a CPU
 tensor it runs the plain PyTorch version beside it (``level_summaries``,
 ``tile_scan``, ``sift_level``, ``fill2``, ``linear_fill2``, ``fillv``,
-``segsum``); those
-plain versions run on any device.  A CUDA tensor never reaches a plain
+``segsum``, ``bwd_knots``, ``bwd_pre``, ``bwd_post``); those plain versions
+run on any device.  A CUDA tensor never reaches a plain
 version through a wrapper.
 """
 from __future__ import annotations
@@ -74,8 +91,8 @@ import torch
 from .fill import (backward_fill2_scan, backward_fill_scan,
                    forward_fill2_scan, forward_fill_scan, prev_index,
                    shift_left, shift_right)
-from .linear_baseline import (interp, knot_mask, knot_mask_at, knot_value,
-                              two_sum_err)
+from .linear_baseline import (ENDPOINT_MODES, interp, knot_mask,
+                              knot_mask_at, knot_value, two_sum_err)
 from ..utils.spans import spanned
 
 __all__ = [
@@ -88,9 +105,10 @@ __all__ = [
     "tile_scan", "level_states", "sift_level",
     "stop_flags", "emit_row", "fill2", "linear_fill2", "fillv", "segsum",
     "segsum_depth", "segsum_error_bound", "SCAN_THREADS", "SCAN_RUN",
+    "bwd_knots", "bwd_pre", "bwd_post",
     "level_summaries_cuda", "tile_scan_cuda", "level_states_cuda",
     "sift_level_cuda", "fill2_cuda", "linear_fill2_cuda", "fillv_cuda",
-    "segsum_cuda",
+    "segsum_cuda", "bwd_knots_cuda", "bwd_pre_cuda", "bwd_post_cuda",
 ]
 
 TILE = 4096  # samples per tile; the TILE of both csrc/*.cu (checked at load)
@@ -103,7 +121,8 @@ STOP_A, STOP_B, CONT = 1, 2, 4
 
 # launches per kernel wrapper, counted where the kernel is launched
 LAUNCHES = {"level_summaries": 0, "tile_scan": 0, "sift_level": 0,
-            "fill2": 0, "linear_fill2": 0, "fillv": 0, "segsum": 0}
+            "fill2": 0, "linear_fill2": 0, "fillv": 0, "segsum": 0,
+            "bwd_knots": 0, "bwd_pre": 0, "bwd_post": 0}
 
 
 # LAUNCHES["segsum"] by the call's number of channels
@@ -648,6 +667,111 @@ def segsum_error_bound(v: torch.Tensor, flags: torch.Tensor,
     return (segsum_depth(n) + 2) * 2.0 ** -24 * m + 3 * n * 2.0 ** -53 * mm
 
 
+def bwd_knots(x: torch.Tensor):
+    """Plain version of the ``bwd_knots`` kernel: the knot mask of ``x``
+    (``linear_baseline.knot_mask``) and its one-left shift, ``False`` at
+    each row's last sample (a segment boundary sits between a knot and its
+    neighbour, so the reverse segment sums reset where the next sample is a
+    knot)."""
+    knots = knot_mask(x)
+    return knots, shift_left(knots, False)
+
+
+def bwd_pre(x: torch.Tensor, g_rot: torch.Tensor, g_base: torch.Tensor,
+            g_err: torch.Tensor, fwd, bwd, endpoint_mode: str = "reference"):
+    """Plain version of the ``bwd_pre`` kernel: the level adjoint's work
+    between the fills and the segment sums (port of JAX's
+    ``_structural_level_bwd``, in its order of operations).  ``fwd`` is
+    ``fill2(x, knots)``, ``bwd`` ``fill2(x, knots, reverse=True,
+    strict=True)``; returns the four cotangent channels ``(a_bl, a_xl,
+    a_br, a_xr)``, non-finite terms dropped, and the gradient's direct term
+    (its NaNs kept)."""
+    n = x.shape[-1]
+    it = torch.arange(n, device=x.device).expand(x.shape)
+    p1p, p1x, p2p, p2x = fwd
+    n1p, n1x, n2p, n2x = bwd
+
+    b_first = (0.5 * (x[..., 0] + x[..., 1]))[..., None]
+    b_last = (0.5 * (x[..., n - 2] + x[..., n - 1]))[..., None]
+    bl = torch.where(p1p == 0, b_first,
+                     knot_value(p1p, p1x, p2p, p2x, n1p, n1x))
+    bl = torch.where(p1p == n - 1, b_last, bl)
+    br = torch.where(n1p == n - 1, b_last,
+                     knot_value(n1p, n1x, p1p, p1x, n2p, n2x))
+
+    xl, xr = p1x, n1x
+    d = xr - xl
+    dz = d == 0
+    safe = torch.where(dz, torch.ones_like(d), d)
+    zero = torch.zeros_like(d)
+    s = torch.where(dz, zero, (br - bl) / safe)
+
+    # err's coefficients are exactly (+x, -rot, -baseline)
+    geff_rot = g_rot - g_err
+    geff_base = g_base - g_err
+    g_b = geff_base - geff_rot
+    if endpoint_mode == "reference":
+        g_b = torch.where(it == n - 1, torch.zeros_like(g_b), g_b)
+
+    q = torch.where(dz, zero, (x - xl) / safe)
+    coef = torch.where(dz, zero, (br - bl) / (safe * safe))
+    a_bl = g_b * torch.where(dz, torch.ones_like(q), 1.0 - q)
+    a_br = g_b * q
+    a_xl = g_b * coef * (x - xr)
+    a_xr = -g_b * coef * (x - xl)
+
+    gx = geff_rot + g_err + g_b * s  # direct dB/dx[t] = slope
+
+    # Non-finite terms (only inside a NaN quarantine zone, where the
+    # gradient is undefined anyway) are dropped: a running sum would carry
+    # one NaN into every position after it, where autograd keeps it to the
+    # samples involved.  The direct per-sample terms keep their NaNs.
+    a_bl, a_xl, a_br, a_xr = (torch.where(torch.isfinite(z), z, 0.0)
+                              for z in (a_bl, a_xl, a_br, a_xr))
+    return a_bl, a_xl, a_br, a_xr, gx
+
+
+def bwd_post(knots: torch.Tensor, gx: torch.Tensor, seg_a, seg_e,
+             p2p: torch.Tensor, n1p: torch.Tensor) -> torch.Tensor:
+    """Plain version of the ``bwd_post`` kernel: the level adjoint's work
+    after the segment sums.  ``seg_a`` is ``segsum((a_bl, a_xl), f_next,
+    reverse=True)`` (sums over ``[t, nextknot)``), ``seg_e``
+    ``segsum((a_br, a_xr), knots, strict=True)`` (over ``[prevknot, t)``),
+    ``gx`` the direct term, ``p2p`` and ``n1p`` the fills' previous and
+    next knots; returns the x cotangent."""
+    n = knots.shape[-1]
+    it = torch.arange(n, device=knots.device).expand(knots.shape)
+    (seg_a_bl, seg_a_xl), (seg_e_br, seg_e_xr) = seg_a, seg_e
+    gkv = torch.where(knots, seg_a_bl + seg_e_br, 0.0)
+    gx = gx + torch.where(knots, seg_a_xl + seg_e_xr, 0.0)
+
+    # knot-value adjoint.  Interior knots: kv = 0.5*(x[pe] + w*(x[nx] -
+    # x[pe])) + 0.5*x[t]; at a knot site pe = p2p, nx = n1p.
+    span = (n1p - p2p).to(gx.dtype)
+    w = (it - p2p).to(gx.dtype) / torch.where(span == 0,
+                                              torch.ones_like(span), span)
+    interior = knots & (it != 0) & (it != n - 1)
+    gkv_int = torch.where(interior, gkv, torch.zeros_like(gkv))
+    gx = gx + 0.5 * gkv_int
+
+    # pushes: x[pe(k)] += c_p(k); x[nx(k)] += c_n(k).  Every knot is the
+    # previous knot of exactly its next knot (and vice versa), so a knot
+    # receives the c_p of its next knot and the c_n of its previous one:
+    # gathers at the fills' n1p and p2p (none past the row's ends)
+    c_p = gkv_int * (0.5 * (1.0 - w))
+    c_n = gkv_int * (0.5 * w)
+    nxt = torch.where(it == n - 1, 0.0, torch.gather(c_p, -1, n1p.long()))
+    prv = torch.where(it == 0, 0.0, torch.gather(c_n, -1, p2p.long()))
+    gx = gx + torch.where(knots, nxt + prv, 0.0)
+
+    # end knots: kv[0] = 0.5*(x[0]+x[1]); kv[n-1] = 0.5*(x[n-2]+x[n-1])
+    g0 = 0.5 * gkv[..., 0]
+    gl = 0.5 * gkv[..., n - 1]
+    for i, g in ((0, g0), (1, g0), (n - 2, gl), (n - 1, gl)):
+        gx[..., i] += g
+    return gx
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -1031,3 +1155,88 @@ def segsum_cuda(vals, flags: torch.Tensor, reverse: bool = False,
     LAUNCHES["segsum"] += 1
     SEGSUM_LAUNCHES[nch] += 1
     return outs[0] if isinstance(vals, torch.Tensor) else outs
+
+
+def _check_adjoint(x: torch.Tensor, floats=(), ints=(), masks=()) -> None:
+    """Refuse what the adjoint kernels do not take: ``x`` a contiguous
+    (rows, n) f32 signal with n >= 2, the other tensors contiguous on its
+    device with its shape (f32, int32 positions, bool masks)."""
+    if x.dim() != 2:
+        raise ValueError(f"expected a (rows, n) signal, got {tuple(x.shape)}")
+    rows, n = x.shape
+    if n < 2 or rows < 1:
+        raise ValueError(f"the adjoint kernels take rows of at least 2 "
+                         f"samples, got {tuple(x.shape)}")
+    if n > 2**31 - 1:
+        raise ValueError(f"the adjoint kernels take n < 2^31, got {n}")
+    _same(x, x, *floats, dtype=torch.float32, shape=x.shape)
+    _same(x, *ints, dtype=torch.int32, shape=x.shape)
+    _same(x, *masks, dtype=torch.bool, shape=x.shape)
+
+
+@spanned("pyitd.bwd_knots")
+def bwd_knots_cuda(x: torch.Tensor):
+    """:func:`bwd_knots` of ``x`` (rows, n) f32: ``(knots, f_next)``,
+    bool."""
+    _check_adjoint(x)
+    if not x.is_cuda:
+        return bwd_knots(x)
+    rows, n = x.shape
+    knots = torch.empty(x.shape, dtype=torch.bool, device=x.device)
+    f_next = torch.empty_like(knots)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        code = lib.pyitd_bwd_knots(x.data_ptr(), rows, n, knots.data_ptr(),
+                                   f_next.data_ptr(), _stream(x))
+    _check(code, "bwd_knots")
+    LAUNCHES["bwd_knots"] += 1
+    return knots, f_next
+
+
+@spanned("pyitd.bwd_pre")
+def bwd_pre_cuda(x: torch.Tensor, g_rot: torch.Tensor, g_base: torch.Tensor,
+                 g_err: torch.Tensor, fwd, bwd,
+                 endpoint_mode: str = "reference"):
+    """:func:`bwd_pre` of ``x`` and the cotangents (rows, n) f32 and the two
+    fills' ``(p1, v1, p2, v2)`` channels: ``(a_bl, a_xl, a_br, a_xr,
+    gx)``."""
+    if endpoint_mode not in ENDPOINT_MODES:
+        raise ValueError(f"unknown endpoint_mode: {endpoint_mode!r}")
+    _check_adjoint(x, (g_rot, g_base, g_err, fwd[1], fwd[3], bwd[1], bwd[3]),
+                   (fwd[0], fwd[2], bwd[0], bwd[2]))
+    if not x.is_cuda:
+        return bwd_pre(x, g_rot, g_base, g_err, fwd, bwd, endpoint_mode)
+    rows, n = x.shape
+    outs = tuple(torch.empty_like(x) for _ in range(5))
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        code = lib.pyitd_bwd_pre(
+            x.data_ptr(), g_rot.data_ptr(), g_base.data_ptr(),
+            g_err.data_ptr(), *(t.data_ptr() for t in fwd + bwd), rows, n,
+            int(endpoint_mode == "reference"),
+            *(o.data_ptr() for o in outs), _stream(x))
+    _check(code, "bwd_pre")
+    LAUNCHES["bwd_pre"] += 1
+    return outs
+
+
+@spanned("pyitd.bwd_post")
+def bwd_post_cuda(knots: torch.Tensor, gx: torch.Tensor, seg_a, seg_e,
+                  p2p: torch.Tensor, n1p: torch.Tensor) -> torch.Tensor:
+    """:func:`bwd_post` of the direct term ``gx`` and the segment sums
+    (rows, n) f32, ``knots`` (bool) and the fills' ``p2p`` and ``n1p``
+    (int32): the x cotangent."""
+    _check_adjoint(gx, seg_a + seg_e, (p2p, n1p), (knots,))
+    if not gx.is_cuda:
+        return bwd_post(knots, gx, seg_a, seg_e, p2p, n1p)
+    rows, n = gx.shape
+    out = torch.empty_like(gx)
+    lib = _lib()
+    with torch.cuda.device(gx.device):
+        code = lib.pyitd_bwd_post(
+            knots.data_ptr(), gx.data_ptr(),
+            *(t.data_ptr() for t in seg_a + seg_e), p2p.data_ptr(),
+            n1p.data_ptr(), rows, n, out.data_ptr(), _stream(gx))
+    _check(code, "bwd_post")
+    LAUNCHES["bwd_post"] += 1
+    return out

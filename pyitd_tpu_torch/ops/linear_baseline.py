@@ -205,47 +205,13 @@ def linear_baseline_extract(x: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 
-def _structural_fills(x, knots, use_kernels):
-    """The adjoint's five primitives: the forward and strictly-after
-    knot-structure fills, the direct segment sums, and the reads of a
-    knot-sited value at the next / previous knot.  ``use_kernels``: the
-    fill2 and segsum kernels of ``ops/cuda_fill.py`` (JAX's ``"pallas"``
-    route); otherwise cumulative-sum differences read back through the
-    plain fills of ``ops/fill.py`` (JAX's ``"scan"`` route)."""
+def _structural_fills(x, knots):
+    """The torch route's scans: the forward and strictly-after
+    knot-structure fills, and the direct segment sums as cumulative-sum
+    differences read back through the plain fills of ``ops/fill.py``
+    (JAX's ``"scan"`` route)."""
     n = x.shape[-1]
     it = torch.arange(n, device=x.device).expand(x.shape)
-
-    if use_kernels:
-        from .cuda_fill import fill2_cuda, segsum_cuda
-
-        def struct_fwd():
-            return fill2_cuda(x, knots)
-
-        def struct_bwd():
-            return fill2_cuda(x, knots, reverse=True, strict=True)
-
-        # a segment boundary sits BETWEEN a knot and its neighbor, so the
-        # reverse sums reset where the NEXT sample is a knot; a sum that
-        # excludes its own sample is the strict sum over the knots
-        # themselves (JAX shifts values and flags by one instead)
-        f_next = shift_left(knots, False)
-
-        def seg_reads(a_bl, a_xl, a_br, a_xr):
-            # segA_*[t] = sum over [t, nextknot(t)), segE_*[t] = sum over
-            # [prevknot(t), t)
-            seg_a = segsum_cuda((a_bl, a_xl), f_next, reverse=True)
-            seg_e = segsum_cuda((a_br, a_xr), knots, strict=True)
-            return seg_a + seg_e
-
-        def knot_next(v):
-            # v is nonzero only at knots, so the sum over (t, nextknot(t)]
-            # is that one value
-            return segsum_cuda(v, knots, reverse=True, strict=True)
-
-        def knot_prev(v):
-            return segsum_cuda(v, knots, strict=True)
-
-        return struct_fwd, struct_bwd, seg_reads, knot_next, knot_prev
 
     def struct_fwd():
         (a, b), (c, d), _ = forward_fill2_scan((it, x), knots, (0, 0.0))
@@ -257,14 +223,6 @@ def _structural_fills(x, knots, use_kernels):
             (0, 0.0))
         return a, b, c, d
 
-    def fills_after(vals):
-        return backward_fill_scan(tuple(shift_left(v, 0.0) for v in vals),
-                                  shift_left(knots, False), (0.0,) * len(vals))
-
-    def fills_before(vals):
-        _v1, v2, _ = forward_fill2_scan(vals, knots, (0.0,) * len(vals))
-        return v2
-
     def seg_reads(a_bl, a_xl, a_br, a_xr):
         # exclusive running sums of the four channels, read back at the
         # neighbor knots; one batched cumsum
@@ -274,22 +232,19 @@ def _structural_fills(x, knots, use_kernels):
         tot_bl, tot_xl = c[0, ..., -1:], c[1, ..., -1:]
         # running sum at the NEXT knot (strictly after), patched at the
         # last sample (a knot) with the total
-        nxt_bl, nxt_xl = fills_after((zs_bl, zs_xl))
+        nxt_bl, nxt_xl = backward_fill_scan(
+            (shift_left(zs_bl, 0.0), shift_left(zs_xl, 0.0)),
+            shift_left(knots, False), (0.0, 0.0))
         is_last = it == n - 1
         nxt_bl = torch.where(is_last, tot_bl, nxt_bl)
         nxt_xl = torch.where(is_last, tot_xl, nxt_xl)
         # running sum at the PREVIOUS knot (strictly before)
-        prv_br, prv_xr = fills_before((zs_br, zs_xr))
-        return (nxt_bl - zs_bl, nxt_xl - zs_xl, zs_br - prv_br,
-                zs_xr - prv_xr)
+        _v1, (prv_br, prv_xr), _ = forward_fill2_scan((zs_br, zs_xr), knots,
+                                                      (0.0, 0.0))
+        return ((nxt_bl - zs_bl, nxt_xl - zs_xl),
+                (zs_br - prv_br, zs_xr - prv_xr))
 
-    def knot_next(v):
-        return fills_after((v,))[0]
-
-    def knot_prev(v):
-        return fills_before((v,))[0]
-
-    return struct_fwd, struct_bwd, seg_reads, knot_next, knot_prev
+    return struct_fwd, struct_bwd, seg_reads
 
 
 def structural_level_bwd(x: torch.Tensor, g_rot: torch.Tensor,
@@ -300,11 +255,11 @@ def structural_level_bwd(x: torch.Tensor, g_rot: torch.Tensor,
     output cotangents; returns the x cotangent (port of JAX's
     ``_structural_level_bwd``, in its order of operations).
 
-    ``fills`` selects the scan primitives: ``"kernel"`` (the fill2 and
-    segsum kernels, f32; on a CPU tensor their plain versions), ``"torch"``
-    (cumulative-sum differences read back through plain fills, any device
-    and dtype), ``"auto"`` (``"kernel"`` on a CUDA f32 tensor, ``"torch"``
-    elsewhere).  The two routes agree to segment-sum rounding, not bitwise:
+    ``fills`` selects the route: ``"kernel"`` (the adjoint's kernels
+    around the fill2 and segsum kernels, f32; on a CPU tensor their plain
+    versions), ``"torch"`` (cumulative-sum differences read back through
+    plain fills, any device and dtype), ``"auto"`` (``"kernel"`` on a CUDA
+    f32 tensor, ``"torch"`` elsewhere).  The two routes agree to segment-sum rounding, not bitwise:
     the kernels sum each segment directly, the torch route differences
     running sums of the whole row."""
     if endpoint_mode not in ENDPOINT_MODES:
@@ -314,99 +269,54 @@ def structural_level_bwd(x: torch.Tensor, g_rot: torch.Tensor,
             else "torch"
     if fills == "torch":
         return _structural_level_bwd_impl(x, g_rot, g_base, g_err,
-                                          endpoint_mode, False)
+                                          endpoint_mode)
     if fills != "kernel":
         raise ValueError(f"unknown fills: {fills!r}")
     check_kernel_input(x)
     n = x.shape[-1]
 
-    def flat(a):  # the kernels take (rows, n); everything below is batched
+    def flat(a):  # the kernels take (rows, n)
         return a.reshape(-1, n).contiguous()
 
-    gx = _structural_level_bwd_impl(flat(x), flat(g_rot), flat(g_base),
-                                    flat(g_err), endpoint_mode, True)
+    gx = _structural_level_bwd_kernels(flat(x), flat(g_rot), flat(g_base),
+                                       flat(g_err), endpoint_mode)
     return gx.reshape(x.shape)
 
 
-def _structural_level_bwd_impl(x, g_rot, g_base, g_err, endpoint_mode,
-                               use_kernels):
-    n = x.shape[-1]
-    it = torch.arange(n, device=x.device).expand(x.shape)
+def _structural_level_bwd_kernels(x, g_rot, g_base, g_err, endpoint_mode):
+    """The kernel route (JAX's ``"pallas"`` route): seven launches of the
+    kernels of ``ops/cuda_fill.py`` (on a CPU tensor their plain versions).
+    The fills give each sample its segment's knots, ``bwd_pre`` the
+    cotangent channels, the segment sums land them on the knot sites
+    (``seg_a`` over ``[t, nextknot)``: the reverse sums reset where the NEXT
+    sample is a knot; ``seg_e`` over ``[prevknot, t)``: strict sums over the
+    knots), and ``bwd_post`` the gradient."""
+    from . import cuda_fill as cf
+
+    knots, f_next = cf.bwd_knots_cuda(x)
+    fwd = cf.fill2_cuda(x, knots)
+    bwd = cf.fill2_cuda(x, knots, reverse=True, strict=True)
+    a_bl, a_xl, a_br, a_xr, gx = cf.bwd_pre_cuda(x, g_rot, g_base, g_err,
+                                                 fwd, bwd, endpoint_mode)
+    seg_a = cf.segsum_cuda((a_bl, a_xl), f_next, reverse=True)
+    seg_e = cf.segsum_cuda((a_br, a_xr), knots, strict=True)
+    return cf.bwd_post_cuda(knots, gx, seg_a, seg_e, fwd[2], bwd[0])
+
+
+def _structural_level_bwd_impl(x, g_rot, g_base, g_err, endpoint_mode):
+    """The torch route: the plain versions of the adjoint kernels
+    (``cuda_fill.bwd_pre``, ``cuda_fill.bwd_post``) around the plain fills
+    and the cumulative-sum segment sums; any device, dtype and batch
+    shape."""
+    from . import cuda_fill as cf
+
     knots = knot_mask(x)
-    struct_fwd, struct_bwd, seg_reads, knot_next, knot_prev = \
-        _structural_fills(x, knots, use_kernels)
-
-    # per-sample knot structure, the forward's fill channels
-    p1p, p1x, p2p, p2x = struct_fwd()
-    n1p, n1x, n2p, n2x = struct_bwd()
-
-    b_first = (0.5 * (x[..., 0] + x[..., 1]))[..., None]
-    b_last = (0.5 * (x[..., n - 2] + x[..., n - 1]))[..., None]
-    bl = torch.where(p1p == 0, b_first,
-                     knot_value(p1p, p1x, p2p, p2x, n1p, n1x))
-    bl = torch.where(p1p == n - 1, b_last, bl)
-    br = torch.where(n1p == n - 1, b_last,
-                     knot_value(n1p, n1x, p1p, p1x, n2p, n2x))
-
-    xl, xr = p1x, n1x
-    d = xr - xl
-    dz = d == 0
-    safe = torch.where(dz, torch.ones_like(d), d)
-    zero = torch.zeros_like(d)
-    s = torch.where(dz, zero, (br - bl) / safe)
-
-    # err's coefficients are exactly (+x, -rot, -baseline)
-    geff_rot = g_rot - g_err
-    geff_base = g_base - g_err
-    g_b = geff_base - geff_rot
-    if endpoint_mode == "reference":
-        g_b = torch.where(it == n - 1, torch.zeros_like(g_b), g_b)
-
-    q = torch.where(dz, zero, (x - xl) / safe)
-    coef = torch.where(dz, zero, (br - bl) / (safe * safe))
-    a_bl = g_b * torch.where(dz, torch.ones_like(q), 1.0 - q)
-    a_br = g_b * q
-    a_xl = g_b * coef * (x - xr)
-    a_xr = -g_b * coef * (x - xl)
-
-    gx = geff_rot + g_err + g_b * s  # direct dB/dx[t] = slope
-
-    # Non-finite terms (only inside a NaN quarantine zone, where the
-    # gradient is undefined anyway) are dropped: a running sum would carry
-    # one NaN into every position after it, where autograd keeps it to the
-    # samples involved.  The direct per-sample terms keep their NaNs.
-    a_bl, a_xl, a_br, a_xr = (torch.where(torch.isfinite(z), z, 0.0)
-                              for z in (a_bl, a_xl, a_br, a_xr))
-
-    # segment sums landing on knot sites: over [t, nextknot) for the *_l
-    # channels, over [prevknot, t) for the *_r
-    seg_a_bl, seg_a_xl, seg_e_br, seg_e_xr = seg_reads(a_bl, a_xl, a_br,
-                                                       a_xr)
-    gkv = torch.where(knots, seg_a_bl + seg_e_br, 0.0)
-    gx = gx + torch.where(knots, seg_a_xl + seg_e_xr, 0.0)
-
-    # knot-value adjoint.  Interior knots: kv = 0.5*(x[pe] + w*(x[nx] -
-    # x[pe])) + 0.5*x[t]; at a knot site pe = p2p, nx = n1p.
-    span = (n1p - p2p).to(x.dtype)
-    w = (it - p2p).to(x.dtype) / torch.where(span == 0,
-                                             torch.ones_like(span), span)
-    interior = knots & (it != 0) & (it != n - 1)
-    gkv_int = torch.where(interior, gkv, torch.zeros_like(gkv))
-    gx = gx + 0.5 * gkv_int
-
-    # pushes: x[pe(k)] += c_p(k); x[nx(k)] += c_n(k).  Every knot is the
-    # exclusive-previous of exactly its next knot (and vice versa), so the
-    # receive is one strictly-after / strictly-before read
-    c_p = gkv_int * (0.5 * (1.0 - w))
-    c_n = gkv_int * (0.5 * w)
-    gx = gx + torch.where(knots, knot_next(c_p) + knot_prev(c_n), 0.0)
-
-    # end knots: kv[0] = 0.5*(x[0]+x[1]); kv[n-1] = 0.5*(x[n-2]+x[n-1])
-    g0 = 0.5 * gkv[..., 0]
-    gl = 0.5 * gkv[..., n - 1]
-    for i, g in ((0, g0), (1, g0), (n - 2, gl), (n - 1, gl)):
-        gx[..., i] += g
-    return gx
+    struct_fwd, struct_bwd, seg_reads = _structural_fills(x, knots)
+    fwd, bwd = struct_fwd(), struct_bwd()
+    a_bl, a_xl, a_br, a_xr, gx = cf.bwd_pre(x, g_rot, g_base, g_err, fwd,
+                                            bwd, endpoint_mode)
+    seg_a, seg_e = seg_reads(a_bl, a_xl, a_br, a_xr)
+    return cf.bwd_post(knots, gx, seg_a, seg_e, fwd[2], bwd[0])
 
 
 class _StructuralLevel(torch.autograd.Function):
@@ -442,8 +352,8 @@ def linear_baseline_extract_structural(
     """:func:`linear_baseline_extract` with the structural backward: the
     forward runs ``backend`` (the kernels included) without autograd, the
     backward is :func:`structural_level_bwd` on the same route (the
-    kernel level's adjoint runs the fill2 and segsum kernels, the torch
-    level's the plain fills).  ``num_extrema`` is not differentiable."""
+    kernel level's adjoint runs the adjoint, fill2 and segsum kernels, the
+    torch level's the plain fills).  ``num_extrema`` is not differentiable."""
     if backend == "auto":
         backend = "kernel" if x.is_cuda else "torch"
     return LinearBaselineResult(*_StructuralLevel.apply(

@@ -14,6 +14,12 @@ mark, more blocks than the card holds at once) and gives the same bits on
 every call; the level adjoint on the kernels is
 held against the plain route as ``tests/test_pallas_fill.py:394-404`` holds
 JAX's two routes; the sift gradient against the plain structural route.
+The level adjoint's own kernels (``bwd_knots``, ``bwd_pre``, ``bwd_post``)
+equal their plain versions (rtol = atol = 0, NaN equal to NaN) on
+``chip_smoke.level_bwd_cases`` (edge shapes, rows of 2 to 5 samples,
+arrays off a 16-byte boundary, 256 x 16,384 and 8 x 1,048,576), the sift
+gradient equals the same chain with those three swapped for their plain
+versions, and they refuse what they cannot take.
 The cubic tier's kernels (K5-K8) are bitwise their plain versions, and its
 ``"fills"`` route bitwise the plain route, also with knots and NaN on K7's
 run and SPIKE-block edges; K7 alone on ``tools/cubic_bench.py::
@@ -41,8 +47,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (check_scans, device_launches, scan_protocol_cases,
-                        sharded_cases)
+from chip_smoke import (check_level_bwd, check_scans, device_launches,
+                        level_bwd_cases, scan_protocol_cases, sharded_cases)
 from pyitd_tpu_torch import (ITD, cubic_baseline_extract, itd_sift,
                              linear_baseline_extract)
 from pyitd_tpu_torch.ops import cuda_cubic, cuda_fill
@@ -159,7 +165,8 @@ def test_sift_launches_one_summary_pass(device):
     assert res.stop_reason.tolist() == [2] * 4
     assert cuda_fill.LAUNCHES == {
         "level_summaries": 1, "tile_scan": 11, "sift_level": 11, "fill2": 0,
-        "linear_fill2": 0, "fillv": 0, "segsum": 0}
+        "linear_fill2": 0, "fillv": 0, "segsum": 0, "bwd_knots": 0,
+        "bwd_pre": 0, "bwd_post": 0}
     assert cuda_fill.MODE_LAUNCHES == {
         "sift_level_book": 10, "sift_level_emit": 10,
         "sift_level_shard_emit": 0, "tile_scan_edges": 10,
@@ -307,6 +314,95 @@ def test_a_protocol_fault_is_a_cuda_error_not_a_hang(device):
     assert "CUDA error" in proc.stdout
 
 
+ADJOINT = ("bwd_knots", "bwd_pre", "bwd_post")
+BWD_CASES = list(level_bwd_cases())
+
+
+@pytest.mark.parametrize("name,x,offset", BWD_CASES,
+                         ids=[c[0] for c in BWD_CASES])
+def test_level_adjoint_kernels_equal_plain(device, name, x, offset):
+    """Each of the adjoint's own kernels equals its plain version to rtol =
+    atol = 0 (``chip_smoke.check_level_bwd`` raises otherwise), one launch
+    per call."""
+    cuda_fill.reset_launches()
+    check_level_bwd(name, torch.from_numpy(x).to(device), offset)
+    torch.cuda.synchronize()
+    assert [cuda_fill.LAUNCHES[k] for k in ADJOINT] == [1, 2, 2]
+
+
+@pytest.mark.parametrize("shape", [(2, 9000), (256, 16384)])
+def test_sift_grad_equals_its_plain_adjoint_chain(device, shape,
+                                                  monkeypatch):
+    """The sift gradient on the kernels equals the same route with the
+    adjoint's three kernels swapped for their plain versions (the scans
+    still the kernels), to rtol = atol = 0."""
+    x = torch.from_numpy(CASES[0][1]).to(device) if shape == (2, 9000) \
+        else _protocol_signal(*shape, device)
+
+    def grad():
+        xg = x.clone().requires_grad_()
+        r = itd_sift(xg, 5, store_baselines=False)
+        ((r.rotations ** 2).sum() + 0.7 * r.correction.sum()).backward()
+        return xg.grad
+
+    cuda_fill.reset_launches()
+    got = grad()
+    assert all(cuda_fill.LAUNCHES[k] == 7 for k in ADJOINT)
+    with monkeypatch.context() as m:
+        for k in ADJOINT:
+            m.setattr(cuda_fill, f"{k}_cuda", getattr(cuda_fill, k))
+        cuda_fill.reset_launches()
+        want = grad()
+        assert all(cuda_fill.LAUNCHES[k] == 0 for k in ADJOINT)
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+def test_bwd_post_takes_positions_of_a_faulty_fill(device):
+    """Positions that are not the fills' of this mask, as a fill that drops
+    its tile carry gives (``chip_smoke.FAULTS``: 0 where the tile holds no
+    earlier or later knot), gather from wherever they point in the row, as
+    the plain version does, and read nothing outside it."""
+    from chip_smoke import _tile_carry_dropped
+
+    x = _protocol_signal(3, 9001, device)
+    g = [_protocol_signal(3, 9001, device).flip(-1).contiguous()
+         for _ in range(3)]
+    knots, f_next = cuda_fill.bwd_knots_cuda(x)
+    fwd = _tile_carry_dropped(cuda_fill.fill2_cuda(x, knots), knots, False,
+                              False)
+    bwd = _tile_carry_dropped(cuda_fill.fill2_cuda(x, knots, True, True),
+                              knots, True, True)
+    pre = cuda_fill.bwd_pre_cuda(x, *g, fwd, bwd)
+    seg_a = cuda_fill.segsum_cuda(pre[:2], f_next, reverse=True)
+    seg_e = cuda_fill.segsum_cuda(pre[2:4], knots, strict=True)
+    got = cuda_fill.bwd_post_cuda(knots, pre[4], seg_a, seg_e, fwd[2], bwd[0])
+    torch.cuda.synchronize()
+    want = cuda_fill.bwd_post(knots, pre[4], seg_a, seg_e, fwd[2], bwd[0])
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+def test_adjoint_kernels_refuse_what_they_cannot_take(device):
+    def calls(x):
+        z = torch.zeros(3, 8, device=device)
+        knots, _ = cuda_fill.bwd_knots(z)
+        fwd = cuda_fill.fill2(z, knots)
+        bwd = cuda_fill.fill2(z, knots, True, True)
+        seg = (z, z)
+        return (lambda: cuda_fill.bwd_knots_cuda(x),
+                lambda: cuda_fill.bwd_pre_cuda(x, z, z, z, fwd, bwd),
+                lambda: cuda_fill.bwd_post_cuda(knots, x, seg, seg, fwd[2],
+                                                bwd[0]))
+
+    cuda_fill.reset_launches()
+    for x in (torch.zeros(3, 1, device=device),
+              torch.zeros(3, 8, dtype=torch.float64, device=device),
+              torch.zeros(3, 16, device=device)[:, ::2]):
+        for call in calls(x):
+            with pytest.raises(ValueError):
+                call()
+    assert all(cuda_fill.LAUNCHES[k] == 0 for k in ADJOINT)
+
+
 def test_level_adjoint_on_kernels_against_plain(device):
     rng = np.random.default_rng(11)
     n = 8192 + 130
@@ -319,7 +415,8 @@ def test_level_adjoint_on_kernels_against_plain(device):
     cuda_fill.reset_launches()
     g_ker = structural_level_bwd(x, *cts, "reference")  # auto: the kernels
     assert cuda_fill.LAUNCHES["fill2"] == 2
-    assert cuda_fill.LAUNCHES["segsum"] == 4
+    assert cuda_fill.LAUNCHES["segsum"] == 2
+    assert [cuda_fill.LAUNCHES[k] for k in ADJOINT] == [1, 1, 1]
     g_tor = structural_level_bwd(x, *cts, "reference", fills="torch")
     torch.testing.assert_close(g_ker, g_tor, rtol=2e-4, atol=2e-4)
     g_true = structural_level_bwd(x.double(), *(c.double() for c in cts),
@@ -342,7 +439,8 @@ def test_sift_grad_on_kernels_against_plain_structural(device, monkeypatch):
         levels = int(rk.num_components.max()) if kw.get("early_exit") \
             else 5 + 2
         assert cuda_fill.LAUNCHES["fill2"] == 2 * levels, kw
-        assert cuda_fill.LAUNCHES["segsum"] == 4 * levels, kw
+        assert cuda_fill.LAUNCHES["segsum"] == 2 * levels, kw
+        assert all(cuda_fill.LAUNCHES[k] == levels for k in ADJOINT), kw
         with monkeypatch.context() as m:
             m.setattr(cuda_fill, "fill2_cuda", cuda_fill.fill2)
             m.setattr(cuda_fill, "segsum_cuda", cuda_fill.segsum)

@@ -119,7 +119,8 @@ def test_fold_emit_sharded_sift_launches(device, monkeypatch):
     torch.cuda.synchronize()
     assert cf.LAUNCHES == {
         "level_summaries": 1, "tile_scan": 11, "sift_level": 11, "fill2": 0,
-        "linear_fill2": 0, "fillv": 0, "segsum": 0}
+        "linear_fill2": 0, "fillv": 0, "segsum": 0, "bwd_knots": 0,
+        "bwd_pre": 0, "bwd_post": 0}
     assert cf.MODE_LAUNCHES == {
         "sift_level_book": 10, "sift_level_emit": 10,
         "sift_level_shard_emit": 10, "tile_scan_edges": 10,

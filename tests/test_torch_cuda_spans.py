@@ -24,16 +24,21 @@ from pyitd_tpu_torch.ops import cuda_fill
 pytestmark = pytest.mark.cuda
 
 SHAPE, MAX_IT = (256, 16384), 8
-# the kernel each wrapper launches (csrc/sift_level.cu, csrc/fill_segsum.cu)
+# the kernel each wrapper launches (csrc/sift_level.cu, csrc/fill_segsum.cu,
+# csrc/level_bwd.cu)
 KERNEL = {"level_summaries": "level_summaries_kernel",
           "tile_scan": "tile_scan_kernel",
           "sift_level": "sift_level_kernel", "fill2": "scan_lookback",
           "linear_fill2": "scan_lookback", "fillv": "scan_lookback",
-          "segsum": "scan_lookback"}
+          "segsum": "scan_lookback", "bwd_knots": "bwd_knots_kernel",
+          "bwd_pre": "bwd_pre_kernel", "bwd_post": "bwd_post_kernel"}
+# per level adjoint: one bwd_knots, two fill2, one bwd_pre, two segsum, one
+# bwd_post
 LAUNCHES = {"sift": {"level_summaries": 1, "tile_scan": 11,
                      "sift_level": 11},
             "grad": {"level_summaries": 12, "tile_scan": 22,
-                     "sift_level": 22, "fill2": 20, "segsum": 40}}
+                     "sift_level": 22, "fill2": 20, "segsum": 20,
+                     "bwd_knots": 10, "bwd_pre": 10, "bwd_post": 10}}
 WINDOW = "test.window"
 # the profiler aligns the device's clock to the host's once per session: in
 # some sessions nearly every device record then leads its own launch, by up

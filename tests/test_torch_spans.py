@@ -5,7 +5,9 @@ inside the same spans as on the card, so a CPU profile holds the card's
 span tree: ``pyitd.sift`` around the loop, ``pyitd.trip`` around each trip,
 one ``pyitd.<wrapper>`` per wrapper call, and in the gradient
 ``pyitd.sift_bwd`` around the backward, ``pyitd.replay`` around its replayed
-forward and ``pyitd.level_bwd`` around each level's adjoint.  With no
+forward and ``pyitd.level_bwd`` around each level's adjoint, which holds
+the spans of its fused kernels (``pyitd.bwd_knots``, ``pyitd.bwd_pre``,
+``pyitd.bwd_post``) beside those of its scans.  With no
 profiler running nothing records and no ``record_function`` is entered.
 """
 import collections
@@ -25,6 +27,9 @@ from pyitd_tpu_torch.utils import spans
 MAX_IT = 8  # 10 trips, 11 extractions
 WRAPPERS = ("level_summaries", "tile_scan", "sift_level", "fill2",
             "linear_fill2", "fillv", "segsum")
+# the level adjoint's own kernels, counted apart from the seven above (the
+# benchmark's wrappers.* metrics read those seven)
+FUSED = ("bwd_knots", "bwd_pre", "bwd_post")
 RESERVED = re.compile(r"^(itd_sift|loss|backward|bench\..*)$")
 
 
@@ -76,8 +81,8 @@ def _named(spans_, name):
     return [s for s in spans_ if s.name == name]
 
 
-def _wrapper_spans(spans_):
-    return [s for s in spans_ if s.name[len("pyitd."):] in WRAPPERS]
+def _wrapper_spans(spans_, names=WRAPPERS):
+    return [s for s in spans_ if s.name[len("pyitd."):] in names]
 
 
 @pytest.mark.parametrize("name,count", [
@@ -113,39 +118,48 @@ def test_sift_trips_hold_all_but_the_first_extraction(sift_spans, name,
 
 
 # per backward: the replay's 11 extractions of 3 launches, then 10 level
-# adjoints of 2 fill2 and 4 segsum (the last trip's extraction reaches no
-# output)
+# adjoints of 2 fill2, 2 segsum and one of each fused kernel (the last
+# trip's extraction reaches no output)
 GRAD_COUNTS = {"pyitd.sift_bwd": 1, "pyitd.replay": 1,
                "pyitd.level_bwd": MAX_IT + 2,
                "pyitd.level_summaries": 1 + (MAX_IT + 3),
                "pyitd.tile_scan": 2 * (MAX_IT + 3),
                "pyitd.sift_level": 2 * (MAX_IT + 3),
                "pyitd.fill2": 2 * (MAX_IT + 2),
-               "pyitd.segsum": 4 * (MAX_IT + 2),
+               "pyitd.segsum": 2 * (MAX_IT + 2),
                "pyitd.linear_fill2": 0, "pyitd.fillv": 0,
-               "wrappers": 116}
+               "pyitd.bwd_knots": MAX_IT + 2, "pyitd.bwd_pre": MAX_IT + 2,
+               "pyitd.bwd_post": MAX_IT + 2,
+               "wrappers": 96, "fused": 3 * (MAX_IT + 2)}
+
+
+def _counted(spans_, name):
+    if name == "wrappers":
+        return _wrapper_spans(spans_)
+    if name == "fused":
+        return _wrapper_spans(spans_, FUSED)
+    return _named(spans_, name)
 
 
 @pytest.mark.parametrize("name", list(GRAD_COUNTS))
 def test_grad_span_counts(grad_spans, name):
-    got = _wrapper_spans(grad_spans) if name == "wrappers" \
-        else _named(grad_spans, name)
-    assert len(got) == GRAD_COUNTS[name]
+    assert len(_counted(grad_spans, name)) == GRAD_COUNTS[name]
 
 
 @pytest.mark.parametrize("name,within,count", [
     ("pyitd.replay", "pyitd.sift_bwd", 1),
     ("pyitd.level_bwd", "pyitd.sift_bwd", MAX_IT + 2),
     ("wrappers", "pyitd.replay", 3 * (MAX_IT + 3)),
-    ("wrappers", "pyitd.level_bwd", 6 * (MAX_IT + 2)),
+    ("wrappers", "pyitd.level_bwd", 4 * (MAX_IT + 2)),
+    ("fused", "pyitd.level_bwd", 3 * (MAX_IT + 2)),
     ("wrappers", "pyitd.sift", 2 * MAX_IT + 7)])
 def test_grad_spans_nest(grad_spans, name, within, count):
     """The replay and the adjoints lie inside the backward (the adjoints
     after the replay, which they differentiate); the wrapper calls split
-    into the forward's, the replay's and the adjoints'."""
+    into the forward's, the replay's and the adjoints'; the fused kernels
+    run inside the adjoints alone."""
     outer = _named(grad_spans, within)
-    inner = _wrapper_spans(grad_spans) if name == "wrappers" \
-        else _named(grad_spans, name)
+    inner = _counted(grad_spans, name)
     assert sum(any(s.inside(o) for o in outer) for s in inner) == count
     if name == "pyitd.level_bwd":
         (replay,) = _named(grad_spans, "pyitd.replay")
@@ -154,6 +168,7 @@ def test_grad_spans_nest(grad_spans, name, within, count):
 
 def _wrapper_call(name, x):
     mask = knot_mask(x)
+    fwd, bwd = cf.fill2(x, mask), cf.fill2(x, mask, True, True)
     return {
         "level_summaries": lambda: cf.level_summaries_cuda(x),
         "tile_scan": lambda: cf.tile_scan_cuda(cf.level_summaries(x)),
@@ -162,10 +177,14 @@ def _wrapper_call(name, x):
         "linear_fill2": lambda: cf.linear_fill2_cuda(x, reverse=True),
         "fillv": lambda: cf.fillv_cuda(x, mask),
         "segsum": lambda: cf.segsum_cuda((x, x), mask, strict=True),
+        "bwd_knots": lambda: cf.bwd_knots_cuda(x),
+        "bwd_pre": lambda: cf.bwd_pre_cuda(x, x, x, x, fwd, bwd),
+        "bwd_post": lambda: cf.bwd_post_cuda(mask, x, (x, x), (x, x),
+                                             fwd[2], bwd[0]),
     }[name]
 
 
-@pytest.mark.parametrize("name", WRAPPERS)
+@pytest.mark.parametrize("name", WRAPPERS + FUSED)
 def test_each_wrapper_call_is_one_span(name):
     call = _wrapper_call(name, _bank())
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -203,7 +222,8 @@ def test_recorded_span_names(sift_spans, grad_spans):
     names = {s.name for s in sift_spans + grad_spans}
     assert names == {"pyitd.sift", "pyitd.trip", "pyitd.sift_bwd",
                      "pyitd.replay", "pyitd.level_bwd"} | {
-        f"pyitd.{w}" for w in WRAPPERS if w not in ("linear_fill2", "fillv")}
+        f"pyitd.{w}" for w in WRAPPERS + FUSED
+        if w not in ("linear_fill2", "fillv")}
 
 
 PKG = Path(__file__).resolve().parents[1] / "pyitd_tpu_torch"

@@ -11,8 +11,17 @@
   ``jax.grad`` of ``_itd_sift_xla(..., linear_backend="structural")`` and
   against the port's autograd route, to 1e-11;
 * the kernel route with a gradient, f32 on the CPU: forward bit for bit
-  the plain loop's, gradient against the plain structural route, and two
-  fill2 and four segsum calls per level that reaches the loss;
+  the plain loop's, gradient against the plain structural route, and per
+  level that reaches the loss one ``bwd_knots``, two fill2, one
+  ``bwd_pre``, two segsum and one ``bwd_post`` call;
+* the level adjoint's fused kernels (``cuda_fill.bwd_knots``, ``bwd_pre``,
+  ``bwd_post``, their plain versions here) and the whole kernel-route
+  adjoint on a CPU tensor equal the route's composition before the fusion
+  (:func:`_unfused_adjoint`: eager glue around two fill2 and four segsum
+  calls, the knot reads as one-channel segment sums) to rtol = atol = 0,
+  NaN equal to NaN and +0 to -0, on banks, batched shapes, flat runs and
+  plateaus, a NaN quarantine and rows of 2 to 5 samples, in both endpoint
+  modes; the wrappers refuse what the kernels do not take;
 * the trainer of ``examples/train_through_itd.py``, f64: the taps gradient
   against ``jax.grad`` of the same loss to 1e-10, at the start and after 3
   SGD steps applied to both sides.
@@ -152,8 +161,11 @@ def test_sift_grad_f64_matches_jax_structural():
         itd_sift(xt, 4, linear_backend="bogus")
 
 
+ADJOINT = ("bwd_knots", "fill2", "bwd_pre", "segsum", "bwd_post")
+
+
 def _count_calls(monkeypatch):
-    calls = {"fill2": 0, "segsum": 0}
+    calls = dict.fromkeys(ADJOINT, 0)
     for name in calls:
         fn = getattr(cuda_fill, f"{name}_cuda")
 
@@ -189,14 +201,16 @@ def test_kernel_route_grad_on_cpu_f32(monkeypatch, shape, max_it, kw):
     a, b = result_to_numpy(rk), result_to_numpy(rp)
     for f in a._fields:
         np.testing.assert_array_equal(getattr(a, f), getattr(b, f), f)
-    assert calls == {"fill2": 0, "segsum": 0}
+    assert calls == dict.fromkeys(ADJOINT, 0)
 
     _loss(rk).backward()
     levels = max_it + 2
     if kw.get("early_exit"):
         levels = int(rk.num_components.max())
     # every extraction but the last trip's reaches the loss
-    assert calls == {"fill2": 2 * levels, "segsum": 4 * levels}
+    assert calls == {"bwd_knots": levels, "fill2": 2 * levels,
+                     "bwd_pre": levels, "segsum": 2 * levels,
+                     "bwd_post": levels}
     _loss(rp).backward()
     gk, gp = xk.grad.numpy(), xp.grad.numpy()
     np.testing.assert_array_equal(np.isnan(gk), np.isnan(gp))
@@ -253,3 +267,202 @@ def test_trainer_grad_f64_matches_jax(linear_backend):
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-10,
                                    err_msg=f"step {step}")
         taps = taps - 0.05 * want  # the same SGD step on both sides
+
+
+# ---- the level adjoint's fused kernels, against the composition before
+# the fusion ----
+
+def _unfused_adjoint(x, g_rot, g_base, g_err, endpoint_mode):
+    """The kernel route's level adjoint as eager glue around the plain
+    fill2 and segsum (the fused kernels' reference): the knot mask and its
+    shift, the two fills, the channels, two two-channel segment sums, and
+    the pushes read back as one-channel segment sums over the knots.
+    Returns its intermediates by the fused kernels' outputs."""
+    from pyitd_tpu_torch.ops.fill import shift_left
+    from pyitd_tpu_torch.ops.linear_baseline import knot_mask, knot_value
+
+    fill2, segsum = cuda_fill.fill2, cuda_fill.segsum
+    n = x.shape[-1]
+    it = torch.arange(n, device=x.device).expand(x.shape)
+    knots = knot_mask(x)
+    f_next = shift_left(knots, False)
+    p1p, p1x, p2p, p2x = fill2(x, knots)
+    n1p, n1x, n2p, n2x = fill2(x, knots, reverse=True, strict=True)
+    b_first = (0.5 * (x[..., 0] + x[..., 1]))[..., None]
+    b_last = (0.5 * (x[..., n - 2] + x[..., n - 1]))[..., None]
+    bl = torch.where(p1p == 0, b_first,
+                     knot_value(p1p, p1x, p2p, p2x, n1p, n1x))
+    bl = torch.where(p1p == n - 1, b_last, bl)
+    br = torch.where(n1p == n - 1, b_last,
+                     knot_value(n1p, n1x, p1p, p1x, n2p, n2x))
+    xl, xr = p1x, n1x
+    d = xr - xl
+    dz = d == 0
+    safe = torch.where(dz, torch.ones_like(d), d)
+    zero = torch.zeros_like(d)
+    s = torch.where(dz, zero, (br - bl) / safe)
+    geff_rot = g_rot - g_err
+    geff_base = g_base - g_err
+    g_b = geff_base - geff_rot
+    if endpoint_mode == "reference":
+        g_b = torch.where(it == n - 1, torch.zeros_like(g_b), g_b)
+    q = torch.where(dz, zero, (x - xl) / safe)
+    coef = torch.where(dz, zero, (br - bl) / (safe * safe))
+    a_bl = g_b * torch.where(dz, torch.ones_like(q), 1.0 - q)
+    a_br = g_b * q
+    a_xl = g_b * coef * (x - xr)
+    a_xr = -g_b * coef * (x - xl)
+    gx0 = geff_rot + g_err + g_b * s
+    chans = tuple(torch.where(torch.isfinite(z), z, 0.0)
+                  for z in (a_bl, a_xl, a_br, a_xr))
+    seg_a = segsum(chans[:2], f_next, reverse=True)
+    seg_e = segsum(chans[2:], knots, strict=True)
+    gkv = torch.where(knots, seg_a[0] + seg_e[0], 0.0)
+    gx = gx0 + torch.where(knots, seg_a[1] + seg_e[1], 0.0)
+    span = (n1p - p2p).to(x.dtype)
+    w = (it - p2p).to(x.dtype) / torch.where(span == 0,
+                                             torch.ones_like(span), span)
+    interior = knots & (it != 0) & (it != n - 1)
+    gkv_int = torch.where(interior, gkv, torch.zeros_like(gkv))
+    gx = gx + 0.5 * gkv_int
+    c_p = gkv_int * (0.5 * (1.0 - w))
+    c_n = gkv_int * (0.5 * w)
+    gx = gx + torch.where(knots, segsum(c_p, knots, True, True)
+                          + segsum(c_n, knots, strict=True), 0.0)
+    g0 = 0.5 * gkv[..., 0]
+    gl = 0.5 * gkv[..., n - 1]
+    for i, g in ((0, g0), (1, g0), (n - 2, gl), (n - 1, gl)):
+        gx[..., i] += g
+    return {"knots": (knots, f_next), "fills": ((p1p, p1x, p2p, p2x),
+                                                (n1p, n1x, n2p, n2x)),
+            "pre": chans + (gx0,), "seg": (seg_a, seg_e), "gx": gx}
+
+
+def _fused_cases():
+    rng = np.random.default_rng(18)
+    yield "bank", rng.normal(size=(4, 300))
+    yield "batched", rng.normal(size=(2, 3, 64))
+    t = np.linspace(0, 6 * np.pi, 257)
+    yield "sine", np.stack([np.sin(t), np.sin(3 * t) + 0.2 * t])
+    yield "plateaus", np.round(rng.normal(size=(3, 200)) * 1.5)
+    flat = np.zeros((3, 96))
+    flat[1, 40:] = 1.0
+    flat[2] = np.repeat(rng.normal(size=12), 8)
+    yield "flat_runs", flat
+    nan = rng.normal(size=(3, 160))
+    nan[0, 50:53] = np.nan
+    nan[1, 0] = np.nan
+    nan[2, -2:] = np.nan
+    yield "nan", nan
+    for n in (2, 3, 4, 5):
+        yield f"n{n}", rng.normal(size=(3, n))
+
+
+FUSED_CASES = [(name, x.astype(np.float32)) for name, x in _fused_cases()]
+FUSED_IDS = [c[0] for c in FUSED_CASES]
+
+
+def _fused_inputs(x, seed=3):
+    rng = np.random.default_rng(seed)
+    cts = [from_numpy(rng.normal(size=x.shape).astype(np.float32))
+           for _ in range(3)]
+    cts[1][..., ::3] = 0.0  # a baseline cotangent with zeros
+    return from_numpy(x), cts
+
+
+def _same(got, want):
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        if isinstance(a, (tuple, list)):
+            _same(a, b)
+        else:
+            assert a.dtype == b.dtype and a.shape == b.shape
+            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("name,x", FUSED_CASES, ids=FUSED_IDS)
+def test_bwd_knots_plain_is_the_unfused_mask(name, x):
+    xt, cts = _fused_inputs(x)
+    _same(cuda_fill.bwd_knots(xt),
+          _unfused_adjoint(xt, *cts, "reference")["knots"])
+
+
+@pytest.mark.parametrize("mode", ["reference", "natural"])
+@pytest.mark.parametrize("name,x", FUSED_CASES, ids=FUSED_IDS)
+def test_bwd_pre_plain_is_the_unfused_glue(name, x, mode):
+    xt, cts = _fused_inputs(x)
+    ref = _unfused_adjoint(xt, *cts, mode)
+    _same(cuda_fill.bwd_pre(xt, *cts, *ref["fills"], mode), ref["pre"])
+
+
+@pytest.mark.parametrize("mode", ["reference", "natural"])
+@pytest.mark.parametrize("name,x", FUSED_CASES, ids=FUSED_IDS)
+def test_bwd_post_plain_is_the_unfused_glue(name, x, mode):
+    """The pushes as gathers at the fills' next and previous knots equal
+    the one-channel segment sums over the knots (but for the sign of an
+    exact zero)."""
+    xt, cts = _fused_inputs(x)
+    ref = _unfused_adjoint(xt, *cts, mode)
+    (_, _, p2p, _), (n1p, _, _, _) = ref["fills"]
+    got = cuda_fill.bwd_post(ref["knots"][0], ref["pre"][4], *ref["seg"],
+                             p2p, n1p)
+    _same(got, ref["gx"])
+
+
+@pytest.mark.parametrize("mode", ["reference", "natural"])
+@pytest.mark.parametrize("name,x", FUSED_CASES, ids=FUSED_IDS)
+def test_kernel_route_adjoint_is_the_unfused_route(monkeypatch, name, x,
+                                                   mode):
+    """The whole level adjoint on the kernel route (the wrappers' plain
+    versions on a CPU tensor): seven wrapper calls, and the unfused
+    composition's gradient."""
+    xt, cts = _fused_inputs(x)
+    calls = _count_calls(monkeypatch)
+    got = structural_level_bwd(xt, *cts, mode, fills="kernel")
+    assert calls == {"bwd_knots": 1, "fill2": 2, "bwd_pre": 1, "segsum": 2,
+                     "bwd_post": 1}
+    _same(got, _unfused_adjoint(xt, *cts, mode)["gx"])
+
+
+def _adjoint_call(name, x):
+    """One call of the adjoint wrapper ``name`` with ``x`` as its signal,
+    its other inputs made from a sound signal of ``x``'s shape."""
+    base = torch.linspace(0, 1, x.shape[-1]).expand(x.shape).contiguous() \
+        if x.dim() == 2 else torch.zeros(3, 8)
+    knots, f_next = cuda_fill.bwd_knots(base)
+    fwd = cuda_fill.fill2(base, knots)
+    bwd = cuda_fill.fill2(base, knots, True, True)
+    g = torch.zeros_like(base)
+    seg = (g, g)
+    return {
+        "bwd_knots": lambda: cuda_fill.bwd_knots_cuda(x),
+        "bwd_pre": lambda: cuda_fill.bwd_pre_cuda(x, g, g, g, fwd, bwd),
+        "bwd_post": lambda: cuda_fill.bwd_post_cuda(knots, x, seg, seg,
+                                                    fwd[2], bwd[0]),
+    }[name]
+
+
+BAD_SIGNALS = {
+    "n1": lambda: torch.zeros(3, 1),
+    "f64": lambda: torch.zeros(3, 8, dtype=torch.float64),
+    "strided": lambda: torch.zeros(3, 16)[:, ::2],
+    "1d": lambda: torch.zeros(8),
+}
+
+
+@pytest.mark.parametrize("bad", list(BAD_SIGNALS))
+@pytest.mark.parametrize("name", ["bwd_knots", "bwd_pre", "bwd_post"])
+def test_adjoint_wrappers_refuse_what_the_kernels_cannot_take(name, bad):
+    call = _adjoint_call(name, BAD_SIGNALS[bad]())
+    with pytest.raises(ValueError):
+        call()
+
+
+def test_bwd_pre_wrapper_refuses_a_bad_endpoint_mode():
+    x = torch.zeros(2, 8)
+    knots, _ = cuda_fill.bwd_knots(x)
+    fills = cuda_fill.fill2(x, knots)
+    with pytest.raises(ValueError, match="endpoint_mode"):
+        cuda_fill.bwd_pre_cuda(x, x, x, x, fills, fills, "bogus")
