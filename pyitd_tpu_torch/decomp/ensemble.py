@@ -25,7 +25,10 @@ equals the input exactly, so the mean stack reconstructs the INPUT (not a
 noisy copy) to float roundoff.  The noise comes from ``torch.randn`` with
 the caller's ``generator`` where JAX takes a PRNG key; no generator
 reproduces JAX's stream, so the tests hand JAX's bank to
-:func:`_ensemble_from_bank`.
+:func:`_ensemble_from_bank`.  While a profiler records, a call runs inside
+the span ``pyitd.ensemble`` and its epilogue (the WPE sort, the
+fingerprints and the median selection) inside ``pyitd.ensemble_select``
+(``utils/spans.py``).
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils.interop import as_input
+from ..utils.spans import span, spanned
 from ..utils.stats import fingerprint_rows, median, sorted_median_index
 from .meitd import _wpe
 from .meitd_jit import meitd_jit_bank
@@ -86,15 +90,16 @@ def _ensemble_from_bank(bank, wpemax: float = 0.6,
                         capacity: int | None = None) -> EnsembleResult:
     """The ensemble of the realizations ``bank`` (R, n) of one signal."""
     res = meitd_jit_bank(bank, wpemax, capacity=capacity)
-    stacks = _sorted_stacks(res.high, res.low, res.residual,
-                            res.high_count, res.low_count)
-    # median selection over each realization's DENOISED reconstruction
-    # (the accepted components; the residual trend — which sorts somewhere
-    # inside the WPE-ordered stack — is excluded by subtracting it from
-    # the realization): the object the noise perturbs and the fingerprint
-    # machinery ranks
-    idx, completeness = sorted_median_index(
-        fingerprint_rows(bank - res.residual))
+    with span("pyitd.ensemble_select"):
+        stacks = _sorted_stacks(res.high, res.low, res.residual,
+                                res.high_count, res.low_count)
+        # median selection over each realization's DENOISED reconstruction
+        # (the accepted components; the residual trend — which sorts
+        # somewhere inside the WPE-ordered stack — is excluded by
+        # subtracting it from the realization): the object the noise
+        # perturbs and the fingerprint machinery ranks
+        idx, completeness = sorted_median_index(
+            fingerprint_rows(bank - res.residual))
     return EnsembleResult(
         stacks=stacks,
         mean_stack=stacks.mean(0),
@@ -105,6 +110,7 @@ def _ensemble_from_bank(bank, wpemax: float = 0.6,
     )
 
 
+@spanned("pyitd.ensemble")
 def meitd_ensemble(data, generator: torch.Generator | None = None,
                    n_realizations: int = 32,
                    noise_scale: float | torch.Tensor | None = None,

@@ -26,6 +26,11 @@ WPE, extrema counts) is grouped per trip, and the scalars the host decides
 on (counts, WPE) come back in one transfer of a small stacked tensor.  The
 signal is float64; on the card the cubic level computes in f32 and returns
 f64, so the subtraction chain and the gate stay f64.
+
+While a profiler records, each cubic level runs inside the span
+``pyitd.cubic_level``, each host read inside ``pyitd.read`` and each WPE
+inside ``pyitd.wpe`` (``utils/spans.py``); :data:`COUNTS` counts the walks'
+trips, reads, cubic levels and the rows those levels extract.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ from ..ops.cubic_baseline import cubic_baseline_extract
 from ..ops.extrema import count_extrema
 from ..ops.wpe import weighted_permutation_entropy
 from ..utils.interop import as_input
+from ..utils.spans import span
 
 __all__ = ["meitd", "xitd", "retrieve_proper_rotation",
            "first_rotation_is_proper"]
@@ -44,8 +50,9 @@ __all__ = ["meitd", "xitd", "retrieve_proper_rotation",
 # a test sets "fills" to rehearse the card's route on a CPU tensor
 _CUBIC_BACKEND = "auto"
 
-# the walks' trips and host reads (each read is one device-to-host copy)
-COUNTS = {"trips": 0, "reads": 0}
+# the walks' trips, host reads (each read is one device-to-host copy), cubic
+# levels (calls of cubic_baseline_extract) and the rows those extract
+COUNTS = {"trips": 0, "reads": 0, "levels": 0, "level_rows": 0}
 
 
 def reset_counts() -> None:
@@ -54,8 +61,11 @@ def reset_counts() -> None:
 
 
 def _cubic(x: torch.Tensor, capacity: int, min_extrema: int):
-    return cubic_baseline_extract(x, capacity, min_extrema=min_extrema,
-                                  eval_backend=_CUBIC_BACKEND)
+    COUNTS["levels"] += 1
+    COUNTS["level_rows"] += x[..., 0].numel()
+    with span("pyitd.cubic_level"):
+        return cubic_baseline_extract(x, capacity, min_extrema=min_extrema,
+                                      eval_backend=_CUBIC_BACKEND)
 
 
 def _extract(x, capacity):
@@ -64,13 +74,15 @@ def _extract(x, capacity):
 
 
 def _wpe(x):
-    return weighted_permutation_entropy(x, 3, normalize=True)
+    with span("pyitd.wpe"):
+        return weighted_permutation_entropy(x, 3, normalize=True)
 
 
 def _read(*values) -> list:
     """Scalars (counts, entropies) to the host in one transfer."""
     COUNTS["reads"] += 1
-    return torch.stack([v.to(torch.float64) for v in values]).tolist()
+    with span("pyitd.read"):
+        return torch.stack([v.to(torch.float64) for v in values]).tolist()
 
 
 def _cap(n: int) -> int:

@@ -19,7 +19,9 @@ the result it gets alone.
 
 Semantics follow the reference's ``MEITD.py:344-534`` like the host walk
 (``decomp/meitd.py``); the tests hold the two against each other and
-against JAX's.
+against JAX's.  While a profiler records, the walk runs inside the span
+``pyitd.walk``, each trip inside ``pyitd.walk_trip`` and the rest of a
+trip's dig inside ``pyitd.dig`` (``utils/spans.py``).
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import torch
 
 from ..ops.extrema import count_extrema
 from ..utils.interop import as_input
+from ..utils.spans import span, spanned
 from .meitd import COUNTS, _extract, _read, _wpe
 
 __all__ = ["meitd_jit", "meitd_jit_bank", "MeitdResult"]
@@ -46,6 +49,7 @@ class MeitdResult(NamedTuple):
     low_count: torch.Tensor
 
 
+@spanned("pyitd.walk")
 def _walk(x0: torch.Tensor, wpemax: float, cap: int) -> MeitdResult:
     """The HILO walk of every row of ``x0`` (B, n) float64."""
     bsz, n = x0.shape
@@ -98,12 +102,8 @@ def _walk(x0: torch.Tensor, wpemax: float, cap: int) -> MeitdResult:
     hilo = np.ones(bsz, bool)
     soft_reset = np.ones(bsz, np.int64)
 
-    while True:
-        act = np.flatnonzero((nex >= 6) & (highc + lowc <= 20))
-        if not act.size:
-            break
-        COUNTS["trips"] += 1
-
+    def trip(act):
+        """One trip of the rows ``act``."""
         # retrieve where the rotation is improper: the gate on the input,
         # the extraction only where it holds (MEITD.py:344-368)
         rr = act[~proper[act]]
@@ -165,15 +165,26 @@ def _walk(x0: torch.Tensor, wpemax: float, cap: int) -> MeitdResult:
         soft_reset[dig] += 1
 
         # the rest of the dig: the running extrema count IS the walk's nex
-        i = 1
-        while dig.size:
-            (cnt,) = _read(count_extrema(baseline[ix(dig)]))
-            cnt = np.asarray(cnt, np.int64)
-            nex[dig] = cnt
-            more = (i < lim) & (cnt >= 5)
-            dig, lim = dig[more], lim[more]
-            extract_into([(dig, baseline, False)])
-            i += 1
+        if not dig.size:
+            return
+        with span("pyitd.dig"):
+            i = 1
+            while dig.size:
+                (cnt,) = _read(count_extrema(baseline[ix(dig)]))
+                cnt = np.asarray(cnt, np.int64)
+                nex[dig] = cnt
+                more = (i < lim) & (cnt >= 5)
+                dig, lim = dig[more], lim[more]
+                extract_into([(dig, baseline, False)])
+                i += 1
+
+    while True:
+        act = np.flatnonzero((nex >= 6) & (highc + lowc <= 20))
+        if not act.size:
+            break
+        COUNTS["trips"] += 1
+        with span("pyitd.walk_trip"):
+            trip(act)
 
     # reference quirk (MEITD.py:413-414): < 4 extrema yields TWO zero
     # components; the buffers are zero-filled, so raising the counts is

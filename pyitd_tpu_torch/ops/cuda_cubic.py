@@ -23,7 +23,10 @@ The padded-resident route of ``ops/cubic_baseline.py`` runs them in order:
   closed-form spline; baseline and rotation.
 
 Each wrapper checks its tensors, launches its kernel on PyTorch's current
-stream for a CUDA tensor, and counts the launch in ``LAUNCHES``.  For a CPU
+stream for a CUDA tensor, and counts the launch in ``LAUNCHES``; a call
+runs inside the profiler span ``pyitd.<wrapper>`` (``cubic_ksite`` ...
+``spike_backsub_eval``), and :func:`spike_interface` inside
+``pyitd.interface_solve`` (``utils/spans.py``).  For a CPU
 tensor it runs the plain PyTorch version beside it (``cubic_ksite``,
 ``cubic_neighbors``, ``spike_factors``, ``spike_backsub_eval``); those run
 on any device, and a CUDA tensor never reaches them through a wrapper.
@@ -39,6 +42,7 @@ import torch
 
 from .chained_pcr import _safe_inv, interface_pcr, reduced_interface_solve
 from .cubic_baseline import _fo_knot_values, _segment_eval
+from ..utils.spans import spanned
 from .cuda_fill import (LevelStates, _check, _check_signal, _lib, _ntiles,
                         _same, _stream)
 from .fill import backward_fill_scan, forward_fill2_scan, shift_left
@@ -232,6 +236,7 @@ def spike_backsub_eval(factors, e_prev, f_next, w_first_next, m0, m_last,
     return _segment_eval(x, it, nb, m_j, m_j1, m_last, b_last, passthrough)
 
 
+@spanned("pyitd.interface_solve")
 def spike_interface(factors: torch.Tensor):
     """The interface solve over SPIKE blocks (torch ops on (rows, nblk)):
     per block ``e_prev`` (the true ``u`` at the previous block's last
@@ -300,6 +305,7 @@ def _check_seeds(x: torch.Tensor, states: LevelStates) -> None:
     _same(x, states.fval, states.rval, dtype=torch.float32, shape=shape)
 
 
+@spanned("pyitd.cubic_ksite")
 def cubic_ksite_cuda(x: torch.Tensor, states: LevelStates,
                      b_first: torch.Tensor,
                      b_last: torch.Tensor) -> torch.Tensor:
@@ -324,6 +330,7 @@ def cubic_ksite_cuda(x: torch.Tensor, states: LevelStates,
     return out
 
 
+@spanned("pyitd.cubic_neighbors")
 def cubic_neighbors_cuda(x: torch.Tensor, k_site: torch.Tensor,
                          states: LevelStates) -> Neighbors:
     """:class:`Neighbors` of ``x`` (rows, n) f32 with the values of
@@ -349,6 +356,7 @@ def cubic_neighbors_cuda(x: torch.Tensor, k_site: torch.Tensor,
     return Neighbors(pos[0], pos[1], pos[2], val[0], val[1], val[2])
 
 
+@spanned("pyitd.spike_factors")
 def spike_factors_cuda(mask: torch.Tensor, a, b, c, d) -> torch.Tensor:
     """The six SPIKE factor channels ``(6, rows, npad)`` of the chained
     system with interior-knot ``mask`` (rows, n) bool and rows ``a, b, c,
@@ -375,6 +383,7 @@ def spike_factors_cuda(mask: torch.Tensor, a, b, c, d) -> torch.Tensor:
     return out
 
 
+@spanned("pyitd.spike_backsub_eval")
 def spike_backsub_eval_cuda(factors, e_prev, f_next, w_first_next, m0,
                             m_last, b_last, passthrough, nb: Neighbors, x):
     """Baseline and rotation of ``x`` (rows, n) f32 from the SPIKE
