@@ -29,7 +29,10 @@ Phases (each raises on failure, so any failure exits non-zero):
    (``bwd_knots``, ``bwd_pre``, ``bwd_post``) against their plain versions
    to rtol = atol = 0 on ``level_bwd_cases`` (edge shapes, rows of 3 to 5
    samples, plateaus, rows and arrays off a 16-byte boundary, 256 x 16,384
-   and 8 x 1M); the level adjoint on the
+   and 8 x 1M), ``bwd_pre`` also as the reverse trip loop calls it (the
+   sift's cotangents, per-row flags, the carry, level 0's zero path, absent
+   cotangents, infinite ones); the sift's gradient bitwise the autograd
+   replay's (``replay_grad``); the level adjoint on the
    kernels against the plain route (rtol = atol = 2e-4, and no more than
    1.5x the plain route's error against an f64 truth, plus 1e-6); the
    ``ITD`` class on a numpy float64 signal through the sift kernels; the
@@ -267,7 +270,8 @@ SRC["spike_factors"] = "pyitd_tpu_torch/csrc/spike.cu"
 # the level adjoint's own kernels: they replace no TPU kernel, but fuse the
 # XLA glue of JAX's structural adjoint
 ADJOINT_KERNELS = ("bwd_knots", "bwd_pre", "bwd_post")
-SRC.update({k: "pyitd_tpu_torch/csrc/level_bwd.cu" for k in ADJOINT_KERNELS})
+SRC.update({k: "pyitd_tpu_torch/csrc/level_bwd.cu"
+            for k in ADJOINT_KERNELS + ("bwd_pre_level",)})
 SIFT_KERNELS = ("level_summaries", "tile_scan", "sift_level")
 SRC.update({"sharded_" + k: SRC[k] for k in SIFT_KERNELS
              + ("sift_level_emit", "tile_scan_edges")})
@@ -288,7 +292,8 @@ REPLACES = {
     "spike_backsub_eval": "pyitd_tpu/ops/pallas_spike.py:262",
 }
 REPLACES.update({k: "none: the XLA glue of pyitd_tpu/ops/linear_baseline.py:"
-                    "315 (_structural_level_bwd)" for k in ADJOINT_KERNELS})
+                    "315 (_structural_level_bwd)"
+                 for k in ADJOINT_KERNELS + ("bwd_pre_level",)})
 # K9: the three sift kernels with the shard arguments compiled in; with
 # fold_emit the level emits (the kernel's fold_emit=True) and the scan
 # completes its summaries (states_from_folds, XLA in JAX)
@@ -648,6 +653,16 @@ def segsum_within_bound(vals, flags, reverse, what,
     return err_max, ratio
 
 
+def equal_values(a, b) -> bool:
+    """Whether two f32 tensors are NaN at the same samples and bit for bit
+    equal everywhere else (so -0 is not +0)."""
+    import torch
+
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb) and torch.equal(
+        a[~na].view(torch.int32), b[~nb].view(torch.int32)))
+
+
 def off_boundary(t, off: int):
     """A contiguous copy of ``t`` whose data starts ``off`` elements past
     an allocation's (16-byte aligned) start."""
@@ -826,18 +841,125 @@ def check_level_bwd(name, x, offset: int = 0) -> bool:
     return bitwise
 
 
+def trip_cases(x, rng):
+    """``bwd_pre``'s inputs as the kernel sift's reverse trip loop passes
+    them, for the level input ``x`` (rows, n): (what, (g_rot, g_base,
+    g_err), ``TripCotangents``).  Rows take every stop flag, the next
+    trip's too; the cotangents hold infinities, so the zero path and a
+    stop-B row's two-sum term turn them into NaN."""
+    import torch
+    from pyitd_tpu_torch.ops import cuda_fill as cf
+
+    rows, n = x.shape
+
+    def ct():
+        g = rng.normal(size=(rows, n)).astype(np.float32)
+        g.reshape(-1)[rng.integers(0, rows * n, size=3)] = np.inf
+        return torch.from_numpy(g).to(x.device)
+
+    def flags():
+        f = rng.choice([0, cf.STOP_A, cf.STOP_B, cf.CONT], size=rows)
+        return torch.from_numpy(f.astype(np.int32)).to(x.device)
+
+    f, fn = flags(), flags()
+    yield "every stream", (ct(), ct(), ct()), cf.TripCotangents(
+        f, fn, ct(), ct(), True, ct())
+    yield "level 0, rows only", (ct(), None, None), cf.TripCotangents(
+        f, fn, ct(), ct(), True)
+    yield "the last trip, correction only", (None, None, ct()), \
+        cf.TripCotangents(f)
+    yield "a middle trip, baselines only", (None, ct(), None), \
+        cf.TripCotangents(f, carry=ct())
+
+
+def bad_trips(x):
+    """``bwd_pre_cuda`` calls on the level input ``x`` (rows, n) f32 that the
+    wrapper refuses, by what is wrong: one per argument of the reverse trip
+    loop, and a cotangent absent without it."""
+    import torch
+    from pyitd_tpu_torch.ops import cuda_fill as cf
+
+    rows, n = x.shape
+    knots, _ = cf.bwd_knots(x.cpu())
+    fwd = tuple(t.to(x.device) for t in cf.fill2(x.cpu(), knots))
+    bwd = tuple(t.to(x.device) for t in cf.fill2(x.cpu(), knots, True, True))
+    g = torch.zeros_like(x)
+    f = torch.zeros(rows, dtype=torch.int32, device=x.device)
+    T = cf.TripCotangents
+
+    def call(cts, trip):
+        return lambda: cf.bwd_pre_cuda(x, *cts, fwd, bwd, trip=trip)
+
+    return {
+        "absent cotangent without trip": call((g, None, g), None),
+        "flags missing": call((g, g, g), T(None)),
+        "flags int64": call((g, g, g), T(f.long())),
+        "flags per sample": call((g, g, g), T(torch.zeros_like(
+            x, dtype=torch.int32))),
+        "flags on the host": call((g, g, g), T(f.cpu()) if x.is_cuda
+                                  else T(f[:-1])),
+        "flags_next without g_next": call((g, g, g), T(f, f)),
+        "g_next without flags_next": call((g, g, g), T(f, g_next=g)),
+        "flags_next float": call((g, g, g), T(f, f.float(), g)),
+        "g_next a row short": call((g, g, g), T(f, f, g[:-1])),
+        "carry f64": call((g, g, g), T(f, carry=g.double())),
+        "carry strided": call((g, g, g), T(f, carry=torch.zeros(
+            rows, 2 * n, device=x.device)[:, ::2])),
+        "g_zero past level 0": call((g, g, g), T(f, g_zero=g)),
+        "g_zero one row": call((g, g, g), T(f, zero=True, g_zero=g[0])),
+    }
+
+
+def check_bwd_pre_trips(name, x, offset: int = 0) -> bool:
+    """``bwd_pre`` on the card against its plain version on ``x``'s fills
+    with the inputs of ``trip_cases`` (both endpoint modes): rtol = atol =
+    0, NaN equal to NaN.  ``offset`` as in ``check_level_bwd``.  Returns
+    whether every output was also bitwise its plain version's."""
+    import torch
+    from pyitd_tpu_torch.ops import cuda_fill as cf
+
+    def moved(*ts):
+        return tuple(t if t is None or not offset else off_boundary(t, offset)
+                     for t in ts)
+
+    (x,) = moved(x)
+    knots, _ = cf.bwd_knots_cuda(x)
+    fwd = moved(*cf.fill2_cuda(x, knots))
+    bwd = moved(*cf.fill2_cuda(x, knots, True, True))
+    bitwise = True
+    rng = np.random.default_rng(x.shape[1] + 5)
+    for what, cts, trip in trip_cases(x, rng):
+        cts = moved(*cts)
+        trip = trip._replace(**dict(zip(
+            ("g_next", "carry", "g_zero"),
+            moved(trip.g_next, trip.carry, trip.g_zero))))
+        for mode in ("reference", "natural"):
+            got = cf.bwd_pre_cuda(x, *cts, fwd, bwd, mode, trip=trip)
+            want = cf.bwd_pre(x, *cts, fwd, bwd, mode, trip=trip)
+            for a, b in zip(got, want):
+                torch.testing.assert_close(
+                    a, b, rtol=0, atol=0, equal_nan=True,
+                    msg=lambda m: f"bwd_pre {what} {mode} {name}: {m}")
+                bitwise = bitwise and bitwise_equal(a, b)
+    return bitwise
+
+
 def check_level_bwd_cases(dev) -> None:
-    """``check_level_bwd`` on ``level_bwd_cases``."""
+    """``check_level_bwd`` and ``check_bwd_pre_trips`` on
+    ``level_bwd_cases``."""
     import torch
 
     for name, xn, offset in level_bwd_cases():
-        bitwise = check_level_bwd(name, torch.from_numpy(xn).to(dev),
-                                  offset)
+        x = torch.from_numpy(xn).to(dev)
+        bitwise = check_level_bwd(name, x, offset)
+        trips = check_bwd_pre_trips(name, x, offset)
         torch.cuda.synchronize()
         print(f"[2] level adjoint kernels, {name}, inputs {offset} floats "
               f"past an aligned address: bwd_knots, bwd_pre, bwd_post equal "
               f"their plain versions (rtol = atol = 0), "
-              f"{'bitwise' if bitwise else 'but for the sign of a zero'}",
+              f"{'bitwise' if bitwise else 'but for the sign of a zero'}; "
+              f"bwd_pre on the reverse trip loop's inputs "
+              f"{'bitwise' if trips else 'but for the sign of a zero'}",
               flush=True)
 
 
@@ -984,6 +1106,22 @@ def sift_grad(x, max_iteration, **kw):
 
     xg = x.clone().requires_grad_()
     sift_loss(itd_sift(xg, max_iteration, **kw)).backward()
+    return xg.grad
+
+
+def replay_grad(x, max_iteration, store_baselines=True):
+    """The gradient of ``sift_loss`` through autograd of the loop with
+    structural levels on the kernels (``_itd_sift_torch(...,
+    linear_backend="structural", level_backend="kernel")``), which the
+    kernel sift's reverse trip loop equals bit for bit on finite
+    cotangents."""
+    from pyitd_tpu_torch.decomp.itd import _itd_sift_torch
+
+    xg = x.clone().requires_grad_()
+    sift_loss(_itd_sift_torch(xg, max_iteration, "reference",
+                              store_baselines, False,
+                              linear_backend="structural",
+                              level_backend="kernel")).backward()
     return xg.grad
 
 
@@ -3874,6 +4012,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from pyitd_tpu_torch import ITD, itd_sift, linear_baseline_extract
+    from pyitd_tpu_torch.decomp.itd import _itd_sift_kernel
     from pyitd_tpu_torch.examples import train_through_itd as trainer
     from pyitd_tpu_torch.ops import _build
     from pyitd_tpu_torch.ops import cuda_cubic as cc
@@ -3933,6 +4072,9 @@ def main() -> int:
         # structural route and against plain scans; on rows of more than
         # one tile, the planted faults against plain scans
         gk = sift_grad(x, 5)
+        if not equal_values(gk, replay_grad(x, 5)):
+            raise AssertionError(f"gradient {name}: the reverse trip loop "
+                                 f"differs from the autograd replay")
         gap = grad_gap(gk, sift_grad(x, 5, backend="torch",
                                      linear_backend="structural"))
         if not within(gap, GRAD_LIMITS["phase 2"]):
@@ -4086,12 +4228,12 @@ def main() -> int:
     grad_launches = dict(cf.LAUNCHES)
     segsum_launches = dict(cf.SEGSUM_LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    # forward and replay: levels + 1 extractions each, the replay's each
-    # with a pre-pass of its own; every extraction of the replay but the
-    # last trip's reaches the loss: two fill2 and two segsum calls each,
-    # and one of each of the adjoint's own kernels
-    want = {"level_summaries": levels + 2, "tile_scan": 2 * (levels + 1),
-            "sift_level": 2 * (levels + 1), "fill2": 2 * levels,
+    # the forward: levels + 1 extractions; the replay: the levels - 1
+    # baselines that are level inputs, with the forward's launches (one
+    # pre-pass, then a scan and a level each); a level adjoint per trip:
+    # two fill2 and two segsum calls, and one of each of its own kernels
+    want = {"level_summaries": 2, "tile_scan": 2 * levels,
+            "sift_level": 2 * levels, "fill2": 2 * levels,
             "linear_fill2": 0, "fillv": 0, "segsum": 2 * levels,
             "bwd_knots": levels, "bwd_pre": levels, "bwd_post": levels}
     if grad_launches != want or segsum_launches != {1: 0, 2: 2 * levels}:
@@ -4100,6 +4242,10 @@ def main() -> int:
     g = xg.grad.detach().clone()
     if not bool(torch.isfinite(g).all()):
         raise AssertionError("non-finite gradient")
+    if not equal_values(g, replay_grad(x, MAIN_MAX_IT,
+                                       store_baselines=False)):
+        raise AssertionError("8x1M gradient: the reverse trip loop differs "
+                             "from the autograd replay")
     xp = x.clone().requires_grad_()
     rp = itd_sift(xp, MAIN_MAX_IT, store_baselines=False, backend="torch",
                   linear_backend="structural")
@@ -4414,17 +4560,25 @@ def main() -> int:
           2 * rows * n, segsum_launches[2], exact=False)
 
     # the level adjoint's own kernels on the same level input, at 8x1M and
-    # at the benchmark's 256 x 16,384 (the first level of its bank)
-    def adjoint_entries(xa, shape, counts):
+    # at the benchmark's 256 x 16,384 (the first level of its bank), with
+    # bwd_pre as the reverse trip loop calls it for trip 1 (the flags of
+    # the forward's trips 1 and 2, no stored baselines) and as a lone
+    # level's adjoint calls it (bwd_pre_level: the torch route and the
+    # sharded sift's backward, which the sift's gradient never launches)
+    def adjoint_entries(xa, shape, counts, flags):
         r, m = xa.shape
         cgen = torch.Generator(device=dev).manual_seed(6)
         cts = [torch.randn(xa.shape, generator=cgen, device=dev)
-               for _ in range(3)]
+               for _ in range(5)]
+        g_j, g_c, g_n, g_carry = cts[0], cts[2], cts[3], cts[4]
+        trip = cf.TripCotangents(flags[1], flags[2], g_n, g_carry)
+        tcts = (g_j, None, g_c)
         kk = cf.bwd_knots_cuda(xa)
         kn, fn_ = kk
         fw = cf.fill2_cuda(xa, kn)
         bw = cf.fill2_cuda(xa, kn, True, True)
-        pre = cf.bwd_pre_cuda(xa, *cts, fw, bw)
+        pre = cf.bwd_pre_cuda(xa, *tcts, fw, bw, trip=trip)
+        lone = cf.bwd_pre_cuda(xa, *cts[:3], fw, bw)
         sa = cf.segsum_cuda(pre[:2], fn_, reverse=True)
         se = cf.segsum_cuda(pre[2:4], kn, strict=True)
         post = cf.bwd_post_cuda(kn, pre[4], sa, se, fw[2], bw[0])
@@ -4432,29 +4586,42 @@ def main() -> int:
             "bwd_knots": max(max_abs_err(a, b)
                              for a, b in zip(kk, cf.bwd_knots(xa))),
             "bwd_pre": max(max_abs_err(a, b) for a, b in zip(
-                pre, cf.bwd_pre(xa, *cts, fw, bw))),
+                pre, cf.bwd_pre(xa, *tcts, fw, bw, trip=trip))),
+            "bwd_pre_level": max(max_abs_err(a, b) for a, b in zip(
+                lone, cf.bwd_pre(xa, *cts[:3], fw, bw))),
             "bwd_post": max_abs_err(post, cf.bwd_post(
                 kn, pre[4], sa, se, fw[2], bw[0]))}
         calls = {
             "bwd_knots": (lambda: cf.bwd_knots_cuda(xa),
                           lambda: cf.bwd_knots(xa)),
-            "bwd_pre": (lambda: cf.bwd_pre_cuda(xa, *cts, fw, bw),
-                        lambda: cf.bwd_pre(xa, *cts, fw, bw)),
+            "bwd_pre": (lambda: cf.bwd_pre_cuda(xa, *tcts, fw, bw, trip=trip),
+                        lambda: cf.bwd_pre(xa, *tcts, fw, bw, trip=trip)),
+            "bwd_pre_level": (lambda: cf.bwd_pre_cuda(xa, *cts[:3], fw, bw),
+                              lambda: cf.bwd_pre(xa, *cts[:3], fw, bw)),
             "bwd_post": (lambda: cf.bwd_post_cuda(kn, pre[4], sa, se, fw[2],
                                                   bw[0]),
                          lambda: cf.bwd_post(kn, pre[4], sa, se, fw[2],
                                              bw[0]))}
-        # bytes a sample: x in, two masks out; x, three cotangents and the
-        # fills' eight channels in, five channels out; a mask, the direct
-        # term, four sums and two positions in, the gradient out (the
-        # gathers are L2 reads); flops a sample, about
-        per = {"bwd_knots": (4 + 2, 0), "bwd_pre": (48 + 20, 40),
-               "bwd_post": (29 + 4, 10)}
-        for k in ADJOINT_KERNELS:
-            entry(k, errs[k], *calls[k], r * m * per[k][0],
-                  r * m * per[k][1], counts[k], shape=shape)
+        # bytes a sample: x in, two masks out; x, three cotangent streams
+        # (the trip loop's G_j, Gc and carry) and the fills' eight channels
+        # in, five channels out, and in the trip loop the two trips' flags
+        # a row and G_{j+1} on the rows that trip 2 stopped by STOP_A; a
+        # mask, the direct term, four sums and two positions in, the
+        # gradient out (the gathers are L2 reads); flops a sample, about
+        stop_a = int(((flags[2] & cf.STOP_A) != 0).sum())
+        per = {"bwd_knots": (r * m * (4 + 2), 0),
+               "bwd_pre": (r * m * (48 + 20) + r * 8 + stop_a * m * 4,
+                           r * m * 44),
+               "bwd_pre_level": (r * m * (48 + 20), r * m * 40),
+               "bwd_post": (r * m * (29 + 4), r * m * 10)}
+        for k in ADJOINT_KERNELS + ("bwd_pre_level",):
+            entry(k, errs[k], *calls[k], *per[k], counts.get(k, 0),
+                  shape=shape)
 
-    adjoint_entries(base, "8x1M", grad_launches)
+    main_flags = []
+    _itd_sift_kernel(x, MAIN_MAX_IT, "reference", False, False,
+                     flags_out=main_flags)
+    adjoint_entries(base, "8x1M", grad_launches, main_flags)
     # the launches of one counted 256 x 16,384 gradient, as the benchmark's
     # eeg_16k.grad cell takes it
     xeg = xe.clone().requires_grad_()
@@ -4468,7 +4635,10 @@ def main() -> int:
                              f"expected {EEG_MAX_IT + 2} of each adjoint "
                              f"kernel")
     xe1 = cf.sift_level_cuda(xe, cf.level_states_cuda(xe)).baseline
-    adjoint_entries(xe1, "256x16k", eeg_launches)
+    eeg_flags = []
+    _itd_sift_kernel(xe, EEG_MAX_IT, "reference", False, False,
+                     flags_out=eeg_flags)
+    adjoint_entries(xe1, "256x16k", eeg_launches, eeg_flags)
 
     # the same scans on the input of the backward's last level, where the
     # knots are sparse and a tile looks back furthest

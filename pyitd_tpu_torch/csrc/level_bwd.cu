@@ -14,7 +14,9 @@
 //               side of the sample's segment (knot.cuh::knot_value), the
 //               segment's slope, the four cotangent channels with their
 //               non-finite terms dropped, and the direct term of the
-//               gradient;
+//               gradient; in the kernel sift's reverse trip loop it first
+//               forms the level's cotangents from the sift's, the rows'
+//               stop flags and the next level's input gradient (Trip);
 //   segsum x 2  (fill_segsum.cu) the channels summed into the knot sites;
 //   bwd_post    per sample: the knot-site sums, the knot-value adjoint and
 //               its pushes to the neighbour knots, and the end knots' four
@@ -27,7 +29,10 @@
 // What bounds them: bytes.  They do a few dozen flops a sample; the least
 // time is every input read once and every output written once: bwd_knots
 // reads 4 B a sample and writes 2, bwd_pre reads 48 and writes 20, bwd_post
-// reads 29 and writes 4.  bwd_post's gathers, two a knot, would add up to
+// reads 29 and writes 4.  In the reverse trip loop bwd_pre reads the carry
+// in place of a third cotangent, so 48 again (52 with stored baselines),
+// and the next trip's row cotangent only in the chunks of rows that trip
+// stopped by STOP_A.  bwd_post's gathers, two a knot, would add up to
 // ten scattered loads a knot: each block first computes its own samples'
 // pushes into shared memory, and a knot reads its neighbours' there; only a
 // neighbour in another block is recomputed from global memory (through L2).
@@ -237,6 +242,84 @@ __device__ __forceinline__ float b_last(const float* xrow, int n) {
   return 0.5f * (__ldg(xrow + n - 2) + __ldg(xrow + n - 1));
 }
 
+// The kernel sift's reverse trip loop (decomp/itd.py::_KernelSift.backward)
+// hands level j the sift's output cotangents in place of the level's own:
+// g_rot = G_j (row j's), g_base = Gb_j (baseline row j's), g_err = Gc (the
+// correction's), any of them null where absent, and these per-row flags and
+// extra streams; bwd_pre forms the level's cotangents from them
+// (ops/cuda_fill.py::trip_cotangents).  flags null: the cotangents are the
+// level's own, as the torch route and a lone level pass them.
+struct Trip {
+  const int* flags;       // trip j's STOP_A | STOP_B | CONT bits, per row
+  const int* flags_next;  // trip j + 1's, null past the last trip
+  const float* g_next;    // G_{j+1}, with flags_next
+  const float* carry;     // level j + 1's input gradient, null at the last
+  const float* g_zero;    // a further term of level 0's zero path
+  bool zero;              // level 0: its gradient takes the zero path
+};
+
+constexpr int STOP_A = 1, STOP_B = 2, CONT = 4;  // cuda_fill.STOP_A etc.
+
+// the chunk's four samples of `a`, 0 where a is null or no sample needs it
+__device__ __forceinline__ void loadf_if(const float* a, bool need,
+                                         const Chunk& c, float (&v)[4]) {
+  if (a != nullptr && need) {
+    loadf(a, c, v);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] = 0.f;
+  }
+}
+
+// The level's output cotangents (GR, GB, GE) of the chunk's samples from the
+// sift's, and level 0's zero-path term (ZT), in the order of
+// ops/cuda_fill.py::trip_cotangents.  The streams every row reads are loaded
+// whatever the rows' flags, so their loads wait for no flag; the next trip's
+// row cotangent reaches only the rows that trip stopped by STOP_A, so it is
+// read where some sample of the chunk lies in such a row.  Formed before the
+// fills are read, so that only the level's cotangents stay live.
+__device__ __forceinline__ void trip_cotangents(
+    const Trip& T, const float* g_rot, const float* g_base,
+    const float* g_err, const Chunk& c, float (&GR)[4], float (&GB)[4],
+    float (&GE)[4], float (&ZT)[4]) {
+  float G[4], C[4], B[4], CA[4], GN[4], GZ[4];
+  int F[4], FN[4];
+  loadf_if(g_rot, true, c, G);
+  loadf_if(g_err, true, c, C);
+  loadf_if(g_base, true, c, B);
+  loadf_if(T.carry, true, c, CA);
+  loadf_if(T.g_zero, true, c, GZ);
+  bool need_n = false;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    F[q] = c.in[q] ? __ldg(T.flags + c.row[q]) : 0;
+    FN[q] = T.flags_next != nullptr && c.in[q]
+        ? __ldg(T.flags_next + c.row[q]) : 0;
+    need_n |= (FN[q] & STOP_A) != 0;
+  }
+  loadf_if(T.g_next, need_n, c, GN);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const bool cont = (F[q] & CONT) != 0, stop_b = (F[q] & STOP_B) != 0;
+    const float sb = C[q] + (G[q] - C[q]);
+    GR[q] = cont ? G[q] : (stop_b ? sb : 0.f);
+    GE[q] = (cont || stop_b) ? C[q] : 0.f;
+    float gb = stop_b ? sb : 0.f;
+    if (T.g_next != nullptr) gb = gb + ((FN[q] & STOP_A) ? GN[q] : 0.f);
+    if (g_base != nullptr) gb = gb + (cont ? B[q] : 0.f);
+    if (T.carry != nullptr) gb = gb + CA[q];
+    GB[q] = gb;
+    ZT[q] = 0.f;
+    if (T.zero) {
+      float z = C[q] + ((F[q] & STOP_A) ? G[q] : 0.f);
+      if (T.g_zero != nullptr) z = z + GZ[q];
+      ZT[q] = z * 0.f;
+    }
+  }
+}
+
+// SIFT: the cotangents are the kernel sift's (Trip), else the level's own
+template <bool SIFT>
 __global__ void __launch_bounds__(NT) bwd_pre_kernel(
     const float* __restrict__ x, const float* __restrict__ g_rot,
     const float* __restrict__ g_base, const float* __restrict__ g_err,
@@ -244,16 +327,21 @@ __global__ void __launch_bounds__(NT) bwd_pre_kernel(
     const int* __restrict__ p2p, const float* __restrict__ p2x,
     const int* __restrict__ n1p, const float* __restrict__ n1x,
     const int* __restrict__ n2p, const float* __restrict__ n2x, long long N,
-    int n, bool reference, float* __restrict__ a_bl,
+    int n, bool reference, Trip T, float* __restrict__ a_bl,
     float* __restrict__ a_xl, float* __restrict__ a_br,
     float* __restrict__ a_xr, float* __restrict__ gx) {
   const Chunk c = chunk_of(x, N, n);
-  float X[4], GR[4], GB[4], GE[4], P1X[4], P2X[4], N1X[4], N2X[4];
+  float GR[4], GB[4], GE[4], ZT[4];
+  if constexpr (SIFT) {
+    trip_cotangents(T, g_rot, g_base, g_err, c, GR, GB, GE, ZT);
+  } else {
+    loadf(g_rot, c, GR);
+    loadf(g_base, c, GB);
+    loadf(g_err, c, GE);
+  }
+  float X[4], P1X[4], P2X[4], N1X[4], N2X[4];
   int P1[4], P2[4], N1[4], N2[4];
   loadf(x, c, X);
-  loadf(g_rot, c, GR);
-  loadf(g_base, c, GB);
-  loadf(g_err, c, GE);
   loadi(p1p, c, P1);
   loadf(p1x, c, P1X);
   loadi(p2p, c, P2);
@@ -292,6 +380,7 @@ __global__ void __launch_bounds__(NT) bwd_pre_kernel(
     const float axl = g_b * coef * (X[q] - xr);
     const float axr = -g_b * coef * (X[q] - xl);
     ogx[q] = geff_rot + GE[q] + g_b * s;
+    if (SIFT && T.zero) ogx[q] = ogx[q] + ZT[q];
     // the channels drop non-finite terms; the direct term keeps them
     obl[q] = isfinite(abl) ? abl : 0.f;
     oxl[q] = isfinite(axl) ? axl : 0.f;
@@ -458,17 +547,29 @@ int pyitd_bwd_knots(const float* x, int rows, int n, uint8_t* knots,
   return (int)cudaGetLastError();
 }
 
+// flags null: g_rot, g_base and g_err are the level's own cotangents, none
+// null, and the trip's other pointers are ignored
 int pyitd_bwd_pre(const float* x, const float* g_rot, const float* g_base,
                   const float* g_err, const int* p1p, const float* p1x,
                   const int* p2p, const float* p2x, const int* n1p,
                   const float* n1x, const int* n2p, const float* n2x,
-                  int rows, int n, int reference, float* a_bl, float* a_xl,
-                  float* a_br, float* a_xr, float* gx, void* stream) {
+                  int rows, int n, int reference, const int* flags,
+                  const int* flags_next, const float* g_next,
+                  const float* carry, const float* g_zero, int zero,
+                  float* a_bl, float* a_xl, float* a_br, float* a_xr,
+                  float* gx, void* stream) {
   const unsigned blocks = blocks_for(x, rows, n);
   if (blocks == 0u) return (int)cudaErrorInvalidValue;
-  bwd_pre_kernel<<<blocks, NT, 0, (cudaStream_t)stream>>>(
+  const bool sift = flags != nullptr;
+  if (!sift && (g_rot == nullptr || g_base == nullptr || g_err == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (sift && (flags_next == nullptr) != (g_next == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Trip T{flags, flags_next, g_next, carry, g_zero, zero != 0};
+  const auto kernel = sift ? bwd_pre_kernel<true> : bwd_pre_kernel<false>;
+  kernel<<<blocks, NT, 0, (cudaStream_t)stream>>>(
       x, g_rot, g_base, g_err, p1p, p1x, p2p, p2x, n1p, n1x, n2p, n2x,
-      (long long)rows * n, n, reference != 0, a_bl, a_xl, a_br, a_xr, gx);
+      (long long)rows * n, n, reference != 0, T, a_bl, a_xl, a_br, a_xr, gx);
   return (int)cudaGetLastError();
 }
 

@@ -20,17 +20,24 @@ from typing import NamedTuple
 import torch
 
 from ..ops import cuda_fill as cf
-from ..ops.linear_baseline import (ENDPOINT_MODES, check_kernel_input,
+from ..ops.linear_baseline import (ENDPOINT_MODES,
+                                   _structural_level_bwd_kernels,
+                                   check_kernel_input,
                                    linear_baseline_extract,
                                    linear_baseline_extract_structural)
 from ..utils.spans import span, spanned
 
 __all__ = ["itd_sift", "SiftResult", "ITD", "STOP_RUNNING", "STOP_FLAT",
-           "STOP_BUDGET"]
+           "STOP_BUDGET", "BWD_COUNTS"]
 
 STOP_RUNNING = 0  # never appears in outputs
 STOP_FLAT = 1     # stop A: baseline has < 2 extrema
 STOP_BUDGET = 2   # stop B: level budget exhausted
+
+# the kernel sift's backwards, summed: levels whose input baselines the
+# replay recomputed, and trips the reverse loop walked (one level adjoint
+# each)
+BWD_COUNTS = {"replayed_levels": 0, "reverse_trips": 0}
 
 
 class SiftResult(NamedTuple):
@@ -61,10 +68,12 @@ def itd_sift(x: torch.Tensor, max_iteration: int = 11, *,
     * ``"kernel"`` — one trip = the three launches of ``ops/cuda_fill.py``,
       stop flags and counts kept on the device, each row written in place
       into the preallocated output (on a CPU tensor the wrappers run their
-      plain versions).  f32 only.  Differentiable as JAX's kernel sift is
-      (``decomp/itd.py:178-187``): the backward replays the loop with
-      structural levels (``linear_backend="structural"``) whose forward and
-      adjoint run the kernels, and differentiates that replay;
+      plain versions).  f32 only.  Differentiable with the gradient of
+      JAX's kernel sift (``decomp/itd.py:178-187``), which differentiates
+      the loop with structural levels (``linear_backend="structural"``):
+      the backward recomputes the levels' inputs on the kernels and walks
+      the trips in reverse, one structural level adjoint on the kernels a
+      trip (:class:`_KernelSift`);
     * ``"torch"`` — the plain loop of the JAX ``xla`` backend, any device,
       any float dtype, differentiable through autograd.
 
@@ -170,14 +179,15 @@ def _itd_sift_torch(x, max_iteration, endpoint_mode, store_baselines,
 
 @spanned("pyitd.sift")
 def _itd_sift_kernel(x, max_iteration, endpoint_mode, store_baselines,
-                     early_exit):
+                     early_exit, flags_out=None):
     """The loop of the JAX ``_itd_sift_fused``: per trip one tile scan
     (which also decides the stop flags on the device) and one level launch
     that writes the row in place.  Only the input's tiles are summarised
     by a pass of their own: every level emits its baseline's interior
     summaries for the next trip's scan, which completes them with each
     tile's two edge samples.  A call is the profiler span ``pyitd.sift``,
-    each trip ``pyitd.trip`` (``utils/spans.py``)."""
+    each trip ``pyitd.trip`` (``utils/spans.py``).  ``flags_out``, a list,
+    receives each trip's stop flags ((rows,) int32)."""
     levels = max_iteration + 2
     batch_shape, n = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, n).contiguous()
@@ -202,6 +212,8 @@ def _itd_sift_kernel(x, max_iteration, endpoint_mode, store_baselines,
             states = cf.tile_scan_cuda(interior, carry, trip=i,
                                        max_iteration=max_iteration,
                                        edges_from=base)
+            if flags_out is not None:
+                flags_out.append(states.flags)
             # the last trip's baseline is extracted no further
             new = cf.sift_level_cuda(base, states,
                                      endpoint_mode=endpoint_mode, rotp=rot,
@@ -231,22 +243,59 @@ def _itd_sift_kernel(x, max_iteration, endpoint_mode, store_baselines,
     )
 
 
+def _replay_level_inputs(x, trips, endpoint_mode):
+    """The inputs of the first ``trips`` levels of the kernel sift of ``x``
+    (rows, n): ``x``, then the baselines ``b_0 .. b_{trips-2}``, bitwise
+    the forward's, by the forward's launches without its bookkeeping (each
+    level emits its baseline's interior summaries, the next level's scan
+    completes them)."""
+    inputs, interior = [x], None
+    for j in range(trips - 1):
+        a = inputs[-1]
+        states = cf.level_states_cuda(a) if j == 0 \
+            else cf.tile_scan_cuda(interior, edges_from=a)
+        lvl = cf.sift_level_cuda(a, states, endpoint_mode=endpoint_mode,
+                                 emit=j + 2 < trips)
+        inputs.append(lvl.baseline)
+        interior = lvl.interior
+    BWD_COUNTS["replayed_levels"] += trips - 1
+    return inputs
+
+
 class _KernelSift(torch.autograd.Function):
     """The kernel sift with the gradient of JAX's kernel sift
-    (``decomp/itd.py:178-187``): the forward runs the kernels; the backward
-    replays the loop with structural levels on the kernels (forward levels
-    and adjoint fills) and differentiates the replay, whose forward equals
-    the kernel forward bit for bit.  ``num_components`` and
-    ``stop_reason`` are not differentiable.  The backward is the profiler
-    span ``pyitd.sift_bwd``, its replay ``pyitd.replay``; each level's
-    adjoint inside it is ``pyitd.level_bwd``."""
+    (``decomp/itd.py:178-187``), which is autograd of the loop with
+    structural levels (``_itd_sift_torch(..., linear_backend="structural",
+    level_backend="kernel")``), equal to it bit for bit on finite inputs
+    and cotangents.
+
+    The forward runs the kernels and keeps each trip's stop flags.  The
+    backward (profiler span ``pyitd.sift_bwd``) recomputes the inputs of
+    the levels after the first on the kernels (``pyitd.replay``), then
+    walks the trips in reverse, each one level adjoint on the kernels
+    (``pyitd.level_bwd``) whose ``bwd_pre`` forms the level's cotangents
+    from the outputs' cotangents, the trip's and the next trip's flags and
+    the next level's input gradient (``cuda_fill.trip_cotangents``): no
+    eager op and no autograd node between the adjoints.  Level ``j``'s
+    input is ``b_{j-1}`` (``b_{-1} = x``); the trips the forward ran are
+    walked, so ``early_exit`` stops where the forward stopped.
+
+    Every level adjoint runs on every row, as autograd runs them, so a row
+    with NaN input gets NaN where the replay does.  A non-finite cotangent
+    spreads as autograd's ``0 * g`` paths spread it: through the two-sum
+    residual of a stop-B row (its ``Gc + (G_j - Gc)``) and through the
+    sift's ``x * 0`` (level 0's zero-path term).  With no cotangent that
+    reaches a level (only baselines', none stored) the gradient is that
+    path's alone.  ``num_components`` and ``stop_reason`` are not
+    differentiable."""
 
     @staticmethod
     def forward(ctx, x, max_iteration, endpoint_mode, store_baselines,
                 early_exit):
         ctx.args = (max_iteration, endpoint_mode, store_baselines, early_exit)
-        res = _itd_sift_kernel(x, *ctx.args)
-        ctx.save_for_backward(x)
+        flags = []
+        res = _itd_sift_kernel(x, *ctx.args, flags_out=flags)
+        ctx.save_for_backward(x, *flags)
         ctx.mark_non_differentiable(res.num_components, res.stop_reason)
         ctx.set_materialize_grads(False)
         return tuple(res)
@@ -254,23 +303,41 @@ class _KernelSift(torch.autograd.Function):
     @staticmethod
     @spanned("pyitd.sift_bwd")
     def backward(ctx, g_rot, g_base, _g_ncomp, _g_reason, g_corr):
-        (x,) = ctx.saved_tensors
-        with torch.enable_grad():
-            xr = x.detach().requires_grad_()
-            with span("pyitd.replay"):
-                res = _itd_sift_torch(xr, *ctx.args,
-                                      linear_backend="structural",
-                                      level_backend="kernel")
-            pairs = [(o, g) for o, g in ((res.rotations, g_rot),
-                                         (res.baselines, g_base),
-                                         (res.correction, g_corr))
-                     if g is not None]
-            gx = None
-            if pairs:
-                (gx,) = torch.autograd.grad([o for o, _ in pairs], xr,
-                                            [g for _, g in pairs],
-                                            allow_unused=True)
-        return gx, None, None, None, None
+        x, *flags = ctx.saved_tensors
+        _, endpoint_mode, store_baselines, _ = ctx.args
+        n = x.shape[-1]
+        x2 = x.reshape(-1, n).contiguous()
+        rows = x2.shape[0]
+
+        def flat(g, lead=()):
+            return None if g is None \
+                else g.reshape(*lead, rows, n).contiguous()
+
+        g_zero = None
+        if not store_baselines:  # the one row is the zero path's
+            g_zero, g_base = flat(g_base), None
+        G, Gb, Gc = flat(g_rot, (-1,)), flat(g_base, (-1,)), flat(g_corr)
+        if G is None and Gb is None and Gc is None:
+            gx = None if g_zero is None else (g_zero * 0).reshape(x.shape)
+            return gx, None, None, None, None
+
+        trips = len(flags)
+        with span("pyitd.replay"):
+            inputs = _replay_level_inputs(x2, trips, endpoint_mode)
+        gx = None
+        for j in reversed(range(trips)):
+            nxt = j + 1 < trips and G is not None
+            trip = cf.TripCotangents(
+                flags[j], flags[j + 1] if nxt else None,
+                G[j + 1] if nxt else None, gx, j == 0,
+                g_zero if j == 0 else None)
+            with span("pyitd.level_bwd"):
+                gx = _structural_level_bwd_kernels(
+                    inputs[j], None if G is None else G[j],
+                    None if Gb is None else Gb[j], Gc, endpoint_mode, trip)
+            inputs[j] = None
+        BWD_COUNTS["reverse_trips"] += trips
+        return gx.reshape(x.shape), None, None, None, None
 
 
 class ITD:

@@ -1,9 +1,9 @@
 """Train THROUGH the decomposition: gradients across ``itd_sift`` — port of
 ``examples/train_through_itd.py``.
 
-The sift is differentiable end to end: on the card its backward replays
-the loop on the kernels with the structural adjoint per level, so a model
-can learn parameters upstream of the decomposition.  This demo learns a
+The sift is differentiable end to end: on the card its backward walks the
+sift's trips in reverse on the kernels, the structural adjoint per level,
+so a model can learn parameters upstream of the decomposition.  This demo learns a
 9-tap FIR pre-filter that makes the sift's first proper rotation match a
 known band; the gradient flows through every level into the taps.
 

@@ -70,7 +70,7 @@ _SIGNATURES = {
     "pyitd_segsum": (_I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     "pyitd_bwd_knots": (_P, _I, _I, _P, _P, _P),
     "pyitd_bwd_pre": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                      _I, _P, _P, _P, _P, _P, _P),
+                      _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P),
     "pyitd_bwd_post": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P),
     "pyitd_cubic_ksite": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P),
     "pyitd_cubic_neighbors": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,

@@ -49,7 +49,10 @@ one launch over every sample:
 * ``bwd_knots_cuda(x)``: the knot mask and its one-left shift;
 * ``bwd_pre_cuda(x, g_rot, g_base, g_err, fwd, bwd, endpoint_mode)``: from
   the two fills' channels, the four cotangent channels that the segment
-  sums take and the gradient's direct term;
+  sums take and the gradient's direct term; with a :class:`TripCotangents`
+  it first forms the level's cotangents from the kernel sift's output
+  cotangents and per-row stop flags (the reverse trip loop of
+  ``decomp/itd.py::_KernelSift.backward``);
 * ``bwd_post_cuda(knots, gx, seg_a, seg_e, p2p, n1p)``: from the segment
   sums, the gradient.
 
@@ -100,12 +103,12 @@ __all__ = [
     "MODE_LAUNCHES",
     "reset_launches",
     "TileSummaries", "LevelStates", "SiftCarry", "LevelOut", "ShardArgs",
-    "ShardTotals",
+    "ShardTotals", "TripCotangents",
     "level_summaries", "interior_summaries", "complete_summaries",
     "tile_scan", "level_states", "sift_level",
     "stop_flags", "emit_row", "fill2", "linear_fill2", "fillv", "segsum",
     "segsum_depth", "segsum_error_bound", "SCAN_THREADS", "SCAN_RUN",
-    "bwd_knots", "bwd_pre", "bwd_post",
+    "bwd_knots", "trip_cotangents", "bwd_pre", "bwd_post",
     "level_summaries_cuda", "tile_scan_cuda", "level_states_cuda",
     "sift_level_cuda", "fill2_cuda", "linear_fill2_cuda", "fillv_cuda",
     "segsum_cuda", "bwd_knots_cuda", "bwd_pre_cuda", "bwd_post_cuda",
@@ -207,6 +210,27 @@ class ShardTotals(NamedTuple):
     fval: torch.Tensor
     rpos: torch.Tensor
     rval: torch.Tensor
+
+
+class TripCotangents(NamedTuple):
+    """Where the level adjoint of trip ``j`` of the kernel sift's reverse
+    trip loop (``decomp/itd.py::_KernelSift.backward``) takes its output
+    cotangents from, beside the sift's own: ``g_rot`` is then row ``j``'s
+    cotangent ``G_j``, ``g_base`` baseline row ``j``'s ``Gb_j`` and
+    ``g_err`` the correction's ``Gc``, each ``None`` where absent.
+    ``flags`` are trip ``j``'s stop flags, ``flags_next`` and ``g_next``
+    trip ``j + 1``'s and its row's cotangent ``G_{j+1}`` (``None`` past the
+    last trip run), ``carry`` the input gradient of level ``j + 1``
+    (``None`` at the last), ``zero`` marks level 0, whose gradient also
+    takes the zero path (the sift's ``x * 0``: its first ``prev_base`` and
+    compensation), and ``g_zero`` a further term of that path (baseline
+    row 0's cotangent where no baselines are stored)."""
+    flags: torch.Tensor                    # (rows,) int32
+    flags_next: torch.Tensor | None = None  # (rows,) int32
+    g_next: torch.Tensor | None = None      # (rows, n) f32
+    carry: torch.Tensor | None = None       # (rows, n) f32
+    zero: bool = False
+    g_zero: torch.Tensor | None = None      # (rows, n) f32
 
 
 class LevelOut(NamedTuple):
@@ -677,15 +701,75 @@ def bwd_knots(x: torch.Tensor):
     return knots, shift_left(knots, False)
 
 
-def bwd_pre(x: torch.Tensor, g_rot: torch.Tensor, g_base: torch.Tensor,
-            g_err: torch.Tensor, fwd, bwd, endpoint_mode: str = "reference"):
+def trip_cotangents(g_rot, g_base, g_err, trip: TripCotangents,
+                    like: torch.Tensor):
+    """The output cotangents ``(g_rot, g_base, g_err)`` of level ``j`` in
+    the kernel sift's reverse trip loop, and the zero path's term (``None``
+    but at level 0), from the sift's output cotangents
+    (:class:`TripCotangents`; ``like`` the (rows, n) level input).  The sift writes row ``j`` from
+    ``r_j``, ``b_j``, ``e_j`` and ``prev = b_{j-1}`` under trip ``j``'s
+    flags (``emit_row``); per row that gives
+
+    * ``g_r = G_j`` under ``CONT``, ``Gc + (G_j - Gc)`` under ``STOP_B``;
+    * ``g_e = Gc`` under ``CONT`` or ``STOP_B``;
+    * ``g_b``: ``Gc + (G_j - Gc)`` under ``STOP_B``, plus ``G_{j+1}`` under
+      trip ``j + 1``'s ``STOP_A``, plus ``Gb_j`` under ``CONT``, plus the
+      next level's input gradient;
+
+    0 elsewhere.  ``Gc + (G_j - Gc)`` is what autograd of ``emit_row``
+    gives a stop-B row: ``G_j - Gc`` through the residual's sum, ``Gc``
+    through the two-sum residual's own operands, whose adjoint is an exact
+    zero for a finite ``Gc`` and NaN for an infinite one.  On finite data a
+    row gets at most two nonzero terms in ``g_b``, so no order of
+    additions rounds otherwise.  The zero path: the sift's ``x * 0`` feeds
+    trip 0's ``prev_base`` and the compensation (and, with no baselines
+    stored, the baselines' one row), so level 0's gradient also takes
+    ``(Gc + [STOP_A] G_0 (+ g_zero)) * 0``: 0 on finite cotangents, NaN
+    where one is not.  Each mask is a select, never a product, so a
+    non-finite cotangent reaches only the rows that read it."""
+    zeros = torch.zeros_like(like)
+    f = trip.flags[:, None]
+    cont, stop_b = (f & CONT) != 0, (f & STOP_B) != 0
+    g = zeros if g_rot is None else g_rot
+    c = zeros if g_err is None else g_err
+    sb = c + (g - c)
+    gr = torch.where(cont, g, torch.where(stop_b, sb, zeros))
+    ge = torch.where(cont | stop_b, c, zeros)
+    gb = torch.where(stop_b, sb, zeros)
+    if trip.g_next is not None:
+        gb = gb + torch.where((trip.flags_next[:, None] & STOP_A) != 0,
+                              trip.g_next, zeros)
+    if g_base is not None:
+        gb = gb + torch.where(cont, g_base, zeros)
+    if trip.carry is not None:
+        gb = gb + trip.carry
+    zt = None
+    if trip.zero:
+        z = c + torch.where((f & STOP_A) != 0, g, zeros)
+        if trip.g_zero is not None:
+            z = z + trip.g_zero
+        zt = z * 0.0
+    return gr, gb, ge, zt
+
+
+def bwd_pre(x: torch.Tensor, g_rot: torch.Tensor | None,
+            g_base: torch.Tensor | None, g_err: torch.Tensor | None, fwd,
+            bwd, endpoint_mode: str = "reference",
+            trip: TripCotangents | None = None):
     """Plain version of the ``bwd_pre`` kernel: the level adjoint's work
     between the fills and the segment sums (port of JAX's
     ``_structural_level_bwd``, in its order of operations).  ``fwd`` is
     ``fill2(x, knots)``, ``bwd`` ``fill2(x, knots, reverse=True,
     strict=True)``; returns the four cotangent channels ``(a_bl, a_xl,
     a_br, a_xr)``, non-finite terms dropped, and the gradient's direct term
-    (its NaNs kept)."""
+    (its NaNs kept).  With ``trip`` (``x`` then (rows, n)) the cotangents
+    are the sift's, each may be ``None``, and the level's own are formed
+    first (:func:`trip_cotangents`); the zero path's term joins the direct
+    term."""
+    zt = None
+    if trip is not None:
+        g_rot, g_base, g_err, zt = trip_cotangents(g_rot, g_base, g_err,
+                                                   trip, x)
     n = x.shape[-1]
     it = torch.arange(n, device=x.device).expand(x.shape)
     p1p, p1x, p2p, p2x = fwd
@@ -721,6 +805,8 @@ def bwd_pre(x: torch.Tensor, g_rot: torch.Tensor, g_base: torch.Tensor,
     a_xr = -g_b * coef * (x - xl)
 
     gx = geff_rot + g_err + g_b * s  # direct dB/dx[t] = slope
+    if zt is not None:
+        gx = gx + zt
 
     # Non-finite terms (only inside a NaN quarantine zone, where the
     # gradient is undefined anyway) are dropped: a running sum would carry
@@ -1194,30 +1280,61 @@ def bwd_knots_cuda(x: torch.Tensor):
 
 
 @spanned("pyitd.bwd_pre")
-def bwd_pre_cuda(x: torch.Tensor, g_rot: torch.Tensor, g_base: torch.Tensor,
-                 g_err: torch.Tensor, fwd, bwd,
-                 endpoint_mode: str = "reference"):
+def bwd_pre_cuda(x: torch.Tensor, g_rot: torch.Tensor | None,
+                 g_base: torch.Tensor | None, g_err: torch.Tensor | None,
+                 fwd, bwd, endpoint_mode: str = "reference",
+                 trip: TripCotangents | None = None):
     """:func:`bwd_pre` of ``x`` and the cotangents (rows, n) f32 and the two
     fills' ``(p1, v1, p2, v2)`` channels: ``(a_bl, a_xl, a_br, a_xr,
-    gx)``."""
+    gx)``.  With ``trip`` the cotangents are the kernel sift's (any may be
+    ``None``: the kernel reads no stream for it) and the kernel forms the
+    level's own from them."""
     if endpoint_mode not in ENDPOINT_MODES:
         raise ValueError(f"unknown endpoint_mode: {endpoint_mode!r}")
-    _check_adjoint(x, (g_rot, g_base, g_err, fwd[1], fwd[3], bwd[1], bwd[3]),
+    cts = (g_rot, g_base, g_err)
+    if trip is None and any(g is None for g in cts):
+        raise ValueError("bwd_pre takes no absent cotangent without trip")
+    _check_adjoint(x, tuple(g for g in cts if g is not None)
+                   + (fwd[1], fwd[3], bwd[1], bwd[3]),
                    (fwd[0], fwd[2], bwd[0], bwd[2]))
+    if trip is not None:
+        _check_trip(x, trip)
     if not x.is_cuda:
-        return bwd_pre(x, g_rot, g_base, g_err, fwd, bwd, endpoint_mode)
+        return bwd_pre(x, g_rot, g_base, g_err, fwd, bwd, endpoint_mode,
+                       trip)
     rows, n = x.shape
     outs = tuple(torch.empty_like(x) for _ in range(5))
+    t = trip or TripCotangents(None)
     lib = _lib()
     with torch.cuda.device(x.device):
         code = lib.pyitd_bwd_pre(
-            x.data_ptr(), g_rot.data_ptr(), g_base.data_ptr(),
-            g_err.data_ptr(), *(t.data_ptr() for t in fwd + bwd), rows, n,
-            int(endpoint_mode == "reference"),
-            *(o.data_ptr() for o in outs), _stream(x))
+            x.data_ptr(), *(_ptr(g) for g in cts),
+            *(a.data_ptr() for a in fwd + bwd), rows, n,
+            int(endpoint_mode == "reference"), _ptr(t.flags),
+            _ptr(t.flags_next), _ptr(t.g_next), _ptr(t.carry),
+            _ptr(t.g_zero), int(t.zero), *(o.data_ptr() for o in outs),
+            _stream(x))
     _check(code, "bwd_pre")
     LAUNCHES["bwd_pre"] += 1
     return outs
+
+
+def _check_trip(x: torch.Tensor, trip: TripCotangents) -> None:
+    """Refuse a :class:`TripCotangents` that the ``bwd_pre`` kernel cannot
+    take: per-row int32 flags, the next trip's flags and row cotangent
+    together or neither, the zero path's term only at level 0."""
+    rows, n = x.shape
+    if trip.flags is None:
+        raise ValueError("trip needs this trip's flags")
+    _same(x, trip.flags, dtype=torch.int32, shape=(rows,))
+    if (trip.flags_next is None) != (trip.g_next is None):
+        raise ValueError("trip takes flags_next and g_next together")
+    if trip.flags_next is not None:
+        _same(x, trip.flags_next, dtype=torch.int32, shape=(rows,))
+    if trip.g_zero is not None and not trip.zero:
+        raise ValueError("g_zero is a term of level 0's zero path")
+    _same(x, *(t for t in (trip.g_next, trip.carry, trip.g_zero)
+               if t is not None), dtype=torch.float32, shape=(rows, n))
 
 
 @spanned("pyitd.bwd_post")

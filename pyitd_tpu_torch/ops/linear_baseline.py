@@ -283,21 +283,25 @@ def structural_level_bwd(x: torch.Tensor, g_rot: torch.Tensor,
     return gx.reshape(x.shape)
 
 
-def _structural_level_bwd_kernels(x, g_rot, g_base, g_err, endpoint_mode):
+def _structural_level_bwd_kernels(x, g_rot, g_base, g_err, endpoint_mode,
+                                  trip=None):
     """The kernel route (JAX's ``"pallas"`` route): seven launches of the
     kernels of ``ops/cuda_fill.py`` (on a CPU tensor their plain versions).
     The fills give each sample its segment's knots, ``bwd_pre`` the
     cotangent channels, the segment sums land them on the knot sites
     (``seg_a`` over ``[t, nextknot)``: the reverse sums reset where the NEXT
     sample is a knot; ``seg_e`` over ``[prevknot, t)``: strict sums over the
-    knots), and ``bwd_post`` the gradient."""
+    knots), and ``bwd_post`` the gradient.  With ``trip`` (a
+    ``cuda_fill.TripCotangents``) the cotangents are the kernel sift's and
+    ``bwd_pre`` forms the level's own (``decomp/itd.py::_KernelSift``)."""
     from . import cuda_fill as cf
 
     knots, f_next = cf.bwd_knots_cuda(x)
     fwd = cf.fill2_cuda(x, knots)
     bwd = cf.fill2_cuda(x, knots, reverse=True, strict=True)
     a_bl, a_xl, a_br, a_xr, gx = cf.bwd_pre_cuda(x, g_rot, g_base, g_err,
-                                                 fwd, bwd, endpoint_mode)
+                                                 fwd, bwd, endpoint_mode,
+                                                 trip=trip)
     seg_a = cf.segsum_cuda((a_bl, a_xl), f_next, reverse=True)
     seg_e = cf.segsum_cuda((a_br, a_xr), knots, strict=True)
     return cf.bwd_post_cuda(knots, gx, seg_a, seg_e, fwd[2], bwd[0])

@@ -47,8 +47,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (check_level_bwd, check_scans, device_launches,
-                        level_bwd_cases, scan_protocol_cases, sharded_cases)
+from chip_smoke import (bad_trips, check_bwd_pre_trips, check_level_bwd,
+                        check_scans, device_launches, equal_values,
+                        level_bwd_cases, replay_grad, scan_protocol_cases,
+                        sharded_cases, sift_loss)
 from pyitd_tpu_torch import (ITD, cubic_baseline_extract, itd_sift,
                              linear_baseline_extract)
 from pyitd_tpu_torch.ops import cuda_cubic, cuda_fill
@@ -401,6 +403,53 @@ def test_adjoint_kernels_refuse_what_they_cannot_take(device):
             with pytest.raises(ValueError):
                 call()
     assert all(cuda_fill.LAUNCHES[k] == 0 for k in ADJOINT)
+
+
+@pytest.mark.parametrize("name,x,offset", BWD_CASES,
+                         ids=[c[0] for c in BWD_CASES])
+def test_bwd_pre_on_the_trip_loops_inputs_equals_plain(device, name, x,
+                                                       offset):
+    """``bwd_pre`` as the reverse trip loop calls it equals its plain
+    version to rtol = atol = 0 (``chip_smoke.check_bwd_pre_trips`` raises
+    otherwise): four kinds of trip in two endpoint modes, one launch
+    each."""
+    cuda_fill.reset_launches()
+    check_bwd_pre_trips(name, torch.from_numpy(x).to(device), offset)
+    torch.cuda.synchronize()
+    assert cuda_fill.LAUNCHES["bwd_pre"] == 8
+
+
+@pytest.mark.parametrize("shape", [(256, 16384), (2, 1_000_000)])
+def test_sift_grad_is_the_autograd_replay(device, shape):
+    """The kernel sift's gradient (the reverse trip loop) equals autograd
+    of the loop with structural levels on the kernels, bit for bit (NaN
+    at the same samples), with and without stored baselines; the replay
+    recomputes the inputs of all levels but the first, and every trip runs
+    one level adjoint."""
+    from pyitd_tpu_torch.decomp.itd import BWD_COUNTS
+
+    x = _protocol_signal(*shape, device)
+    for store in (False, True):
+        before = dict(BWD_COUNTS)
+        cuda_fill.reset_launches()
+        xg = x.clone().requires_grad_()
+        sift_loss(itd_sift(xg, 8, store_baselines=store)).backward()
+        assert cuda_fill.LAUNCHES["bwd_pre"] == 10
+        assert cuda_fill.LAUNCHES["sift_level"] == 11 + 9
+        assert {k: v - before[k] for k, v in BWD_COUNTS.items()} == {
+            "replayed_levels": 9, "reverse_trips": 10}
+        assert equal_values(xg.grad, replay_grad(x, 8, store)), store
+
+
+def test_bwd_pre_refuses_bad_trip_arguments(device):
+    """Each argument of the reverse trip loop, wrong, is refused before a
+    launch (``chip_smoke.bad_trips``)."""
+    x = torch.linspace(0, 1, 24, device=device).reshape(3, 8).contiguous()
+    cuda_fill.reset_launches()
+    for what, call in bad_trips(x).items():
+        with pytest.raises(ValueError):
+            call()
+    assert cuda_fill.LAUNCHES["bwd_pre"] == 0
 
 
 def test_level_adjoint_on_kernels_against_plain(device):

@@ -32,12 +32,13 @@ KERNEL = {"level_summaries": "level_summaries_kernel",
           "linear_fill2": "scan_lookback", "fillv": "scan_lookback",
           "segsum": "scan_lookback", "bwd_knots": "bwd_knots_kernel",
           "bwd_pre": "bwd_pre_kernel", "bwd_post": "bwd_post_kernel"}
-# per level adjoint: one bwd_knots, two fill2, one bwd_pre, two segsum, one
-# bwd_post
+# the gradient's replay: the 9 baselines that are level inputs, with the
+# forward's launches; per level adjoint: one bwd_knots, two fill2, one
+# bwd_pre, two segsum, one bwd_post
 LAUNCHES = {"sift": {"level_summaries": 1, "tile_scan": 11,
                      "sift_level": 11},
-            "grad": {"level_summaries": 12, "tile_scan": 22,
-                     "sift_level": 22, "fill2": 20, "segsum": 20,
+            "grad": {"level_summaries": 2, "tile_scan": 20,
+                     "sift_level": 20, "fill2": 20, "segsum": 20,
                      "bwd_knots": 10, "bwd_pre": 10, "bwd_post": 10}}
 WINDOW = "test.window"
 # the profiler aligns the device's clock to the host's once per session: in

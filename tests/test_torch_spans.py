@@ -4,8 +4,9 @@ The kernel route's sift on a CPU tensor runs the wrappers' plain versions
 inside the same spans as on the card, so a CPU profile holds the card's
 span tree: ``pyitd.sift`` around the loop, ``pyitd.trip`` around each trip,
 one ``pyitd.<wrapper>`` per wrapper call, and in the gradient
-``pyitd.sift_bwd`` around the backward, ``pyitd.replay`` around its replayed
-forward and ``pyitd.level_bwd`` around each level's adjoint, which holds
+``pyitd.sift_bwd`` around the backward, ``pyitd.replay`` around its replay
+of the levels' inputs and ``pyitd.level_bwd`` around each level's adjoint
+in the reverse trip loop, which holds
 the spans of its fused kernels (``pyitd.bwd_knots``, ``pyitd.bwd_pre``,
 ``pyitd.bwd_post``) beside those of its scans.  With no
 profiler running nothing records and no ``record_function`` is entered.
@@ -117,20 +118,20 @@ def test_sift_trips_hold_all_but_the_first_extraction(sift_spans, name,
     assert all(s.end <= first_trip for s in loose)
 
 
-# per backward: the replay's 11 extractions of 3 launches, then 10 level
-# adjoints of 2 fill2, 2 segsum and one of each fused kernel (the last
-# trip's extraction reaches no output)
+# per backward: the replay's 9 extractions of the baselines that are level
+# inputs (the first with the pre-pass, each later one a scan and a level),
+# then 10 level adjoints of 2 fill2, 2 segsum and one of each fused kernel
 GRAD_COUNTS = {"pyitd.sift_bwd": 1, "pyitd.replay": 1,
                "pyitd.level_bwd": MAX_IT + 2,
-               "pyitd.level_summaries": 1 + (MAX_IT + 3),
-               "pyitd.tile_scan": 2 * (MAX_IT + 3),
-               "pyitd.sift_level": 2 * (MAX_IT + 3),
+               "pyitd.level_summaries": 2,
+               "pyitd.tile_scan": (MAX_IT + 3) + (MAX_IT + 1),
+               "pyitd.sift_level": (MAX_IT + 3) + (MAX_IT + 1),
                "pyitd.fill2": 2 * (MAX_IT + 2),
                "pyitd.segsum": 2 * (MAX_IT + 2),
                "pyitd.linear_fill2": 0, "pyitd.fillv": 0,
                "pyitd.bwd_knots": MAX_IT + 2, "pyitd.bwd_pre": MAX_IT + 2,
                "pyitd.bwd_post": MAX_IT + 2,
-               "wrappers": 96, "fused": 3 * (MAX_IT + 2)}
+               "wrappers": 82, "fused": 3 * (MAX_IT + 2)}
 
 
 def _counted(spans_, name):
@@ -149,7 +150,7 @@ def test_grad_span_counts(grad_spans, name):
 @pytest.mark.parametrize("name,within,count", [
     ("pyitd.replay", "pyitd.sift_bwd", 1),
     ("pyitd.level_bwd", "pyitd.sift_bwd", MAX_IT + 2),
-    ("wrappers", "pyitd.replay", 3 * (MAX_IT + 3)),
+    ("wrappers", "pyitd.replay", 1 + 2 * (MAX_IT + 1)),
     ("wrappers", "pyitd.level_bwd", 4 * (MAX_IT + 2)),
     ("fused", "pyitd.level_bwd", 3 * (MAX_IT + 2)),
     ("wrappers", "pyitd.sift", 2 * MAX_IT + 7)])

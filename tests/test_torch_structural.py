@@ -14,6 +14,13 @@
   the plain loop's, gradient against the plain structural route, and per
   level that reaches the loss one ``bwd_knots``, two fill2, one
   ``bwd_pre``, two segsum and one ``bwd_post`` call;
+* the kernel route's gradient (the reverse trip loop) equal to autograd of
+  the loop with structural levels on the kernels (``torch.equal``, NaN at
+  the same samples), on shapes of 2 to 9,000 samples and a 3-D batch, with
+  and without stored baselines, ``early_exit``, both endpoint modes and
+  losses on rotations, correction, baselines and all three; a NaN input
+  and an infinite cotangent; the replay's levels and the loop's trips
+  (``BWD_COUNTS``), and the wrapper refusing bad trip arguments;
 * the level adjoint's fused kernels (``cuda_fill.bwd_knots``, ``bwd_pre``,
   ``bwd_post``, their plain versions here) and the whole kernel-route
   adjoint on a CPU tensor equal the route's composition before the fusion
@@ -36,7 +43,9 @@ import jax.numpy as jnp
 from pyitd_tpu.decomp.itd import _itd_sift_xla
 from pyitd_tpu.decomp.itd import itd_sift as jax_sift
 from pyitd_tpu.ops.linear_baseline import _structural_level_bwd
+import chip_smoke
 from pyitd_tpu_torch import itd_sift, linear_baseline_extract
+from pyitd_tpu_torch.decomp.itd import BWD_COUNTS, _itd_sift_torch
 from pyitd_tpu_torch.examples import train_through_itd as trainer
 from pyitd_tpu_torch.ops import cuda_fill
 from pyitd_tpu_torch.ops.linear_baseline import (
@@ -203,20 +212,105 @@ def test_kernel_route_grad_on_cpu_f32(monkeypatch, shape, max_it, kw):
         np.testing.assert_array_equal(getattr(a, f), getattr(b, f), f)
     assert calls == dict.fromkeys(ADJOINT, 0)
 
+    before = dict(BWD_COUNTS)
     _loss(rk).backward()
     levels = max_it + 2
     if kw.get("early_exit"):
         levels = int(rk.num_components.max())
-    # every extraction but the last trip's reaches the loss
+    # every extraction but the last trip's reaches the loss; the replay
+    # recomputes the inputs of all of them but the first
     assert calls == {"bwd_knots": levels, "fill2": 2 * levels,
                      "bwd_pre": levels, "segsum": 2 * levels,
                      "bwd_post": levels}
+    assert {k: v - before[k] for k, v in BWD_COUNTS.items()} == {
+        "replayed_levels": levels - 1, "reverse_trips": levels}
     _loss(rp).backward()
     gk, gp = xk.grad.numpy(), xp.grad.numpy()
     np.testing.assert_array_equal(np.isnan(gk), np.isnan(gp))
     ok = ~np.isnan(gp)
     np.testing.assert_allclose(gk[ok], gp[ok], rtol=0,
                                atol=1e-4 * np.abs(gp[ok]).max())
+
+
+LOSSES = {"rotations": ("rotations",), "correction": ("correction",),
+          "baselines": ("baselines",),
+          "all": ("rotations", "baselines", "correction")}
+REPLAY_SHAPES = KERNEL_GRAD + [
+    ((2, 3, 200), 3, {"endpoint_mode": "natural"}),
+    ((4, 40), 6, {"store_baselines": False, "early_exit": True,
+                  "endpoint_mode": "natural"})]
+REPLAY_CASES = [(shape, max_it, kw, loss, None)
+                for shape, max_it, kw in REPLAY_SHAPES for loss in LOSSES] + [
+    ((2, 9000), 5, {}, "all", "nan input"),
+    ((2, 9000), 5, {"store_baselines": False}, "all", "inf correction"),
+    ((2, 9000), 5, {}, "all", "inf rotation"),
+    ((3, 2), 2, {}, "all", None)]
+
+
+def _replay_ids():
+    for shape, max_it, kw, loss, odd in REPLAY_CASES:
+        opts = "-".join(f"{k}={v}" for k, v in kw.items())
+        yield f"{shape}-{max_it}-{opts}-{loss}-{odd}"
+
+
+@pytest.mark.parametrize("shape,max_it,kw,loss,odd", REPLAY_CASES,
+                         ids=list(_replay_ids()))
+def test_kernel_route_grad_is_the_autograd_replay(monkeypatch, shape, max_it,
+                                                  kw, loss, odd):
+    """The reverse trip loop's gradient equals autograd of
+    ``_itd_sift_torch(..., linear_backend="structural",
+    level_backend="kernel")`` bit for bit where not NaN, NaN at the same
+    samples (``chip_smoke.equal_values``); one level adjoint a trip, the
+    replay's levels one fewer, none where no loss term reaches a level."""
+    rng = np.random.default_rng(shape[-1] + max_it)
+    t = np.linspace(0, 2 * np.pi, shape[-1])
+    x = (np.sin(7 * t) + 0.4 * rng.normal(size=shape)).astype(np.float32)
+    if odd == "nan input":
+        x[0, 3000:3002] = np.nan
+    args = (max_it, kw.get("endpoint_mode", "reference"),
+            kw.get("store_baselines", True), kw.get("early_exit", False))
+
+    def grad(sift):
+        xg = from_numpy(x).requires_grad_()
+        r = sift(xg)
+        g_rng = np.random.default_rng(7)
+        outs = [getattr(r, name) for name in LOSSES[loss]]
+        cts = [from_numpy(g_rng.normal(size=o.shape).astype(np.float32))
+               for o in outs]
+        if odd == "inf correction":
+            cts[-1].view(-1)[4321] = np.inf
+        if odd == "inf rotation":
+            cts[0][0, 1].view(-1)[17] = -np.inf
+        (g,) = torch.autograd.grad(outs, xg, cts, allow_unused=True)
+        return r, g
+
+    calls = _count_calls(monkeypatch)
+    before = dict(BWD_COUNTS)
+    rk, gk = grad(lambda a: itd_sift(a, max_it, backend="kernel", **kw))
+    trips = max_it + 2
+    if kw.get("early_exit"):
+        trips = int(rk.num_components.max())
+    if loss == "baselines" and not args[2]:
+        trips = 0  # the one row of zeros reaches no level
+    assert {k: v - before[k] for k, v in BWD_COUNTS.items()} == {
+        "replayed_levels": max(trips - 1, 0), "reverse_trips": trips}
+    assert calls == {"bwd_knots": trips, "fill2": 2 * trips,
+                     "bwd_pre": trips, "segsum": 2 * trips,
+                     "bwd_post": trips}
+    _, gr = grad(lambda a: _itd_sift_torch(a, *args,
+                                           linear_backend="structural",
+                                           level_backend="kernel"))
+    assert chip_smoke.equal_values(gk, gr)
+    if odd == "inf correction":
+        assert bool(torch.isnan(gr).any())  # the zero path and two-sum term
+
+
+@pytest.mark.parametrize("bad", list(chip_smoke.bad_trips(
+    torch.zeros(3, 8))))
+def test_bwd_pre_wrapper_refuses_bad_trip_arguments(bad):
+    x = torch.linspace(0, 1, 24).reshape(3, 8).contiguous()
+    with pytest.raises(ValueError):
+        chip_smoke.bad_trips(x)[bad]()
 
 
 def test_kernel_route_grad_through_rotations_only():
