@@ -216,17 +216,10 @@ Phases (each raises on failure, so any failure exits non-zero):
    batches: step 0's gradient against the CPU's in f64 (``ML_CARD_REL``;
    in f32 printed beside the f64 gradient, not held: ill-conditioned),
    ``VTE_STEPS`` Adam steps, finite and falling;
-15. the cubic tier's remaining eval routes, the ``DistGroup`` gradient and
-   the native real-time tier: ``linear_fill2_cuda`` (K2a alone) bitwise
-   its plain version at 8 x 1M in both directions; phase 8's 8 x 1M level
-   on ``"scan"``, ``"fills_unfused"``, ``"fills_compact"`` (capacity n + 2)
-   and ``"fills_fused"``, each within ``CUBIC_F64_REL`` of the f64 gather
-   route (``"fills_fused"`` bitwise ``"fills"``), launches by kernel,
-   events ms (median, min, max), device busy, ATen calls; ``"fills_packed"``
-   and ``"fills"`` on the 2-D ensemble's (5,120 x 256) bank of tile rows
-   (``PACKED_SHAPE``), the packed route bitwise itself with one row per
-   kernel row; ``linear_fill2``'s row of the kernels line (launches: the
-   unfused level's).  Over a one-rank NCCL ``DistGroup`` at
+15. K2a, the ``DistGroup`` gradient and the native real-time tier:
+   ``linear_fill2_cuda`` (K2a alone) bitwise its plain version at 8 x 1M
+   in both directions, and its row of the kernels line (no route launches
+   it).  Over a one-rank NCCL ``DistGroup`` at
    ``SHARD_GRAD_SHAPE``: the gradient of ``sharded_itd_sift`` (kernel
    route) and of ``sharded_cubic_baseline``, each bitwise
    ``LocalGroup(1)``'s under ``torch.use_deterministic_algorithms`` (the
@@ -3607,204 +3600,32 @@ def phase14_ml(dev, card: str, gpt_final: list) -> None:
           + f"  [{card}]", flush=True)
 
 
-# ---- phase 15: the cubic tier's remaining routes, the DistGroup gradient,
-# the native real-time tier ----
+# ---- phase 15: K2a, the DistGroup gradient, the native real-time tier ----
 
-# the fills_packed cell: the 2-D ensemble's (5,120 x 256) bank of tile rows
-# (pyitd_tpu/ops/cubic_baseline.py:361-363): 20 noisy realizations of the
-# 256 rows of the 2-D profile's tile
-PACKED_SHAPE, PACKED_REALIZATIONS = (5120, 256), 20
 # the native tier: STEP_HOPS hops of phase 12's bank on NATIVE_CHANNELS
 # streams, and one NativePool batch of the bank
 NATIVE_CHANNELS = 64
 # phase 12's card step (p50, p99 in ms), printed beside the native tier's
 STEP_LATENCY: dict = {}
-ROUTES_15 = ("scan", "fills_unfused", "fills_compact", "fills_fused")
 
 
-def route_launches() -> dict:
-    """The repo's kernel launches since the last reset, by wrapper, the
-    kernels that did not launch left out."""
-    from pyitd_tpu_torch.ops import cuda_cubic as cc
-    from pyitd_tpu_torch.ops import cuda_fill as cf
-
-    out = {k: v for k, v in {**cf.LAUNCHES, **cc.LAUNCHES}.items() if v}
-    return dict(sorted(out.items()))
-
-
-def reset_all_launches() -> None:
-    from pyitd_tpu_torch.ops import cuda_cubic as cc
-    from pyitd_tpu_torch.ops import cuda_fill as cf
-
-    cf.reset_launches()
-    cc.reset_launches()
-
-
-def packed_bank():
-    """``PACKED_SHAPE`` f32: the tile's rows plus 0.1 seeded noise, one
-    realization after another."""
-    tile = tile_2d(PACKED_SHAPE[1])
-    rng = np.random.default_rng(15)
-    bank = np.concatenate([tile + 0.1 * rng.normal(size=tile.shape)
-                           for _ in range(PACKED_REALIZATIONS)])
-    return bank.astype(np.float32)
-
-
-def route_report(what: str, fn, card: str) -> tuple[float, int]:
-    """One route timed: events ms (median, min, max), device busy, ATen
-    calls.  Returns ``(median ms, ATen calls)``."""
-    from pyitd_tpu_torch.tools.level_bench import aten_ops
-
-    times = cuda_times(fn, reps=10, warmup=1)
-    dms, by_name = device_ms(fn, reps=3)
-    ops = aten_ops(fn)
-    ms = statistics.median(times)
-    print(f"[15] {what}: {ms:.4f} ms/level (CUDA events, median of "
-          f"{len(times)}, min {times[0]:.4f}, max {times[-1]:.4f}); device "
-          f"busy {dms:.4f} ms, idle share {1 - dms / ms:.3f}; {ops} ATen "
-          f"calls  [{card}]", flush=True)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    print("[15]   top device kernels (ms/level): " + "; ".join(
-        f"{kernel_label(k)} {v:.4f}" for k, v in top), flush=True)
-    return ms, ops
-
-
-def held_to_gather(what, got, g64) -> float:
-    """The f32 route's baseline against the f64 gather route: extrema
-    counts equal, the baseline within ``CUBIC_F64_REL`` of max|baseline|.
-    Returns the relative error."""
+def phase15_linear_fill2(dev):
+    """``linear_fill2_cuda`` (K2a alone) bitwise its plain version at
+    ``MAIN_SHAPE`` in both directions.  Returns the signal."""
     import torch
-
-    if not torch.equal(got.num_extrema, g64.num_extrema):
-        raise AssertionError(f"{what}: extrema counts differ from the f64 "
-                             f"gather route")
-    if not bool(torch.isfinite(got.baseline).all()):
-        raise AssertionError(f"{what}: baseline not finite")
-    scale = float(g64.baseline.abs().max())
-    rel = max_abs_err(got.baseline, g64.baseline) / scale
-    if not rel <= CUBIC_F64_REL:
-        raise AssertionError(f"{what}: {rel} of max|baseline| against the "
-                             f"f64 gather route (limit {CUBIC_F64_REL})")
-    return rel
-
-
-def phase15_routes(dev, card: str) -> dict:
-    """The cubic tier's remaining eval routes on phase 8's signal and on
-    the packed cell; ``linear_fill2`` bitwise its plain version.  Returns
-    the launches by route and ``linear_fill2``'s inputs."""
-    import torch
-    from pyitd_tpu_torch import cubic_baseline_extract
-    from pyitd_tpu_torch.ops import cubic_baseline as cb
     from pyitd_tpu_torch.ops import cuda_fill as cf
 
     x = torch.from_numpy(bench_signal(*MAIN_SHAPE)).to(dev)
-    rows, n = MAIN_SHAPE
-    cap = n + 2
     for reverse in (False, True):
         got = cf.linear_fill2_cuda(x, reverse)
         want = cf.linear_fill2(x, reverse)
         if not all(bitwise_equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"linear_fill2 8x1M reverse={reverse}: "
                                  f"kernel differs from its plain version")
-    del got, want
     print("[15] linear_fill2 8x1M: kernel bitwise its plain version (the "
           "knot mask of ops/extrema.py, then fill2), both directions",
           flush=True)
-
-    g64 = cubic_baseline_extract(x.double(), cap, min_extrema=0,
-                                 eval_backend="gather")
-    fills = cubic_baseline_extract(x, cap, min_extrema=0,
-                                   eval_backend="fills")
-    launches = {}
-    for route in ROUTES_15:
-        def level(r=route):
-            return cubic_baseline_extract(x, cap, min_extrema=0,
-                                          eval_backend=r)
-
-        torch.cuda.synchronize()
-        reset_all_launches()
-        res = level()
-        torch.cuda.synchronize()
-        launches[route] = route_launches()
-        what = f"cubic 8x1M {route}"
-        if route == "fills_fused":
-            if not all(bitwise_equal(getattr(res, f), getattr(fills, f))
-                       for f in res._fields):
-                raise AssertionError(f"{what}: not bitwise 'fills'")
-        rel = held_to_gather(what, res, g64)
-        del res
-        print(f"[15] {what} (capacity n+2, min_extrema=0): launches "
-              f"{launches[route]}; against the f64 gather route "
-              f"{rel!r} of max|baseline| (limit {CUBIC_F64_REL})"
-              + ("; bitwise 'fills'" if route == "fills_fused" else ""),
-              flush=True)
-        route_report(what, level, card)
-    # on a CPU tensor (a rehearsal) the chained system is solved by PCR
-    want = {"scan": {},
-            "fills_unfused": {"fill2": 2, "linear_fill2": 2,
-                              **({"spike_factors": 1} if x.is_cuda else {})},
-            "fills_compact": {"fill2": 4, "linear_fill2": 2}}
-    for route, w in want.items():
-        if launches[route] != w:
-            raise AssertionError(f"cubic 8x1M {route}: launches "
-                                 f"{launches[route]}, expected {w}")
-    torch.cuda.synchronize()
-    reset_all_launches()
-    cubic_baseline_extract(x, cap, min_extrema=0, eval_backend="fills")
-    torch.cuda.synchronize()
-    if launches["fills_fused"] != route_launches():
-        raise AssertionError("fills_fused launches differ from fills'")
-    del g64, fills
-
-    # the packed cell: short rows, many to a kernel row
-    xp = torch.from_numpy(packed_bank()).to(dev)
-    prow, pn = PACKED_SHAPE
-    g64 = cubic_baseline_extract(xp.double(), pn + 2, min_extrema=0,
-                                 eval_backend="gather")
-    per_row = {}
-    for route in ("fills_packed", "fills"):
-        def level(r=route):
-            return cubic_baseline_extract(xp, pn + 2, min_extrema=0,
-                                          eval_backend=r)
-
-        torch.cuda.synchronize()
-        reset_all_launches()
-        res = level()
-        torch.cuda.synchronize()
-        launches[route + " (packed cell)"] = route_launches()
-        what = f"cubic {prow}x{pn} {route}"
-        rel = held_to_gather(what, res, g64)
-        if route == "fills_packed":
-            one, nex1 = cb._eval_fills_small(xp, 0, pack=1)
-            if not (bitwise_equal(res.baseline, one)
-                    and torch.equal(res.num_extrema, nex1)):
-                raise AssertionError(f"{what}: differs from one row per "
-                                     f"kernel row")
-            reset_all_launches()
-            cb._eval_fills_small(xp, 0, pack=1)
-            torch.cuda.synchronize()
-            one_l = route_launches()
-            pack = cf.TILE // (-(-pn // 128) * 128)
-        print(f"[15] {what} (min_extrema=0): launches "
-              f"{launches[route + ' (packed cell)']}; against the f64 "
-              f"gather route {rel!r} of max|baseline| (limit "
-              f"{CUBIC_F64_REL})"
-              + (f"; {pack} rows per kernel row, bitwise one row per kernel "
-                 f"row (launches {one_l})" if route == "fills_packed"
-                 else ""), flush=True)
-        per_row[route] = route_report(what, level, card)[0]
-        if route == "fills_packed":
-            route_report(f"cubic {prow}x{pn} fills_packed, one row per "
-                         f"kernel row", lambda: cb._eval_fills_small(
-                             xp, 0, pack=1), card)
-    if launches["fills_packed (packed cell)"] != {"fill2": 4}:
-        raise AssertionError(f"fills_packed launches "
-                             f"{launches['fills_packed (packed cell)']}")
-    print(f"[15] packed cell: fills_packed {per_row['fills_packed']:.4f} ms, "
-          f"fills {per_row['fills']:.4f} ms per level "
-          f"({per_row['fills'] / per_row['fills_packed']:.2f}x)  [{card}]",
-          flush=True)
-    return {"launches": launches, "x": x}
+    return x
 
 
 def phase15_dist_grad(dev, card: str) -> None:
@@ -4791,23 +4612,18 @@ def main() -> int:
     # ---- phase 14: BlockFastLM served; training over a DeviceMesh ----
     phase14_ml(dev, card, gpt_final)
 
-    # ---- phase 15: the cubic tier's remaining routes, the DistGroup
-    # gradient, the native real-time tier ----
-    r15 = phase15_routes(dev, card)
-    x15, l15 = r15["x"], r15["launches"]
+    # ---- phase 15: K2a, the DistGroup gradient, the native real-time
+    # tier ----
+    x15 = phase15_linear_fill2(dev)
     rows, n = MAIN_SHAPE
     lf_k = cf.linear_fill2_cuda(x15) + cf.linear_fill2_cuda(x15, True)
     lf_p = cf.linear_fill2(x15) + cf.linear_fill2(x15, True)
-    print("[15] linear_fill2 launches by route: " + ", ".join(
-        f"{r} {l.get('linear_fill2', 0)}" for r, l in l15.items()),
-        flush=True)
     # bytes: x read once, four (position, value) channels written; the knot
-    # test's two differences per sample
+    # test's two differences per sample; no route launches K2a
     entry("linear_fill2", max(max_abs_err(a, b) for a, b in zip(lf_k, lf_p)),
           lambda: cf.linear_fill2_cuda(x15), lambda: cf.linear_fill2(x15),
-          rows * n * (4 + 16), 2 * rows * n,
-          l15["fills_unfused"]["linear_fill2"])
-    del r15, x15, lf_k, lf_p
+          rows * n * (4 + 16), 2 * rows * n, 0)
+    del x15, lf_k, lf_p
     phase15_dist_grad(dev, card)
     phase15_native(dev, card)
 

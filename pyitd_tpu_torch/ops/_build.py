@@ -146,9 +146,8 @@ def build() -> tuple[Path, str]:
 
 
 def load_library() -> ctypes.CDLL:
-    """The kernels' shared library, built and loaded once per process (the
-    wrappers call this on every launch, so it must not rehash the
-    sources)."""
+    """The kernels' shared library, built and loaded once per process, its
+    build constants unchecked (``cuda_fill._lib`` checks them)."""
     if "lib" not in _loaded:
         so, _ = build()
         lib = ctypes.CDLL(str(so))

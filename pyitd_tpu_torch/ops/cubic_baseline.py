@@ -15,35 +15,21 @@ Routes (``eval_backend``):
   system on the knot axis (``tridiag.spline_moments``) and per-sample
   gathers.  Plain PyTorch, any device and float dtype, differentiable by
   autograd.
-* ``"scan"`` — the same knots and moments, evaluated without per-sample
-  gathers (:func:`eval_moment_spline_scan`: the per-knot channels scattered
-  onto the grid and filled).  Plain PyTorch, differentiable by autograd.
-* ``"fills"`` (and ``"fills_fused"``, the same route by JAX's name for it)
-  — the padded-resident route of JAX's ``_eval_fills_fused``,
+* ``"fills"`` — the padded-resident route of JAX's ``_eval_fills_fused``,
   on four kernels (``ops/cuda_cubic.py``): the knot values (K5), the
   neighbor fills (K6), the elementwise not-a-knot rows, the SPIKE local
   factorization of the grid-resident moment system (K7), the interface
   solve over SPIKE blocks (torch), the end moments, and the fused
   back-substitution and evaluation (K8).  On a CPU tensor the wrappers run
   their plain versions.  f32 inside for any input dtype, no compact
-  buffers (``capacity`` is ignored), positions below 2^24.
-* ``"fills_unfused"`` — JAX's ``_eval_fills`` with the chained solver: fill
-  round 1 on ``linear_fill2_cuda`` (the knot mask in the kernel), round 2
-  on ``fill2_cuda`` (K3), the grid-resident moment system solved by K7
-  (``cuda_cubic.chained_block_spike``) on a CUDA tensor and by
-  ``chained_pcr.chained_block_pcr`` on the CPU (JAX's ``use_spike=not
-  interp``), and the closed form in torch.  ``capacity`` is ignored.
-* ``"fills_compact"`` — ``_eval_fills`` with the compact solver: the same
-  two fill rounds, the knot-space ``spline_moments`` on ``capacity`` slots
-  (knots beyond it are dropped, as the gather route drops them), and the
-  moments brought back to the grid by a third round on K3.
-* ``"fills_packed"`` — ``_eval_fills_small``: short rows packed ``TILE //
-  n_pad`` to a kernel row for K3 (positions made row-local), the moment
-  system by ``chained_block_pcr`` on every device, as JAX's packed route
-  solves it (``use_spike=False``).
-The fills routes compute in f32 for any input dtype; their gradient is
-autograd of the gather route (:class:`_CubicFills`).
+  buffers (``capacity`` is ignored), positions below 2^24; its gradient is
+  autograd of the gather route (:class:`_CubicFills`).
 * ``"auto"`` — ``"fills"`` on a CUDA tensor, ``"gather"`` elsewhere.
+
+JAX's other routes (``"scan"``, ``"fills_fused"``, ``"fills_unfused"``,
+``"fills_compact"``, ``"fills_packed"``) are refused: no caller selects
+them, and the one timed on the H100, ``"fills_packed"``, was slower than
+``"fills"`` on the short rows it was written for.
 """
 from __future__ import annotations
 
@@ -54,22 +40,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .chained_pcr import _sdiv, chained_block_pcr, notaknot_rows
+from .chained_pcr import _sdiv, notaknot_rows
 from .extrema import compact_indices, extrema_mask
-from .fill import (backward_fill_scan, forward_fill_scan, shift_left,
-                   shift_right, take_last_axis)
+from .fill import forward_fill_scan, shift_left, shift_right, take_last_axis
 from .linear_baseline import knot_value
 from .tridiag import _count, reference_spline_moments, spline_moments
 
 __all__ = ["CubicBaselineResult", "segment_index", "eval_moment_spline",
-           "eval_moment_spline_scan", "cubic_baseline_extract",
-           "template_fast_baseline"]
-
-# the routes that compute in f32 on the fill kernels
-_FILLS = ("fills", "fills_fused", "fills_unfused", "fills_compact",
-          "fills_packed")
-# of those, the ones that ignore capacity (no compact knot buffers)
-_CHAINED = ("fills", "fills_fused", "fills_unfused")
+           "cubic_baseline_extract", "template_fast_baseline"]
 
 # the h^2/6 factor of the fills route: PyTorch's CUDA division by a host
 # scalar multiplies by its reciprocal, so the route (and K8) multiply by
@@ -130,55 +108,16 @@ def eval_moment_spline(x_like, positions, values, moments, h, seg):
     return lin, cub
 
 
-def eval_moment_spline_scan(x_like, positions, values, moments, h, count):
-    """Gather-free twin of :func:`eval_moment_spline` for the MEITD-tier
-    segment semantics (endpoints in the knot set, the last sample in the
-    final interval), as ``(lin, cub)``: the j-side channels scattered onto
-    the grid at knots 0 .. count-2 and forward-filled, the (j+1)-side ones
-    at knots 1 .. count-1 and filled backward from strictly after each
-    sample, and the final sample patched with the last knot's."""
-    dtype = values.dtype
-    n = x_like.shape[-1]
-    it = torch.arange(n, device=x_like.device)
-    k = torch.arange(positions.shape[-1], device=positions.device)
-    cnt = _count(count, positions)
-    valid_j = k < cnt - 1
-    valid_n = (k >= 1) & (k < cnt)
-    ones = torch.ones_like(values)
-    pj_g, kj_g, mj_g, hj_g, occ_j = _scatter_channels(
-        x_like, positions, valid_j,
-        (positions.to(dtype), values, moments, h, ones))
-    kn_g, mn_g, occ_n = _scatter_channels(x_like, positions, valid_n,
-                                          (values, moments, ones))
-    pos_j, k_j, m_j, h_j = forward_fill_scan((pj_g, kj_g, mj_g, hj_g),
-                                             occ_j != 0, (0.0, 0.0, 0.0, 1.0))
-    k_j1, m_j1 = backward_fill_scan(
-        (shift_left(kn_g, 0.0), shift_left(mn_g, 0.0)),
-        shift_left(occ_n, 0.0) != 0, (0.0, 0.0))
-    last = (cnt - 1).clamp(min=0).long().expand(values.shape[:-1] + (1,))
-    is_last = it == n - 1
-    k_j1 = torch.where(is_last, torch.gather(values, -1, last), k_j1)
-    m_j1 = torch.where(is_last, torch.gather(moments, -1, last), m_j1)
-
-    h_safe = torch.where(h_j == 0, torch.ones_like(h_j), h_j)
-    s = (it.to(dtype) - pos_j) / h_safe
-    lin = (1.0 - s) * k_j + s * k_j1
-    omt = 1.0 - s
-    cub = h_j * h_j / 6.0 * ((omt * omt * omt - omt) * m_j
-                             + (s * s * s - s) * m_j1)
-    return lin, cub
-
-
 def _odd_reflect_ends(x: torch.Tensor):
     n = x.shape[-1]
     return (0.5 * (3.0 * x[..., 0] - x[..., 1]),
             0.5 * (3.0 * x[..., n - 1] - x[..., n - 2]))
 
 
-def _extract_gather(x, capacity: int, min_extrema: int,
-                    scan: bool = False) -> CubicBaselineResult:
-    """The gather route, or with ``scan`` the scan route (JAX's
-    ``_cubic_extract_impl`` with ``eval_backend="gather"`` / ``"scan"``)."""
+def _extract_gather(x, capacity: int,
+                    min_extrema: int) -> CubicBaselineResult:
+    """The gather route (JAX's ``_cubic_extract_impl`` with
+    ``eval_backend="gather"``)."""
     n = x.shape[-1]
     dtype = x.dtype
     mask = extrema_mask(x)
@@ -203,11 +142,8 @@ def _extract_gather(x, capacity: int, min_extrema: int,
     moments = spline_moments(pos, knots, kcount, bc="not-a-knot")
     h = (e_next - pos).to(dtype)
     h = torch.where(k < cnt - 1, h, torch.ones_like(h))
-    if scan:
-        lin, cub = eval_moment_spline_scan(x, pos, knots, moments, h, kcount)
-    else:
-        seg = segment_index(x, pos, kcount, cap_to_last_interval=True)
-        lin, cub = eval_moment_spline(x, pos, knots, moments, h, seg)
+    seg = segment_index(x, pos, kcount, cap_to_last_interval=True)
+    lin, cub = eval_moment_spline(x, pos, knots, moments, h, seg)
     baseline = torch.where((nex < min_extrema)[..., None], x, lin + cub)
     return CubicBaselineResult(rotation=x - baseline, baseline=baseline,
                                num_extrema=nex)
@@ -218,16 +154,13 @@ def _extract_gather(x, capacity: int, min_extrema: int,
 # ---------------------------------------------------------------------------
 
 
-def _fo_knot_values(xv, it, p2p, p2x, n1p, n1x, b_first, b_last,
-                    n_real=None):
+def _fo_knot_values(xv, it, p2p, p2x, n1p, n1x, b_first, b_last):
     """Frei-Osorio knot values at knot sites with the odd-reflection end
     values, from the fill channels: at a knot, ``p2p`` is the previous knot
-    and ``n1p`` the next (K5's formula, at every sample).  ``n_real``: the
-    rows' length where the buffer is padded past it."""
-    n_real = xv.shape[-1] if n_real is None else n_real
+    and ``n1p`` the next (K5's formula, at every sample)."""
     k = knot_value(it, xv, p2p, p2x, n1p, n1x)
     k = torch.where(it == 0, b_first[..., None], k)
-    return torch.where(it == n_real - 1, b_last[..., None], k)
+    return torch.where(it == xv.shape[-1] - 1, b_last[..., None], k)
 
 
 def _end_knot_positions(mask: torch.Tensor, big: int, pos=None):
@@ -246,15 +179,12 @@ def _end_knot_positions(mask: torch.Tensor, big: int, pos=None):
     return l1, l2, f1, f2
 
 
-def _segment_eval(xv, it, nb, m_j, m_j1, m_last, b_last, passthrough,
-                  n_real=None):
+def _segment_eval(xv, it, nb, m_j, m_j1, m_last, b_last, passthrough):
     """Closed-form moment-spline evaluation from per-sample channels, with
     the final-sample patches (its j-side is the second-to-last knot, its
-    (j+1)-side the last) and the pass-through guard; K8's formula.
-    ``n_real`` as in :func:`_fo_knot_values`.  Returns ``(baseline,
-    rotation)``."""
-    n_real = xv.shape[-1] if n_real is None else n_real
-    is_last = it == n_real - 1
+    (j+1)-side the last) and the pass-through guard; K8's formula.  Returns
+    ``(baseline, rotation)``."""
+    is_last = it == xv.shape[-1] - 1
     m_j1 = torch.where(is_last, m_last, m_j1)
     pos_j = torch.where(is_last, nb.p2p, nb.p1p)
     k_j = torch.where(is_last, nb.kjm1, nb.kj)
@@ -285,19 +215,16 @@ def _u_at(factors, e_prev, f_next, idx):
             + g(factors[4]) * torch.gather(f_next, 1, blk)[:, 0])
 
 
-def _end_moments(u_at, mask_int, n: int, width=None):
+def _end_moments(u_at, mask_int, n: int):
     """The not-a-knot end moments ``M0 = M1 + (h0/h1)(M1 - M2)`` and its
     mirror, from the first / last two interior knots, ``u_at(idx)`` the
     solution at one position per row.  Degenerate contract pinned to the
     compact solver: a missing second interior knot reads moment 0 and its
-    spacing reaches the far end knot.  ``width``: the buffer's, where rows
-    are padded past ``n`` (JAX's ``_chained_moments`` reads its sentinels
-    at the width)."""
-    width = n if width is None else width
-    il1, il2, i1, i2 = _end_knot_positions(mask_int, width)
-    has_i2, has_il2 = i2 < width, il2 >= 0
-    i1 = torch.where(i1 >= width, 0, i1)
-    il1 = torch.where(il1 < 0, width - 1, il1)
+    spacing reaches the far end knot."""
+    il1, il2, i1, i2 = _end_knot_positions(mask_int, n)
+    has_i2, has_il2 = i2 < n, il2 >= 0
+    i1 = torch.where(i1 >= n, 0, i1)
+    il1 = torch.where(il1 < 0, n - 1, il1)
 
     m1 = u_at(i1)
     m2 = torch.where(has_i2, u_at(i2), 0.0)
@@ -353,182 +280,29 @@ def _eval_fills_fused(x: torch.Tensor, min_extrema: int):
             states.nex.reshape(lead))
 
 
-def _chained_moments(mask, it, p1p, p2p, n1p, k_site, k_jm1, k_j1, solve,
-                     n_real: int):
-    """Per-sample moments of the knot at or before each sample and of the
-    knot strictly after it, and the end moment, from the grid-resident
-    chained system solved by ``solve`` (``chained_block_pcr`` or
-    ``cuda_cubic.chained_block_spike``): JAX's ``_chained_moments``.  Rows
-    may be padded past ``n_real``.  Returns ``(m_j, m_j1, m_last)``."""
-    width = mask.shape[-1]
-    f32 = torch.float32
-    mask_int = mask & (it > 0) & (it < n_real - 1)
-    a, b, c, d = notaknot_rows(
-        (it - p2p).to(f32), (n1p - it).to(f32), k_jm1, k_site, k_j1,
-        firstrow=p2p == 0, lastrow=n1p == n_real - 1)
-    u, w = solve(mask_int, a, b, c, d)
-
-    def u_at(idx):
-        return torch.gather(u, 1, idx.clamp(0, width - 1)[:, None])[:, 0]
-
-    m0, m_last = _end_moments(u_at, mask_int, n_real, width)
-    m_j = torch.where(p1p == 0, m0[:, None], u)
-    m_j1 = torch.where(n1p == n_real - 1, m_last[:, None],
-                       shift_left(w, 0.0))
-    return m_j, m_j1, m_last[:, None]
-
-
-def _eval_fills(x: torch.Tensor, capacity: int, min_extrema: int,
-                solver: str = "chained"):
-    """The fills routes on the unpadded grid (JAX's ``_eval_fills``):
-    ``solver="chained"`` is ``"fills_unfused"``, ``"compact"`` is
-    ``"fills_compact"``.  Returns ``(baseline, nex)``, f32."""
-    from .cuda_cubic import Neighbors, chained_block_spike
-    from .cuda_fill import fill2_cuda, linear_fill2_cuda
-
-    n = x.shape[-1]
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, n).to(torch.float32).contiguous()
-    it = torch.arange(n, dtype=torch.int32, device=x2.device)
-
-    # round 1: the knot neighbours' positions and samples (the kernel's
-    # knot mask is the cubic knot set: interior extrema and both ends)
-    p1p, _, p2p, p2x = linear_fill2_cuda(x2)
-    i1p, i1x, _, _ = linear_fill2_cuda(x2, reverse=True)
-    n1p, n1x = shift_left(i1p, 0), shift_left(i1x, 0.0)
-    mask = p1p == it  # a sample is a knot iff it is its own latest knot
-    nex = mask.sum(-1).to(torch.int32) - 2
-    b_first, b_last = _odd_reflect_ends(x2)
-    k_site = _fo_knot_values(x2, it, p2p, p2x, n1p, n1x, b_first, b_last)
-
-    # round 2: the neighbour knots' values
-    _, k_j, _, k_jm1 = fill2_cuda(k_site, mask)
-    k_j1 = shift_left(fill2_cuda(k_site, mask, reverse=True)[1], 0.0)
-
-    if solver == "chained":
-        solve = chained_block_spike if x2.is_cuda else chained_block_pcr
-        m_j, m_j1, m_last = _chained_moments(mask, it, p1p, p2p, n1p, k_site,
-                                             k_jm1, k_j1, solve, n)
-    else:
-        # the knot-space system on capacity slots; round 3 brings the
-        # moments back to the grid
-        pos_c, kcount = compact_indices(mask, capacity)
-        k_c = take_last_axis(k_site, pos_c.long())
-        moments = spline_moments(pos_c, k_c, kcount, bc="not-a-knot")
-        kk = torch.arange(capacity, device=x2.device)
-        m_grid = _scatter_channels(x2, pos_c, kk < kcount[:, None],
-                                   (moments,))[0].contiguous()
-        _, m_j, _, m_j2 = fill2_cuda(m_grid, mask)
-        m_j1 = shift_left(fill2_cuda(m_grid, mask, reverse=True)[1], 0.0)
-        m_last = take_last_axis(moments, (kcount[:, None] - 1).clamp(min=0))
-        m_j = torch.where(it == n - 1, m_j2, m_j)
-
-    nb = Neighbors(p1p, p2p, n1p, k_j, k_jm1, k_j1)
-    baseline, _ = _segment_eval(x2, it, nb, m_j, m_j1, m_last, b_last,
-                                nex < min_extrema)
-    return baseline.reshape(lead + (n,)), nex.reshape(lead)
-
-
-def _eval_fills_small(x: torch.Tensor, min_extrema: int, pack=None):
-    """The packed fills route for short rows (JAX's ``_eval_fills_small``):
-    each row padded to ``n_pad``, a multiple of 128, and ``pack`` rows
-    (default ``TILE // n_pad``) laid end to end in each row of K3's fills,
-    so a launch covers many short rows.  Positions come back row-local.
-    Values cross a row boundary only into the second-knot channels of end
-    knots and the strictly-after channels of a row's last sample, which the
-    evaluation overrides; the moment system and the closed form run on the
-    unpacked rows.  Returns ``(baseline, nex)``, f32."""
-    from .cuda_cubic import Neighbors
-    from .cuda_fill import TILE, fill2_cuda
-
-    lead = x.shape[:-1]
-    n = x.shape[-1]
-    x2 = x.reshape(-1, n).to(torch.float32)
-    rows = x2.shape[0]
-    n_pad = -(-n // 128) * 128
-    pack = max(1, TILE // n_pad) if pack is None else pack
-    rpad = -(-rows // pack) * pack
-
-    xp = x2.new_zeros((rpad, n_pad))
-    xp[:rows, :n] = x2
-    it = torch.arange(n_pad, dtype=torch.int32, device=x2.device)
-    em = torch.zeros((rpad, n_pad), dtype=torch.bool, device=x2.device)
-    em[:rows, :n] = extrema_mask(x2)
-    knots = (em & (it > 0) & (it < n - 1)) | (it == 0) | (it == n - 1)
-
-    def pk(a):
-        return a.reshape(rpad // pack, pack * n_pad)
-
-    def upk(a):
-        return a.reshape(rpad, n_pad)
-
-    def shl_packed(a):
-        return upk(shift_left(pk(a), 0))
-
-    def fills(val, mask, reverse=False):
-        p1, v1, p2, v2 = fill2_cuda(pk(val).contiguous(),
-                                    pk(mask).contiguous(), reverse)
-        return upk(p1 % n_pad), upk(v1), upk(p2 % n_pad), upk(v2)
-
-    p1p, _, p2p, p2x = fills(xp, knots)
-    i1p, i1x, _, _ = fills(xp, knots, reverse=True)
-    n1p, n1x = shl_packed(i1p), shl_packed(i1x)
-    mask = (p1p == it) & (it < n)
-    nex = mask.sum(-1).to(torch.int32) - 2
-    b_first, b_last = _odd_reflect_ends(xp[:, :n])
-    k_site = _fo_knot_values(xp, it, p2p, p2x, n1p, n1x, b_first, b_last, n)
-
-    _, k_j, _, k_jm1 = fills(k_site, mask)
-    k_j1 = shl_packed(fills(k_site, mask, reverse=True)[1])
-
-    m_j, m_j1, m_last = _chained_moments(mask, it, p1p, p2p, n1p, k_site,
-                                         k_jm1, k_j1, chained_block_pcr, n)
-    nb = Neighbors(p1p, p2p, n1p, k_j, k_jm1, k_j1)
-    baseline, _ = _segment_eval(xp, it, nb, m_j, m_j1, m_last, b_last,
-                                nex < min_extrema, n)
-    return (baseline[:rows, :n].reshape(lead + (n,)),
-            nex[:rows].reshape(lead))
-
-
-def _finish(x, baseline, nex, min_extrema: int, rotation=None):
-    """The result in the input's dtype from an f32 route.  A guarded row
-    returns x itself, with rotation exactly 0, as the gather route does
-    (the kernels' guard passed the f32 copy of x through)."""
-    if x.dtype == torch.float32:
-        rot = x - baseline if rotation is None else rotation
-        return CubicBaselineResult(rotation=rot, baseline=baseline,
-                                   num_extrema=nex)
-    baseline = torch.where((nex < min_extrema)[..., None], x,
-                           baseline.to(x.dtype))
-    return CubicBaselineResult(rotation=x - baseline, baseline=baseline,
+def _extract_fills(x, min_extrema: int) -> CubicBaselineResult:
+    """The f32 fills route, forward only, its result in the input's dtype.
+    A guarded row returns x itself, with rotation exactly 0, as the gather
+    route does (the kernels' guard passed the f32 copy of x through)."""
+    baseline, rotation, nex = _eval_fills_fused(x, min_extrema)
+    if x.dtype != torch.float32:
+        baseline = torch.where((nex < min_extrema)[..., None], x,
+                               baseline.to(x.dtype))
+        rotation = x - baseline
+    return CubicBaselineResult(rotation=rotation, baseline=baseline,
                                num_extrema=nex)
 
 
-def _extract_fills(x, min_extrema: int, backend: str = "fills",
-                   capacity: int = 0) -> CubicBaselineResult:
-    """One of the f32 fills routes (``_FILLS``), forward only."""
-    if backend in ("fills", "fills_fused"):
-        baseline, rot, nex = _eval_fills_fused(x, min_extrema)
-        return _finish(x, baseline, nex, min_extrema, rot)
-    if backend == "fills_packed":
-        baseline, nex = _eval_fills_small(x, min_extrema)
-    else:
-        baseline, nex = _eval_fills(
-            x, capacity, min_extrema,
-            "compact" if backend == "fills_compact" else "chained")
-    return _finish(x, baseline, nex, min_extrema)
-
-
 class _CubicFills(torch.autograd.Function):
-    """A fills route's forward, without autograd; its backward is autograd
+    """The fills route's forward, without autograd; its backward is autograd
     of the gather route at ``max(capacity, n + 2)`` in the input's dtype on
     the input's device (JAX's ``_cubic_extract_structural``): the level is
     linear in x for a fixed knot structure, and the structure is constant
     almost everywhere."""
 
     @staticmethod
-    def forward(ctx, x, capacity, min_extrema, backend):
-        r = _extract_fills(x.detach(), min_extrema, backend, capacity)
+    def forward(ctx, x, capacity, min_extrema):
+        r = _extract_fills(x.detach(), min_extrema)
         ctx.save_for_backward(x)
         ctx.capacity, ctx.min_extrema = capacity, min_extrema
         ctx.mark_non_differentiable(r.num_extrema)
@@ -541,39 +315,37 @@ class _CubicFills(torch.autograd.Function):
         pairs = [(o, g) for o, g in zip(("rotation", "baseline"),
                                         (g_rot, g_base)) if g is not None]
         if not pairs:
-            return None, None, None, None
+            return None, None, None
         cap = max(ctx.capacity, x.shape[-1] + 2)
         with torch.enable_grad():
             xi = x.detach().requires_grad_()
             r = _extract_gather(xi, cap, ctx.min_extrema)
             (gx,) = torch.autograd.grad([getattr(r, o) for o, _ in pairs], xi,
                                         [g for _, g in pairs])
-        return gx, None, None, None
+        return gx, None, None
 
 
 def _resolve_cubic_backend(eval_backend: str, x: torch.Tensor) -> str:
     if eval_backend == "auto":
         return "fills" if x.is_cuda else "gather"
-    if eval_backend not in ("gather", "scan") + _FILLS:
-        raise ValueError(f"unknown eval_backend: {eval_backend!r}")
+    if eval_backend not in ("gather", "fills"):
+        raise ValueError(f"unknown eval_backend: {eval_backend!r}; the "
+                         f"port's routes are 'fills' and 'gather' (and "
+                         f"'auto', which picks one)")
     return eval_backend
 
 
 def _check_cubic_ceiling(x: torch.Tensor, eval_backend: str) -> None:
-    """The fills routes evaluate positions in f32 for any input dtype, and
-    the scan route scatters positions in the input's dtype: past 2^24
-    samples f32 positions alias and the spline silently corrupts, so
+    """The fills route evaluates positions in f32 for any input dtype: past
+    2^24 samples f32 positions alias and the spline silently corrupts, so
     refuse.  The gather route keeps integer positions and is exact at any
-    n; f64 scan is exact to 2^53."""
+    n."""
     if x.shape[-1] <= (1 << 24) or eval_backend == "gather":
-        return
-    if eval_backend == "scan" and x.dtype != torch.float32:
         return
     raise ValueError(
         f"n={x.shape[-1]} exceeds the f32 knot-position ceiling "
         f"(2^24={1 << 24}) of the {eval_backend!r} backend; use "
-        "eval_backend='gather' (exact integer positions at any n) or a "
-        "float64 input with 'scan'.")
+        "eval_backend='gather' (exact integer positions at any n).")
 
 
 def cubic_baseline_extract(x: torch.Tensor, capacity: int, *,
@@ -584,36 +356,30 @@ def cubic_baseline_extract(x: torch.Tensor, capacity: int, *,
 
     With fewer than ``min_extrema`` interior extrema the baseline is the
     signal itself (rotation 0); ``min_extrema=0`` disables the guard.
-    ``capacity`` bounds the compact knot buffers of the gather, scan and
-    fills_compact routes (knots beyond it are dropped); the chained fills
-    routes have none and ignore it, so pass at least n + 2 where the
-    routes must agree.  ``eval_backend``: ``"gather"``, ``"scan"``,
-    ``"fills"``, ``"fills_fused"``, ``"fills_unfused"``,
-    ``"fills_compact"``, ``"fills_packed"`` or ``"auto"`` (module
-    docstring).  Differentiable on every route; the knot structure is
-    treated as constant in x."""
+    ``capacity`` bounds the compact knot buffers of the gather route (knots
+    beyond it are dropped); the fills route has none and ignores it, so
+    pass at least n + 2 where the routes must agree.  ``eval_backend``:
+    ``"gather"``, ``"fills"`` or ``"auto"`` (module docstring).
+    Differentiable on both routes; the knot structure is treated as
+    constant in x."""
     eval_backend = _resolve_cubic_backend(eval_backend, x)
     _check_cubic_ceiling(x, eval_backend)
     n = x.shape[-1]
     if n < 2:
         raise ValueError(f"a signal needs at least 2 samples (got n={n})")
-    if eval_backend in ("gather", "scan"):
-        return _extract_gather(x, capacity, min_extrema,
-                               scan=eval_backend == "scan")
-    if eval_backend in _CHAINED and capacity < n:
-        # the chained routes ignore capacity while gather, scan and
-        # fills_compact truncate knots beyond it; worst case every sample
-        # is a knot
+    if eval_backend == "gather":
+        return _extract_gather(x, capacity, min_extrema)
+    if capacity < n:
+        # the fills route ignores capacity while gather truncates knots
+        # beyond it; worst case every sample is a knot
         warnings.warn(
             f"cubic_baseline_extract: capacity={capacity} < worst-case knot "
-            f"count ({n}); the chained fills backends ignore capacity, so "
-            "results may differ from the truncating gather/scan/"
-            "fills_compact backends", stacklevel=2)
+            f"count ({n}); the fills backend ignores capacity, so results "
+            "may differ from the truncating gather backend", stacklevel=2)
     if x.requires_grad and torch.is_grad_enabled():
         return CubicBaselineResult(*_CubicFills.apply(x, capacity,
-                                                      min_extrema,
-                                                      eval_backend))
-    return _extract_fills(x, min_extrema, eval_backend, capacity)
+                                                      min_extrema))
+    return _extract_fills(x, min_extrema)
 
 
 # ---------------------------------------------------------------------------

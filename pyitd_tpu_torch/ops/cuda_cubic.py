@@ -22,14 +22,14 @@ The padded-resident route of ``ops/cubic_baseline.py`` runs them in order:
   interface solve's block scalars, the end-moment patches and the
   closed-form spline; baseline and rotation.
 
-Each wrapper checks its tensors, launches its kernel on PyTorch's current
-stream for a CUDA tensor, and counts the launch in ``LAUNCHES``; a call
-runs inside the profiler span ``pyitd.<wrapper>`` (``cubic_ksite`` ...
-``spike_backsub_eval``), and :func:`spike_interface` inside
-``pyitd.interface_solve`` (``utils/spans.py``).  For a CPU
-tensor it runs the plain PyTorch version beside it (``cubic_ksite``,
-``cubic_neighbors``, ``spike_factors``, ``spike_backsub_eval``); those run
-on any device, and a CUDA tensor never reaches them through a wrapper.
+Each wrapper checks its tensors and, for a CUDA tensor, launches its
+kernel through ``cuda_fill._launch``, which counts it in ``LAUNCHES``; a
+call runs inside the profiler span ``pyitd.<wrapper>`` (``cubic_ksite``
+... ``spike_backsub_eval``), and :func:`spike_interface` inside
+``pyitd.interface_solve`` (``utils/spans.py``).  For a CPU tensor it runs
+the plain PyTorch version beside it (``cubic_ksite``, ``cubic_neighbors``,
+``spike_factors``, ``spike_backsub_eval``); those run on any device, and a
+CUDA tensor never reaches them through a wrapper.
 :func:`chained_block_spike` is the drop-in twin of JAX's
 ``pallas_spike.chained_block_spike``: K7, the interface solve and a torch
 back-substitution.
@@ -43,8 +43,7 @@ import torch
 from .chained_pcr import _safe_inv, interface_pcr, reduced_interface_solve
 from .cubic_baseline import _fo_knot_values, _segment_eval
 from ..utils.spans import spanned
-from .cuda_fill import (LevelStates, _check, _check_signal, _lib, _ntiles,
-                        _same, _stream)
+from .cuda_fill import LevelStates, _check_signal, _launch, _ntiles, _same
 from .fill import backward_fill_scan, forward_fill2_scan, shift_left
 from .linear_baseline import knot_mask
 from .tridiag import _shift_l, _shift_r
@@ -58,7 +57,7 @@ __all__ = [
 ]
 
 # cells per SPIKE block and per thread's run: the SB and R of csrc/spike.cu
-# (checked where the library is loaded)
+# (checked by _check_build)
 SPIKE_BLK = 2048
 SPIKE_RUN = 8
 
@@ -287,15 +286,15 @@ PLAIN = {
 }
 
 
-def _lib_cubic():
-    lib = _lib()
-    if (lib.pyitd_spike_block(), lib.pyitd_spike_run()) != (SPIKE_BLK,
-                                                            SPIKE_RUN):
+def _check_build(lib) -> None:
+    """Refuse a library whose SPIKE blocks and runs are not ``SPIKE_BLK``
+    and ``SPIKE_RUN``; ``cuda_fill._lib`` calls this once, where it first
+    loads the library."""
+    sb, r = lib.pyitd_spike_block(), lib.pyitd_spike_run()
+    if (sb, r) != (SPIKE_BLK, SPIKE_RUN):
         raise RuntimeError(
-            f"csrc/spike.cu blocks by {lib.pyitd_spike_block()} in runs of "
-            f"{lib.pyitd_spike_run()}, cuda_cubic.SPIKE_BLK / SPIKE_RUN are "
-            f"{SPIKE_BLK} / {SPIKE_RUN}")
-    return lib
+            f"csrc/spike.cu blocks by {sb} in runs of {r}, "
+            f"cuda_cubic.SPIKE_BLK / SPIKE_RUN are {SPIKE_BLK} / {SPIKE_RUN}")
 
 
 def _check_seeds(x: torch.Tensor, states: LevelStates) -> None:
@@ -319,14 +318,11 @@ def cubic_ksite_cuda(x: torch.Tensor, states: LevelStates,
     if not x.is_cuda:
         return cubic_ksite(x, b_first, b_last)
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        code = _lib_cubic().pyitd_cubic_ksite(
-            x.data_ptr(), rows, n, _ntiles(n), states.fpos.data_ptr(),
-            states.fval.data_ptr(), states.rpos.data_ptr(),
-            states.rval.data_ptr(), b_first.data_ptr(), b_last.data_ptr(),
-            out.data_ptr(), _stream(x))
-    _check(code, "cubic_ksite")
-    LAUNCHES["cubic_ksite"] += 1
+    _launch("cubic_ksite", x.device, x.data_ptr(), rows, n, _ntiles(n),
+            states.fpos.data_ptr(), states.fval.data_ptr(),
+            states.rpos.data_ptr(), states.rval.data_ptr(),
+            b_first.data_ptr(), b_last.data_ptr(), out.data_ptr(),
+            counts=LAUNCHES)
     return out
 
 
@@ -344,15 +340,11 @@ def cubic_neighbors_cuda(x: torch.Tensor, k_site: torch.Tensor,
         return cubic_neighbors(x, k_site)
     pos = torch.empty((3, rows, n), dtype=torch.int32, device=x.device)
     val = torch.empty((3, rows, n), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        code = _lib_cubic().pyitd_cubic_neighbors(
-            x.data_ptr(), k_site.data_ptr(), rows, n, _ntiles(n),
-            states.fpos.data_ptr(), states.rpos.data_ptr(),
-            pos[0].data_ptr(), pos[1].data_ptr(), pos[2].data_ptr(),
-            val[0].data_ptr(), val[1].data_ptr(), val[2].data_ptr(),
-            _stream(x))
-    _check(code, "cubic_neighbors")
-    LAUNCHES["cubic_neighbors"] += 1
+    _launch("cubic_neighbors", x.device, x.data_ptr(), k_site.data_ptr(),
+            rows, n, _ntiles(n), states.fpos.data_ptr(),
+            states.rpos.data_ptr(), pos[0].data_ptr(), pos[1].data_ptr(),
+            pos[2].data_ptr(), val[0].data_ptr(), val[1].data_ptr(),
+            val[2].data_ptr(), counts=LAUNCHES)
     return Neighbors(pos[0], pos[1], pos[2], val[0], val[1], val[2])
 
 
@@ -374,12 +366,9 @@ def spike_factors_cuda(mask: torch.Tensor, a, b, c, d) -> torch.Tensor:
     npad = spike_pad(n)
     out = torch.empty((6, rows, npad), dtype=torch.float32,
                       device=mask.device)
-    with torch.cuda.device(mask.device):
-        code = _lib_cubic().pyitd_spike_factors(
-            mask.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-            d.data_ptr(), rows, n, npad, out.data_ptr(), _stream(mask))
-    _check(code, "spike_factors")
-    LAUNCHES["spike_factors"] += 1
+    _launch("spike_factors", mask.device, mask.data_ptr(), a.data_ptr(),
+            b.data_ptr(), c.data_ptr(), d.data_ptr(), rows, n, npad,
+            out.data_ptr(), counts=LAUNCHES)
     return out
 
 
@@ -407,15 +396,11 @@ def spike_backsub_eval_cuda(factors, e_prev, f_next, w_first_next, m0,
                                   m_last, b_last, passthrough, nb, x)
     out = torch.empty((2, rows, n), dtype=torch.float32, device=x.device)
     guard = passthrough.to(torch.int32)
-    with torch.cuda.device(x.device):
-        code = _lib_cubic().pyitd_spike_backsub_eval(
-            factors.data_ptr(), rows, n, npad, nblk, SPIKE_BLK,
-            e_prev.data_ptr(), f_next.data_ptr(), w_first_next.data_ptr(),
-            m0.data_ptr(), m_last.data_ptr(), b_last.data_ptr(),
-            guard.data_ptr(), nb.p1p.data_ptr(), nb.p2p.data_ptr(),
-            nb.n1p.data_ptr(), nb.kj.data_ptr(), nb.kjm1.data_ptr(),
-            nb.kj1.data_ptr(), x.data_ptr(), out[0].data_ptr(),
-            out[1].data_ptr(), _stream(x))
-    _check(code, "spike_backsub_eval")
-    LAUNCHES["spike_backsub_eval"] += 1
+    _launch("spike_backsub_eval", x.device, factors.data_ptr(), rows, n,
+            npad, nblk, SPIKE_BLK, e_prev.data_ptr(), f_next.data_ptr(),
+            w_first_next.data_ptr(), m0.data_ptr(), m_last.data_ptr(),
+            b_last.data_ptr(), guard.data_ptr(), nb.p1p.data_ptr(),
+            nb.p2p.data_ptr(), nb.n1p.data_ptr(), nb.kj.data_ptr(),
+            nb.kjm1.data_ptr(), nb.kj1.data_ptr(), x.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(), counts=LAUNCHES)
     return out[0], out[1]

@@ -36,8 +36,9 @@ once):
   first two at or after it; ``strict``: strictly), 0 where none;
 * ``fillv_cuda(vals, mask, reverse)``: the same at depth one, value only;
 * ``linear_fill2_cuda(x, reverse)``: ``fill2`` of the signal under its
-  knot mask, computed in the kernel (the first fill round of the cubic
-  tier's unfused and compact routes);
+  knot mask, computed in the kernel (the first fill round of JAX's
+  unfused and compact cubic routes, which the port does not take: no
+  caller on a main path);
 * ``segsum_cuda(vals, flags, reverse, strict)``: segmented inclusive
   running sums of one or two channels that reset at flagged samples
   (``strict``: the sum up to the previous sample in scan order).
@@ -73,11 +74,14 @@ also leaves out each shard's last sample, whose knot test needs the next
 shard's first baseline sample, and ``tile_scan_cuda(..., edges_from=...,
 shard=...)`` completes it with the next trip's halos (JAX's ``fold_emit``).
 
-Each wrapper checks its tensors, launches its kernel on PyTorch's current
-stream for a CUDA tensor, and counts the launch in ``LAUNCHES``.  Each call
-runs inside the profiler span ``pyitd.<wrapper>`` (``utils/spans.py``:
-recorded only while a profiler is on), so a trace counts the launches where
-they are made and holds each launch inside its wrapper's span.  For a CPU
+Each wrapper checks its tensors and, for a CUDA tensor, launches its
+kernel through :func:`_launch`, the one launch path of this module's and
+``cuda_cubic``'s wrappers: PyTorch's current stream, the error check, the
+count in ``LAUNCHES``.  The library's build constants are checked once,
+where :func:`_lib` first loads it.  Each call runs inside the profiler
+span ``pyitd.<wrapper>`` (``utils/spans.py``: recorded only while a
+profiler is on), so a trace counts the launches where they are made and
+holds each launch inside its wrapper's span.  For a CPU
 tensor it runs the plain PyTorch version beside it (``level_summaries``,
 ``tile_scan``, ``sift_level``, ``fill2``, ``linear_fill2``, ``fillv``,
 ``segsum``, ``bwd_knots``, ``bwd_pre``, ``bwd_post``); those plain versions
@@ -863,27 +867,54 @@ def bwd_post(knots: torch.Tensor, gx: torch.Tensor, seg_a, seg_e,
 # ---------------------------------------------------------------------------
 
 
+# the kernels' library once loaded and checked, and its scan scratch's
+# header and per-(row, tile) descriptor bytes
+_LIB = None
+_SCAN_BYTES = (0, 0)
+
+
 def _lib():
-    from ._build import load_library
+    """The kernels' library.  The first call builds and loads it and
+    compares its build constants with this module's ``TILE``,
+    ``SCAN_THREADS``, ``SCAN_RUN`` and ``cuda_cubic``'s ``SPIKE_BLK``,
+    ``SPIKE_RUN`` (a library that disagrees is refused and never kept);
+    later calls return it and ask it nothing."""
+    global _LIB, _SCAN_BYTES
+    if _LIB is None:
+        from . import cuda_cubic
+        from ._build import load_library
 
-    lib = load_library()
-    for src, size in (("sift_level", lib.pyitd_tile_size()),
-                      ("fill_segsum", lib.pyitd_scan_tile_size())):
-        if size != TILE:
-            raise RuntimeError(f"csrc/{src}.cu tiles by {size}, "
-                               f"cuda_fill.TILE is {TILE}")
-    shape = (lib.pyitd_scan_threads(), lib.pyitd_scan_run_length())
-    if shape != (SCAN_THREADS, SCAN_RUN):
-        raise RuntimeError(f"csrc/fill_segsum.cu runs (threads, samples per "
-                           f"thread) {shape}, cuda_fill has "
-                           f"{(SCAN_THREADS, SCAN_RUN)}")
-    return lib
+        lib = load_library()
+        for src, size in (("sift_level", lib.pyitd_tile_size()),
+                          ("fill_segsum", lib.pyitd_scan_tile_size())):
+            if size != TILE:
+                raise RuntimeError(f"csrc/{src}.cu tiles by {size}, "
+                                   f"cuda_fill.TILE is {TILE}")
+        shape = (lib.pyitd_scan_threads(), lib.pyitd_scan_run_length())
+        if shape != (SCAN_THREADS, SCAN_RUN):
+            raise RuntimeError(f"csrc/fill_segsum.cu runs (threads, samples "
+                               f"per thread) {shape}, cuda_fill has "
+                               f"{(SCAN_THREADS, SCAN_RUN)}")
+        cuda_cubic._check_build(lib)
+        _SCAN_BYTES = (lib.pyitd_scan_header_bytes(),
+                       lib.pyitd_scan_desc_bytes())
+        _LIB = lib
+    return _LIB
 
 
-def _check(code: int, what: str) -> None:
+def _launch(name: str, device: torch.device, *args,
+            counts: dict = LAUNCHES) -> None:
+    """Launch the library's ``pyitd_<name>`` with ``args`` and PyTorch's
+    current stream on ``device``, under that device's guard; raise on the
+    launch's error code; count the launch in ``counts[name]`` (the calling
+    module's ``LAUNCHES``, this module's by default)."""
+    lib = _lib()
+    with torch.cuda.device(device):
+        code = getattr(lib, "pyitd_" + name)(*args, _stream(device))
     if code != 0:
-        msg = _lib().pyitd_error_string(code).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
+        msg = lib.pyitd_error_string(code).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")
+    counts[name] += 1
 
 
 def _check_signal(x: torch.Tensor, shard: ShardArgs | None = None,
@@ -932,8 +963,8 @@ def _same(x: torch.Tensor, *tensors, dtype=None, shape=None) -> None:
                              f"got {tuple(t.shape)}")
 
 
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _ptr(t):
@@ -957,13 +988,9 @@ def level_summaries_cuda(x: torch.Tensor,
     pos = torch.empty((2, rows, nt, 2), dtype=torch.int32, device=x.device)
     val = torch.empty((2, rows, nt, 2), dtype=torch.float32, device=x.device)
     cnt = torch.empty((rows, nt), dtype=torch.int32, device=x.device)
-    with torch.cuda.device(x.device):
-        code = _lib().pyitd_level_summaries(
-            x.data_ptr(), rows, n, nt, *sh, pos[0].data_ptr(),
-            val[0].data_ptr(), pos[1].data_ptr(), val[1].data_ptr(),
-            cnt.data_ptr(), _stream(x))
-    _check(code, "level_summaries")
-    LAUNCHES["level_summaries"] += 1
+    _launch("level_summaries", x.device, x.data_ptr(), rows, n, nt, *sh,
+            pos[0].data_ptr(), val[0].data_ptr(), pos[1].data_ptr(),
+            val[1].data_ptr(), cnt.data_ptr())
     return TileSummaries(pos[0], val[0], pos[1], val[1], cnt)
 
 
@@ -1017,16 +1044,12 @@ def tile_scan_cuda(summ: TileSummaries, carry: SiftCarry | None = None,
     flags = torch.empty(rows, dtype=torch.int32, device=ref.device)
     done, reason, ncomp = (None, None, None) if carry is None else (
         t.data_ptr() for t in carry)
-    with torch.cuda.device(ref.device):
-        code = _lib().pyitd_tile_scan(
-            rows, nt, summ.fpos.data_ptr(), summ.fval.data_ptr(),
-            summ.rpos.data_ptr(), summ.rval.data_ptr(), summ.cnt.data_ptr(),
-            _ptr(edges_from), n, *sh,
+    _launch("tile_scan", ref.device, rows, nt, summ.fpos.data_ptr(),
+            summ.fval.data_ptr(), summ.rpos.data_ptr(), summ.rval.data_ptr(),
+            summ.cnt.data_ptr(), _ptr(edges_from), n, *sh,
             pos[0].data_ptr(), val[0].data_ptr(), pos[1].data_ptr(),
             val[1].data_ptr(), nex.data_ptr(), flags.data_ptr(), done,
-            reason, ncomp, trip, max_iteration, *tot, _stream(ref))
-    _check(code, "tile_scan")
-    LAUNCHES["tile_scan"] += 1
+            reason, ncomp, trip, max_iteration, *tot)
     MODE_LAUNCHES["tile_scan_edges"] += edges_from is not None
     MODE_LAUNCHES["tile_scan_shard_edges"] += shard is not None
     states = LevelStates(nex, flags, pos[0], val[0], pos[1], val[1])
@@ -1088,18 +1111,13 @@ def sift_level_cuda(x: torch.Tensor, states: LevelStates, *,
         ipt = tuple(t.data_ptr() for t in interior)
     sh = (0,) + (None,) * 9 if shard is None else (
         shard.n_global,) + tuple(t.data_ptr() for t in shard[1:])
-
-    with torch.cuda.device(x.device):
-        code = _lib().pyitd_sift_level(
-            x.data_ptr(), rows, n, nt, states.fpos.data_ptr(),
-            states.fval.data_ptr(), states.rpos.data_ptr(),
-            states.rval.data_ptr(), _ptr(states.flags if book else None),
-            _ptr(rotp), _ptr(pbase), _ptr(perr), _ptr(comp), base.data_ptr(),
-            rot.data_ptr(), err.data_ptr(), _ptr(out_row), _ptr(comp_out),
-            int(book), int(endpoint_mode == "reference"), *sh, *ipt,
-            _stream(x))
-    _check(code, "sift_level")
-    LAUNCHES["sift_level"] += 1
+    _launch("sift_level", x.device, x.data_ptr(), rows, n, nt,
+            states.fpos.data_ptr(), states.fval.data_ptr(),
+            states.rpos.data_ptr(), states.rval.data_ptr(),
+            _ptr(states.flags if book else None), _ptr(rotp), _ptr(pbase),
+            _ptr(perr), _ptr(comp), base.data_ptr(), rot.data_ptr(),
+            err.data_ptr(), _ptr(out_row), _ptr(comp_out), int(book),
+            int(endpoint_mode == "reference"), *sh, *ipt)
     MODE_LAUNCHES["sift_level_book"] += book
     MODE_LAUNCHES["sift_level_emit"] += emit
     MODE_LAUNCHES["sift_level_shard_emit"] += emit and shard is not None
@@ -1126,16 +1144,17 @@ def _check_scan(chans, flags: torch.Tensor | None) -> None:
 _SCAN_SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
 
 
-def _scan_scratch(lib, x: torch.Tensor) -> torch.Tensor:
+def _scan_scratch(x: torch.Tensor) -> torch.Tensor:
     """The look-back scan's scratch for ``x``'s device and the current
     stream: a header and one descriptor per (row, tile), as bytes.  Zeroed
     when it is allocated or grown and never again: each call leaves it
     ready for the next (``csrc/fill_segsum.cu``), and calls on one stream
     run one after the other."""
     rows, n = x.shape
-    need = lib.pyitd_scan_header_bytes() \
-        + lib.pyitd_scan_desc_bytes() * rows * _ntiles(n + 3)
-    key = (x.device.index, _stream(x))
+    _lib()  # its first load sets _SCAN_BYTES
+    header, desc = _SCAN_BYTES
+    need = header + desc * rows * _ntiles(n + 3)
+    key = (x.device.index, _stream(x.device))
     buf = _SCAN_SCRATCH.get(key)
     if buf is None or buf.numel() < need:
         grown = need if buf is None else max(need, 2 * buf.numel())
@@ -1156,14 +1175,9 @@ def fill2_cuda(vals: torch.Tensor, mask: torch.Tensor, reverse: bool = False,
     p1, p2 = (torch.empty((rows, n), dtype=torch.int32, device=vals.device)
               for _ in range(2))
     v1, v2 = torch.empty_like(vals), torch.empty_like(vals)
-    lib = _lib()
-    with torch.cuda.device(vals.device):
-        code = lib.pyitd_fill2(
-            vals.data_ptr(), mask.data_ptr(), rows, n, int(reverse),
-            int(strict), p1.data_ptr(), v1.data_ptr(), p2.data_ptr(),
-            v2.data_ptr(), _scan_scratch(lib, vals).data_ptr(), _stream(vals))
-    _check(code, "fill2")
-    LAUNCHES["fill2"] += 1
+    _launch("fill2", vals.device, vals.data_ptr(), mask.data_ptr(), rows, n,
+            int(reverse), int(strict), p1.data_ptr(), v1.data_ptr(),
+            p2.data_ptr(), v2.data_ptr(), _scan_scratch(vals).data_ptr())
     return p1, v1, p2, v2
 
 
@@ -1182,14 +1196,9 @@ def linear_fill2_cuda(x: torch.Tensor, reverse: bool = False):
     p1, p2 = (torch.empty((rows, n), dtype=torch.int32, device=x.device)
               for _ in range(2))
     v1, v2 = torch.empty_like(x), torch.empty_like(x)
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        code = lib.pyitd_linear_fill2(
-            x.data_ptr(), rows, n, int(reverse), p1.data_ptr(), v1.data_ptr(),
-            p2.data_ptr(), v2.data_ptr(), _scan_scratch(lib, x).data_ptr(),
-            _stream(x))
-    _check(code, "linear_fill2")
-    LAUNCHES["linear_fill2"] += 1
+    _launch("linear_fill2", x.device, x.data_ptr(), rows, n, int(reverse),
+            p1.data_ptr(), v1.data_ptr(), p2.data_ptr(), v2.data_ptr(),
+            _scan_scratch(x).data_ptr())
     return p1, v1, p2, v2
 
 
@@ -1203,14 +1212,8 @@ def fillv_cuda(vals: torch.Tensor, mask: torch.Tensor,
         return fillv(vals, mask, reverse)
     rows, n = vals.shape
     out = torch.empty_like(vals)
-    lib = _lib()
-    with torch.cuda.device(vals.device):
-        code = lib.pyitd_fillv(vals.data_ptr(), mask.data_ptr(), rows, n,
-                               int(reverse), out.data_ptr(),
-                               _scan_scratch(lib, vals).data_ptr(),
-                               _stream(vals))
-    _check(code, "fillv")
-    LAUNCHES["fillv"] += 1
+    _launch("fillv", vals.device, vals.data_ptr(), mask.data_ptr(), rows, n,
+            int(reverse), out.data_ptr(), _scan_scratch(vals).data_ptr())
     return out
 
 
@@ -1229,16 +1232,11 @@ def segsum_cuda(vals, flags: torch.Tensor, reverse: bool = False,
     rows, n = x.shape
     nch = len(chans)
     outs = tuple(torch.empty_like(x) for _ in range(nch))
-    lib = _lib()
     second = (chans[1].data_ptr(), outs[1].data_ptr()) if nch == 2 \
         else (None, None)
-    with torch.cuda.device(x.device):
-        code = lib.pyitd_segsum(nch, x.data_ptr(), second[0],
-                                flags.data_ptr(), rows, n, int(reverse),
-                                int(strict), outs[0].data_ptr(), second[1],
-                                _scan_scratch(lib, x).data_ptr(), _stream(x))
-    _check(code, "segsum")
-    LAUNCHES["segsum"] += 1
+    _launch("segsum", x.device, nch, x.data_ptr(), second[0],
+            flags.data_ptr(), rows, n, int(reverse), int(strict),
+            outs[0].data_ptr(), second[1], _scan_scratch(x).data_ptr())
     SEGSUM_LAUNCHES[nch] += 1
     return outs[0] if isinstance(vals, torch.Tensor) else outs
 
@@ -1270,12 +1268,8 @@ def bwd_knots_cuda(x: torch.Tensor):
     rows, n = x.shape
     knots = torch.empty(x.shape, dtype=torch.bool, device=x.device)
     f_next = torch.empty_like(knots)
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        code = lib.pyitd_bwd_knots(x.data_ptr(), rows, n, knots.data_ptr(),
-                                   f_next.data_ptr(), _stream(x))
-    _check(code, "bwd_knots")
-    LAUNCHES["bwd_knots"] += 1
+    _launch("bwd_knots", x.device, x.data_ptr(), rows, n, knots.data_ptr(),
+            f_next.data_ptr())
     return knots, f_next
 
 
@@ -1305,17 +1299,11 @@ def bwd_pre_cuda(x: torch.Tensor, g_rot: torch.Tensor | None,
     rows, n = x.shape
     outs = tuple(torch.empty_like(x) for _ in range(5))
     t = trip or TripCotangents(None)
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        code = lib.pyitd_bwd_pre(
-            x.data_ptr(), *(_ptr(g) for g in cts),
+    _launch("bwd_pre", x.device, x.data_ptr(), *(_ptr(g) for g in cts),
             *(a.data_ptr() for a in fwd + bwd), rows, n,
             int(endpoint_mode == "reference"), _ptr(t.flags),
             _ptr(t.flags_next), _ptr(t.g_next), _ptr(t.carry),
-            _ptr(t.g_zero), int(t.zero), *(o.data_ptr() for o in outs),
-            _stream(x))
-    _check(code, "bwd_pre")
-    LAUNCHES["bwd_pre"] += 1
+            _ptr(t.g_zero), int(t.zero), *(o.data_ptr() for o in outs))
     return outs
 
 
@@ -1348,12 +1336,7 @@ def bwd_post_cuda(knots: torch.Tensor, gx: torch.Tensor, seg_a, seg_e,
         return bwd_post(knots, gx, seg_a, seg_e, p2p, n1p)
     rows, n = gx.shape
     out = torch.empty_like(gx)
-    lib = _lib()
-    with torch.cuda.device(gx.device):
-        code = lib.pyitd_bwd_post(
-            knots.data_ptr(), gx.data_ptr(),
+    _launch("bwd_post", gx.device, knots.data_ptr(), gx.data_ptr(),
             *(t.data_ptr() for t in seg_a + seg_e), p2p.data_ptr(),
-            n1p.data_ptr(), rows, n, out.data_ptr(), _stream(gx))
-    _check(code, "bwd_post")
-    LAUNCHES["bwd_post"] += 1
+            n1p.data_ptr(), rows, n, out.data_ptr())
     return out

@@ -161,8 +161,11 @@ def _child(shape: str, rows: int, n: int, reps: int, edge: bool) -> int:
     _, log = _build.build()
     for line in ptxas_lines(log, KERNELS):
         print(line)
-    lib = cf._lib()
+    # the plain versions follow the blocks this build was made for, then
+    # the checked load holds the library to them
+    lib = _build.load_library()
     cc.SPIKE_BLK, cc.SPIKE_RUN = lib.pyitd_spike_block(), lib.pyitd_spike_run()
+    cf._lib()
     sb, r = cc.SPIKE_BLK, cc.SPIKE_RUN
     dev = torch.device("cuda", 0)
     if edge:

@@ -183,7 +183,7 @@ def host_parts(x) -> None:
                  pos[1].data_ptr(), val[1].data_ptr(), small[0].data_ptr(),
                  small[1].data_ptr(),
                  None, None, None, 0, 0, None, None, None, None,
-                 cf._stream(x))
+                 cf._stream(x.device))
     parts = {
         "a ctypes call that launches nothing": lib.pyitd_tile_size,
         "the bare tile_scan launch, arguments ready":
@@ -193,7 +193,7 @@ def host_parts(x) -> None:
             (2, rows, nt, 2), dtype=torch.int32, device=x.device),
         "a view t[0]": lambda: summ.fpos[0],
         "torch.cuda.device context": ctx,
-        "current stream": lambda: cf._stream(x),
+        "current stream": lambda: cf._stream(x.device),
         "library handle": cf._lib,
         "checks of tile_scan": lambda: cf._same(
             summ.fval, summ.fpos, summ.rpos, summ.cnt, dtype=torch.int32),

@@ -282,15 +282,14 @@ def test_grad_passthrough_is_identity():
 
 def test_backends_resolve_and_refuse():
     x = torch.zeros(2, 64)
-    # every one of JAX's eval backends resolves (tests/test_torch_cubic_
-    # routes.py holds each against JAX's)
+    # JAX's other eval backends are not ported and raise, naming the two
+    # routes that are (tests/test_torch_cubic_routes.py holds those to
+    # every JAX route's answer)
     for name in ("scan", "fills_packed", "fills_compact", "fills_unfused",
-                 "fills_fused"):
-        r = cubic_baseline_extract(x, 66, eval_backend=name)
-        assert r.baseline.shape == x.shape and r.num_extrema.shape == (2,)
-        assert torch.equal(r.baseline, x)  # no extrema: the guard
-    with pytest.raises(ValueError, match="unknown"):
-        cubic_baseline_extract(x, 66, eval_backend="nope")
+                 "fills_fused", "nope"):
+        with pytest.raises(ValueError, match="unknown.*'fills' and "
+                                             "'gather'"):
+            cubic_baseline_extract(x, 66, eval_backend=name)
     with pytest.raises(ValueError, match="2\\^24"):
         cubic_baseline_extract(torch.zeros(1, (1 << 24) + 1), 8,
                                eval_backend="fills")

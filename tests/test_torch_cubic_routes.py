@@ -1,24 +1,24 @@
-"""The cubic tier's routes beyond ``"gather"`` and ``"fills"``
-(``pyitd_tpu_torch/ops/cubic_baseline.py``: ``"scan"``, ``"fills_unfused"``,
-``"fills_compact"``, ``"fills_packed"``, ``"fills_fused"``) and
-``linear_fill2``'s plain version (``ops/cuda_fill.py``) against the JAX
-package's same routes on the CPU, on the same numpy inputs.
+"""The cubic tier's two routes (``pyitd_tpu_torch/ops/cubic_baseline.py``:
+``"gather"`` and ``"fills"``) against each of the JAX package's other
+routes (``"scan"``, ``"fills_unfused"``, ``"fills_compact"``,
+``"fills_packed"``, ``"fills_fused"``), which the port refuses, and
+``linear_fill2``'s plain version (``ops/cuda_fill.py``) against JAX's
+kernel, on the CPU, on the same numpy inputs: a JAX user of any of those
+routes gets what the port's routes give.
 
 JAX's fills routes run their Pallas kernels in interpret mode and, on the
-CPU, the chained solver by grid PCR (``use_spike=not interp``), as the
-port's do on a CPU tensor.  Tolerances:
+CPU, the chained solver by grid PCR (``use_spike=not interp``); the port's
+``"fills"`` route runs its kernels' plain versions on a CPU tensor.
+Tolerances:
 
 * ``linear_fill2``: positions exact, values bitwise (a fill only selects);
-* ``"scan"`` in f64 to 1e-12 of max|x| (and against the port's gather
-  route);
-* the f32 routes to 1e-5 of max|x|: XLA on the CPU contracts ``a*b+c``
-  into FMAs, torch does not (ROADMAP queue 3), and each route holds its
-  extrema count exactly;
+* ``"gather"`` in f64 against JAX's ``"scan"`` to 1e-12 of max|x|;
+* ``"fills"`` (f32) against each route to 1e-5 of max|x|: XLA on the CPU
+  contracts ``a*b+c`` into FMAs, torch does not (ROADMAP queue 3), and
+  each route holds its extrema count exactly;
 * gradients with fixed cotangents in f64 to 1e-10 (JAX's
   ``tests/test_cubic.py:366-380``).
 """
-import warnings
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,12 +27,12 @@ import torch
 from pyitd_tpu.ops import pallas_fill as pf
 from pyitd_tpu.ops.cubic_baseline import cubic_baseline_extract as jax_cubic
 from pyitd_tpu_torch import cubic_baseline_extract
-from pyitd_tpu_torch.ops import cubic_baseline as cb
 from pyitd_tpu_torch.ops import cuda_fill as cf
 from pyitd_tpu_torch.ops.linear_baseline import knot_mask
 
 torch.set_num_threads(1)
 
+# JAX's eval routes that the port does not take
 ROUTES = ("scan", "fills_unfused", "fills_compact", "fills_packed",
           "fills_fused")
 
@@ -84,33 +84,38 @@ def test_linear_fill2_matches_jax(reverse):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
+@pytest.mark.parametrize("route", ROUTES)
+def test_removed_routes_refuse(route):
+    x = torch.from_numpy(_noisy(2, 256, 1))
+    with pytest.raises(ValueError, match="'fills' and 'gather'"):
+        cubic_baseline_extract(x, 258, eval_backend=route)
+
+
 def test_scan_matches_jax_f64():
+    """JAX's scan route against the port's gather route in f64."""
     x = _noisy(3, 1500, 5, np.float64)
     cap = x.shape[-1] + 2
     b_jax, nex_jax = _jax(x, cap, "scan")
-    r = _port(x, cap, "scan")
+    r = _port(x, cap, "gather")
     scale = np.abs(x).max()
     np.testing.assert_array_equal(r.num_extrema.numpy(), nex_jax)
     np.testing.assert_allclose(r.baseline.numpy(), b_jax, rtol=0,
                                atol=1e-12 * scale)
-    g = _port(x, cap, "gather")
-    np.testing.assert_allclose(r.baseline.numpy(), g.baseline.numpy(),
-                               rtol=0, atol=1e-12 * scale)
     np.testing.assert_array_equal(r.rotation.numpy(), x - r.baseline.numpy())
 
 
 @pytest.mark.parametrize("route", ROUTES)
 def test_route_matches_jax_f32(route):
-    """Each route on f32 rows against JAX's same route: the extrema count
-    exactly, the baseline to 1e-5 of max|x|; the f64 gather route within
-    ``CUBIC_F64_REL`` (2e-6) of max|baseline|.  Rows of 1,500 (ragged
-    against every tile) with one guarded row."""
+    """The port's fills route on f32 rows against JAX's ``route``: the
+    extrema count exactly, the baseline to 1e-5 of max|x|; the f64 gather
+    route within ``CUBIC_F64_REL`` (2e-6) of max|baseline|.  Rows of 1,500
+    (ragged against every tile) with one guarded row."""
     n = 1500
     x = _noisy(3, n, 7)
     x[2] = np.sin(np.linspace(0, 6, n)).astype(np.float32)  # 2 extrema
     cap = n + 2
     b_jax, nex_jax = _jax(x, cap, route, min_extrema=3)
-    r = _port(x, cap, route, min_extrema=3)
+    r = _port(x, cap, "fills", min_extrema=3)
     np.testing.assert_array_equal(r.num_extrema.numpy(), nex_jax)
     scale = np.abs(x).max()
     np.testing.assert_allclose(r.baseline.numpy(), b_jax, rtol=0,
@@ -123,50 +128,11 @@ def test_route_matches_jax_f32(route):
     assert err < 2e-6, err
 
 
-def test_compact_truncation_matches_jax():
-    """A capacity below the knot count: the compact route drops the knots
-    past it, as JAX's does, and does not warn (it does not ignore
-    capacity).  The last sample reads the moment of knot count - 1, past
-    the buffer: JAX's gather fills NaN there, the port reads the buffer's
-    last slot (ROADMAP queue 3), so it is held finite and apart."""
-    n = 600
-    x = _noisy(2, n, 11)
-    cap = 96
-    b_jax, nex_jax = _jax(x, cap, "fills_compact")
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")
-        r = _port(x, cap, "fills_compact")
-    np.testing.assert_array_equal(r.num_extrema.numpy(), nex_jax)
-    assert (nex_jax + 2 > cap).all()
-    np.testing.assert_allclose(r.baseline[:, :-1].numpy(), b_jax[:, :-1],
-                               rtol=0, atol=1e-5 * np.abs(x).max())
-    assert np.isnan(b_jax[:, -1]).all()
-    assert torch.isfinite(r.baseline[:, -1]).all()
-
-
-@pytest.mark.parametrize("route", ["fills_unfused", "fills_fused", "fills"])
+@pytest.mark.parametrize("route", ["fills"])
 def test_chained_routes_warn_on_small_capacity(route):
     x = torch.from_numpy(_noisy(1, 256, 2))
     with pytest.warns(UserWarning, match="capacity"):
         cubic_baseline_extract(x, 8, eval_backend=route)
-
-
-def test_packed_one_row_per_kernel_row_is_bitwise():
-    """Packing only changes which kernel row a short row rides in: with
-    one row per kernel row the route gives the same bits.  Rows of 200
-    (padded to 256, 16 to a kernel row) and a row count that leaves the
-    last kernel row part empty."""
-    x = torch.from_numpy(_noisy(21, 200, 13))
-    b, nex = cb._eval_fills_small(x, 0)
-    b1, nex1 = cb._eval_fills_small(x, 0, pack=1)
-    assert torch.equal(b, b1) and torch.equal(nex, nex1)
-
-
-def test_fills_fused_is_fills():
-    x = torch.from_numpy(_noisy(2, 3000, 17))
-    a = cubic_baseline_extract(x, 3002, eval_backend="fills")
-    b = cubic_baseline_extract(x, 3002, eval_backend="fills_fused")
-    assert all(torch.equal(u, v) for u, v in zip(a, b))
 
 
 def _degenerate():
@@ -184,13 +150,14 @@ def _degenerate():
 
 @pytest.mark.parametrize("route", ROUTES)
 def test_degenerate_rows_match_jax(route):
-    """JAX's degenerate-row matrix (``tests/test_cubic.py:306-338``): each
-    route against JAX's gather route to 3e-6 of the row's scale."""
+    """JAX's degenerate-row matrix (``tests/test_cubic.py:306-338``): the
+    port's fills route against JAX's ``route`` to 3e-6 of the row's
+    scale."""
     for name, sig in _degenerate().items():
         x = sig[None]
         cap = x.shape[-1] + 2
-        ref, _ = _jax(x, cap, "gather")
-        r = _port(x, cap, route)
+        ref, _ = _jax(x, cap, route)
+        r = _port(x, cap, "fills")
         scale = max(1.0, float(np.abs(sig).max()))
         np.testing.assert_allclose(r.baseline.numpy(), ref, rtol=0,
                                    atol=3e-6 * scale, err_msg=name)
@@ -209,14 +176,14 @@ def _pullback_jax(x, ct_r, ct_b, route):
 
 @pytest.mark.parametrize("route", ROUTES)
 def test_gradient_matches_jax(route):
-    """Fixed cotangents through each route in f64 against JAX's same
-    route's VJP to 1e-10."""
+    """Fixed cotangents through the port's fills route in f64 against JAX's
+    ``route``'s VJP to 1e-10."""
     rng = np.random.default_rng(7)
     x = rng.standard_normal((2, 96))
     ct_r, ct_b = rng.standard_normal((2, 2, 96))
     want = _pullback_jax(x, ct_r, ct_b, route)
     xt = torch.from_numpy(x).requires_grad_()
-    r = cubic_baseline_extract(xt, 98, min_extrema=0, eval_backend=route)
+    r = cubic_baseline_extract(xt, 98, min_extrema=0, eval_backend="fills")
     (g,) = torch.autograd.grad([r.rotation, r.baseline], xt,
                                [torch.from_numpy(ct_r), torch.from_numpy(ct_b)])
     np.testing.assert_allclose(g.numpy(), want, rtol=0, atol=1e-10)

@@ -1,17 +1,11 @@
-"""The cubic tier's remaining routes, ``linear_fill2`` and the
-``DistGroup`` gradient on an NVIDIA GPU.  Needs a card and nvcc, so it is
-marked ``cuda`` and skips where ``torch.cuda.is_available()`` is false.
-Run on the card with ``python -m pytest --noconftest
-tests/test_torch_cuda_routes.py -q``.
+"""``linear_fill2`` (K2a) and the ``DistGroup`` gradient on an NVIDIA
+GPU.  Needs a card and nvcc, so it is marked ``cuda`` and skips where
+``torch.cuda.is_available()`` is false.  Run on the card with ``python -m
+pytest --noconftest tests/test_torch_cuda_routes.py -q``.
 
 * ``linear_fill2_cuda`` bitwise its plain version (the knot mask, then
   ``fill2``) in both directions: ragged lengths, NaN rows and a NaN
   endpoint, a plateau, a constant row, rows off a 16-byte boundary, 8 x 1M;
-* each route on the card against the same route on the CPU (extrema
-  counts equal, the baselines within ``CUBIC_F64_REL`` of max|baseline|:
-  the card's chained route solves by K7, the CPU's by grid PCR) and
-  against the f64 gather route; its launches counted;
-* the packed route bitwise itself with one row per kernel row;
 * the gradient of ``sharded_itd_sift`` and ``sharded_cubic_baseline`` over
   a one-rank NCCL ``DistGroup`` bitwise ``LocalGroup(1)``'s, under
   ``torch.use_deterministic_algorithms`` (without it ``gather``'s backward
@@ -23,10 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import CUBIC_F64_REL, bench_signal
-from pyitd_tpu_torch import cubic_baseline_extract
-from pyitd_tpu_torch.ops import cubic_baseline as cb
-from pyitd_tpu_torch.ops import cuda_cubic, cuda_fill
+from chip_smoke import bench_signal
+from pyitd_tpu_torch.ops import cuda_fill
 
 pytestmark = pytest.mark.cuda
 
@@ -90,63 +82,6 @@ def test_linear_fill2_kernel_at_8x1m(device):
         got = cuda_fill.linear_fill2_cuda(x, reverse)
         want = cuda_fill.linear_fill2(x, reverse)
         assert all(bitwise_equal(a, b) for a, b in zip(got, want))
-
-
-def _route_signal():
-    rng = np.random.default_rng(6)
-    n = 20000
-    t = np.linspace(0, 1, n)
-    x = (np.sin(2 * np.pi * 30 * t)[None]
-         + 0.3 * rng.normal(size=(3, n))).astype(np.float32)
-    x[2] = np.sin(np.linspace(0, 6, n)).astype(np.float32)  # guarded
-    return x
-
-
-@pytest.mark.parametrize("route,launches", [
-    ("scan", {}),
-    ("fills_unfused", {"fill2": 2, "linear_fill2": 2, "spike_factors": 1}),
-    ("fills_compact", {"fill2": 4, "linear_fill2": 2}),
-    ("fills_packed", {"fill2": 4}),
-])
-def test_route_on_the_card_against_the_cpu(device, route, launches):
-    x = _route_signal()
-    cap = x.shape[-1] + 2
-    xd = torch.from_numpy(x).to(device)
-    torch.cuda.synchronize()
-    cuda_fill.reset_launches()
-    cuda_cubic.reset_launches()
-    got = cubic_baseline_extract(xd, cap, min_extrema=3, eval_backend=route)
-    torch.cuda.synchronize()
-    counts = {k: v for k, v in {**cuda_fill.LAUNCHES,
-                                **cuda_cubic.LAUNCHES}.items() if v}
-    assert counts == launches
-    cpu = cubic_baseline_extract(torch.from_numpy(x), cap, min_extrema=3,
-                                 eval_backend=route)
-    g64 = cubic_baseline_extract(torch.from_numpy(x).double(), cap,
-                                 min_extrema=3, eval_backend="gather")
-    assert torch.equal(got.num_extrema.cpu(), cpu.num_extrema)
-    assert torch.equal(got.baseline[2].cpu(), torch.from_numpy(x[2]))
-    scale = float(g64.baseline.abs().max())
-    for ref in (cpu.baseline, g64.baseline):
-        err = float((got.baseline.cpu().double() - ref.double()).abs().max())
-        assert err <= CUBIC_F64_REL * scale, (route, err / scale)
-
-
-def test_fills_fused_is_fills_on_the_card(device):
-    xd = torch.from_numpy(_route_signal()).to(device)
-    a = cubic_baseline_extract(xd, 20002, eval_backend="fills")
-    b = cubic_baseline_extract(xd, 20002, eval_backend="fills_fused")
-    assert all(bitwise_equal(u, v) for u, v in zip(a, b))
-
-
-def test_packed_route_is_bitwise_one_row_per_kernel_row(device):
-    rng = np.random.default_rng(8)
-    x = torch.from_numpy((np.sin(np.linspace(0, 9, 200))[None]
-                          + 0.5 * rng.normal(size=(333, 200))
-                          ).astype(np.float32)).to(device)
-    b, nex = cb._eval_fills_small(x, 0)
-    b1, nex1 = cb._eval_fills_small(x, 0, pack=1)
-    assert bitwise_equal(b, b1) and torch.equal(nex, nex1)
 
 
 def test_dist_group_gradient_one_rank_nccl(device, tmp_path):
