@@ -89,9 +89,8 @@ Phases (each raises on failure, so any failure exits non-zero):
    also at 256 x 16,384 with the launches of one counted gradient there;
    the scans and the level kernels also on the input of
    the sift's last level, where knots are sparse and the scans' look-back
-   is longest; the cubic
-   kernels K5-K8 likewise after phase 8, on the inputs the cubic level
-   gave them;
+   is longest; the cubic kernels K5-K8 and the interface solve likewise
+   after phase 8, on the inputs the cubic level gave them;
 8. the cubic level at full size: ``cubic_baseline_extract`` of the bench
    signal, 8 x 1,000,000 f32, ``capacity=n+2``, ``min_extrema=0``, with
    every kernel launch counted; each kernel bitwise against its plain
@@ -99,7 +98,9 @@ Phases (each raises on failure, so any failure exits non-zero):
    against the f64 gather route within ``CUBIC_F64_REL`` of its largest
    magnitude; the kernel and plain routes timed (median of 10), device
    busy time, idle share and top device kernels, the interface solve
-   alone; the gradient of ``sum(rotation^2)`` (autograd of the gather
+   and end moments alone (one launch, bitwise its plain version; beside
+   the plain version's time and ATen calls) there, at 32 x 32,768 and at
+   8 x 2^20; the gradient of ``sum(rotation^2)`` (autograd of the gather
    route), finite, timed forward + backward, and its peak memory;
 9. the sequence-parallel tier at full width: the bench signal at
    8 x 4,194,304 f32, ``max_iteration=8``, over 4 time shards of 1,048,576
@@ -260,6 +261,7 @@ SRC.update({k: "pyitd_tpu_torch/csrc/fill_segsum.cu"
 SRC.update({k: "pyitd_tpu_torch/csrc/cubic.cu"
             for k in ("cubic_ksite", "cubic_neighbors", "spike_backsub_eval")})
 SRC["spike_factors"] = "pyitd_tpu_torch/csrc/spike.cu"
+SRC["spike_interface"] = "pyitd_tpu_torch/csrc/spike.cu"
 # the level adjoint's own kernels: they replace no TPU kernel, but fuse the
 # XLA glue of JAX's structural adjoint
 ADJOINT_KERNELS = ("bwd_knots", "bwd_pre", "bwd_post")
@@ -283,6 +285,9 @@ REPLACES = {
     "cubic_neighbors": "pyitd_tpu/ops/pallas_fill.py:1691",
     "spike_factors": "pyitd_tpu/ops/pallas_spike.py:176",
     "spike_backsub_eval": "pyitd_tpu/ops/pallas_spike.py:262",
+    "spike_interface": "none: the XLA glue of pyitd_tpu/ops/cubic_baseline."
+                       "py:530-567 (reduced_interface_solve and the end "
+                       "moments)",
 }
 REPLACES.update({k: "none: the XLA glue of pyitd_tpu/ops/linear_baseline.py:"
                     "315 (_structural_level_bwd)"
@@ -1286,7 +1291,9 @@ def phase8_cubic(x, card: str):
     from pyitd_tpu_torch import cubic_baseline_extract
     from pyitd_tpu_torch.ops import cuda_cubic as cc
     from pyitd_tpu_torch.ops import cuda_fill as cf
-    from pyitd_tpu_torch.tools.level_bench import aten_ops
+    from pyitd_tpu_torch.tools.cubic_bench import (INTERFACE_SHAPES,
+                                                   bench_signal,
+                                                   interface_timing)
 
     rows, n = x.shape
     cap = n + 2
@@ -1361,16 +1368,12 @@ def phase8_cubic(x, card: str):
         print(f"[8]   top device kernels, {route} route (ms/level): "
               + "; ".join(f"{kernel_label(k)} {v:.4f}" for k, v in top),
               flush=True)
-    factors = calls["spike_factors_cuda"][1]
-    i_ms = cuda_times(lambda: cc.spike_interface(factors))
-    i_dms, _ = device_ms(lambda: cc.spike_interface(factors))
-    i_ops = aten_ops(lambda: cc.spike_interface(factors))
-    print(f"[8] interface solve alone ({rows} x "
-          f"{factors.shape[-1] // cc.SPIKE_BLK} blocks of SB "
-          f"{cc.SPIKE_BLK}, K7's runs of {cc.SPIKE_RUN}): "
-          f"{statistics.median(i_ms):.4f} ms (CUDA events, median of "
-          f"{len(i_ms)}), device busy {i_dms:.4f} ms, {i_ops} ATen operator "
-          f"calls  [{card}]", flush=True)
+    # the interface solve and the end moments alone: one launch, beside
+    # the eager composition it replaced, here and at the MEITD levels'
+    # shape and 8 x 2^20
+    for xi in (x, *(torch.from_numpy(bench_signal(*shape)).to(x.device)
+                    for shape in INTERFACE_SHAPES)):
+        interface_timing(xi, card, tag="[8] ")
 
     xg = x.clone().requires_grad_()
     torch.cuda.synchronize()
@@ -4531,6 +4534,7 @@ def main() -> int:
     # -fmad=false, each a multiply-add slot of the f32 peak)
     nt = -(-n // cf.TILE)
     npad = calls["spike_factors_cuda"][1].shape[-1]
+    nblk = npad // cc.SPIKE_BLK
     for name, nbytes, flops in (
             ("cubic_ksite", 8 * rows * n + 32 * rows * nt + 8 * rows,
              11 * rows * n),
@@ -4538,6 +4542,12 @@ def main() -> int:
              2 * rows * n),
             ("spike_factors", 17 * rows * n + 24 * rows * npad,
              2 * spike_issue_ops(rows, npad, cc.SPIKE_BLK, cc.SPIKE_RUN)),
+            # the edge cells of six channels in, three block scalars and
+            # two end moments out (the mask is read only to the second knot
+            # from each end: a few bytes a row here); about 70 operations a
+            # block and PCR round
+            ("spike_interface", 36 * rows * nblk + 12 * rows * nblk
+             + 8 * rows, rows * nblk * (70 * (nblk - 1).bit_length() + 20)),
             ("spike_backsub_eval",
              60 * rows * n + 12 * rows * (npad // cc.SPIKE_BLK) + 16 * rows,
              31 * rows * n)):

@@ -1,5 +1,6 @@
-// The SPIKE local factorization of the cubic tier's moment system on
-// Hopper (sm_90a), plain C interface.
+// The SPIKE local factorization of the cubic tier's moment system (K7)
+// and the interface solve that couples its blocks, on Hopper (sm_90a),
+// plain C interface.
 //
 // Replaces: pyitd_tpu/ops/pallas_spike.py::spike_factors_padded (K7,
 // kernel body _spike_local_kernel).  Per block of SB cells of the chained
@@ -49,6 +50,40 @@
 // order of ops/cuda_cubic.py::spike_factors (its reduced solve
 // chained_pcr.interface_pcr) and 1/x is IEEE division, so the kernel
 // equals its plain version bit for bit.
+//
+// The interface solve and the end moments (spike_interface_kernel).
+//
+// Replaces: no Pallas kernel.  It fuses the XLA glue of JAX's
+// _eval_fills_fused between K7 and K8 (pyitd_tpu/ops/cubic_baseline.py:
+// 530-567): chained_pcr.reduced_interface_solve over the row's SPIKE
+// blocks, the block scalars e_prev, f_next, w_first_next, and the
+// not-a-knot end moments m0, m_last from the row's first two and last two
+// interior knots.  Its plain version is ops/cuda_cubic.py::
+// interface_end_moments, where the same work took about 640 eager ATen
+// calls a cubic level.
+//
+// What bounds it: latency.  A row's work is ceil(log2(nblk)) rounds of a
+// 2x2 block PCR, each a barrier and ten channels read from three blocks,
+// and the search for the end knots, at most one pass over the row's mask:
+// about 1 MB at 32 x 32,768 (0.3 us at 3.35 TB/s), while the edge cells
+// of the factors are 36 bytes a block.  One row is one CTA, so the time
+// is a chain of dependent loads and barriers, a few microseconds, and no
+// byte or operation count comes near it.
+//
+// What the design does about it: one launch a level in place of the
+// eager ops, and nothing on a row's chain that a barrier does not need.
+// One CTA a row, one thread a SPIKE block (up to IFACE_MAX_NT threads,
+// each owning every IFACE_MAX_NT-th block beyond that), so a round is one
+// barrier.  The ten channels live in double-buffered shared memory up to
+// IFACE_SMEM_BLOCKS blocks (160 KB), and in a per-row global scratch that
+// the wrapper allocates beyond (n up to 2^24, 8,192 blocks).  The end
+// knots are found from both ends of the mask in passes of IFACE_SCAN
+// bytes a thread that stop once two marks are seen (one barrier a pass,
+// then one top-2 reduction): a row with knots reads a few KB of its mask;
+// only a row with fewer than two knots reads all of it.  The end moments
+// read u at four cells, in _u_at's order.  The PCR follows
+// chained_pcr.interface_pcr's order of operations with one right-hand
+// side, so it equals its plain version bit for bit, as K7 does.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -262,6 +297,244 @@ spike_factors_kernel(const uint8_t* __restrict__ mask,
   }
 }
 
+// ------------------------------------------- the interface solve
+constexpr int IFACE_CH = 10;              // the 2x2 block row's channels
+constexpr int IFACE_SMEM_BLOCKS = 2048;   // blocks whose state fits in smem
+constexpr int IFACE_MIN_NT = 256;         // threads of a CTA: the mask scan
+constexpr int IFACE_MAX_NT = 512;         // 128 registers a thread
+constexpr int IFACE_SCAN = 16;            // mask bytes a thread and pass
+
+// channel slots of a block's row A X_{p-1} + B X_p + C X_{p+1} = D
+enum { IA11, IA21, IC12, IC22, IB11, IB12, IB21, IB22, ID1, ID2 };
+
+struct Iface {
+  float v[IFACE_CH];
+};
+
+// block p's state, or the identity row with a zero right-hand side
+// outside the row
+__device__ __forceinline__ Iface iface_get(const float* buf, int nblk,
+                                           int p) {
+  Iface r;
+  if (p >= 0 && p < nblk) {
+#pragma unroll
+    for (int c = 0; c < IFACE_CH; ++c) r.v[c] = buf[c * nblk + p];
+  } else {
+#pragma unroll
+    for (int c = 0; c < IFACE_CH; ++c)
+      r.v[c] = (c == IB11 || c == IB22) ? 1.f : 0.f;
+  }
+  return r;
+}
+
+// (a1, a2) becomes the two smallest (LARGEST: largest) of a1 <= a2 and
+// b1 <= b2 (>= for LARGEST); positions are distinct but for the sentinels
+template <bool LARGEST>
+__device__ __forceinline__ void top2(int& a1, int& a2, int b1, int b2) {
+  if (LARGEST ? b1 > a1 : b1 < a1) {
+    a2 = LARGEST ? max(a1, b2) : min(a1, b2);
+    a1 = b1;
+  } else {
+    a2 = LARGEST ? max(a2, b1) : min(a2, b1);
+  }
+}
+
+// the first two (LARGEST: last two) marked positions of the row's mask:
+// each thread meets its positions in order, so its first two marks are
+// its end's; passes stop once the CTA has seen two.  Sentinel: n (-1).
+template <bool LARGEST>
+__device__ void end_knots(const uint8_t* __restrict__ m, int n, int* red,
+                          int& k1, int& k2) {
+  const int nt = blockDim.x, tid = threadIdx.x;
+  const int none = LARGEST ? -1 : n;
+  k1 = none;
+  k2 = none;
+  for (int base = 0; base < n; base += nt * IFACE_SCAN) {
+    uint8_t mb[IFACE_SCAN];
+#pragma unroll
+    for (int k = 0; k < IFACE_SCAN; ++k) {
+      const int j = base + k * nt + tid;
+      mb[k] = j < n ? m[LARGEST ? n - 1 - j : j] : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < IFACE_SCAN; ++k) {
+      const int j = base + k * nt + tid;
+      if (mb[k] != 0) {
+        if (k1 == none) k1 = LARGEST ? n - 1 - j : j;
+        else if (k2 == none) k2 = LARGEST ? n - 1 - j : j;
+      }
+    }
+    const int any2 = __syncthreads_or(k2 != none);
+    if (any2 || __syncthreads_count(k1 != none) >= 2) break;
+  }
+  // one top-2 reduction over the CTA: the warps, then the warps' results
+  const int lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    top2<LARGEST>(k1, k2, __shfl_xor_sync(0xffffffffu, k1, off),
+                  __shfl_xor_sync(0xffffffffu, k2, off));
+  if (lane == 0) {
+    red[warp] = k1;
+    red[32 + warp] = k2;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const bool in = lane < (nt >> 5);
+    k1 = in ? red[lane] : none;
+    k2 = in ? red[32 + lane] : none;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      top2<LARGEST>(k1, k2, __shfl_xor_sync(0xffffffffu, k1, off),
+                    __shfl_xor_sync(0xffffffffu, k2, off));
+    if (lane == 0) {
+      red[64] = k1;
+      red[65] = k2;
+    }
+  }
+  __syncthreads();
+  k1 = red[64];
+  k2 = red[65];
+}
+
+__device__ __forceinline__ float sdiv(float num, float den) {
+  return num / (den == 0.f ? 1.f : den);
+}
+
+// f: the six SPIKE factor channels, (6, rows, npad); mask (rows, n);
+// out: e_prev, f_next, w_first_next, (3, rows, nblk); ends: m0, m_last,
+// (2, rows).  SMEM: the state in shared memory, else in scratch (rows,
+// 2 IFACE_CH nblk).
+template <bool SMEM>
+__global__ void __launch_bounds__(IFACE_MAX_NT) spike_interface_kernel(
+    const float* __restrict__ f, const uint8_t* __restrict__ mask, int rows,
+    int n, int npad, int nblk, float* scratch, float* __restrict__ out,
+    float* __restrict__ ends) {
+  extern __shared__ float ism[];
+  __shared__ int red[66];
+  const int row = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  const size_t plane = (size_t)rows * npad;
+  const float* xp1 = f;
+  const float* xp2 = f + plane;
+  const float* vl1 = f + 2 * plane;
+  const float* vl2 = f + 3 * plane;
+  const float* vr1 = f + 4 * plane;
+  const float* vr2 = f + 5 * plane;
+  const size_t ro = (size_t)row * npad;
+  float* cur = SMEM ? ism : scratch + (size_t)row * 2 * IFACE_CH * nblk;
+  float* nxt = cur + IFACE_CH * nblk;
+
+  // each block's row, with the signs of cuda_cubic.spike_interface: its
+  // last cell's u and first cell's w
+  for (int p = tid; p < nblk; p += nt) {
+    const size_t lo = ro + (size_t)p * SB, hi = lo + SB - 1;
+    cur[IA11 * nblk + p] = -vl1[hi];
+    cur[IA21 * nblk + p] = -vl2[lo];
+    cur[IC12 * nblk + p] = -vr1[hi];
+    cur[IC22 * nblk + p] = -vr2[lo];
+    cur[IB11 * nblk + p] = 1.f;
+    cur[IB12 * nblk + p] = 0.f;
+    cur[IB21 * nblk + p] = 0.f;
+    cur[IB22 * nblk + p] = 1.f;
+    cur[ID1 * nblk + p] = xp1[hi];
+    cur[ID2 * nblk + p] = xp2[lo];
+  }
+  // the end knots, while those stores land
+  const uint8_t* m = mask + (size_t)row * n;
+  int i1, i2, il1, il2;
+  end_knots<false>(m, n, red, i1, i2);
+  end_knots<true>(m, n, red, il1, il2);
+
+  // block PCR, chained_pcr.interface_pcr's order of operations
+  for (int st = 1; st < nblk; st <<= 1) {
+    __syncthreads();
+    for (int p = tid; p < nblk; p += nt) {
+      const Iface s = iface_get(cur, nblk, p);
+      const Iface a = iface_get(cur, nblk, p - st);
+      const Iface q = iface_get(cur, nblk, p + st);
+      const float idetm =
+          safe_inv(a.v[IB11] * a.v[IB22] - a.v[IB12] * a.v[IB21]);
+      const float e11 = (-(s.v[IA11] * a.v[IB22])) * idetm;
+      const float e12 = (s.v[IA11] * a.v[IB12]) * idetm;
+      const float e21 = (-(s.v[IA21] * a.v[IB22])) * idetm;
+      const float e22 = (s.v[IA21] * a.v[IB12]) * idetm;
+      const float idetp =
+          safe_inv(q.v[IB11] * q.v[IB22] - q.v[IB12] * q.v[IB21]);
+      const float f11 = (s.v[IC12] * q.v[IB21]) * idetp;
+      const float f12 = (-(s.v[IC12] * q.v[IB11])) * idetp;
+      const float f21 = (s.v[IC22] * q.v[IB21]) * idetp;
+      const float f22 = (-(s.v[IC22] * q.v[IB11])) * idetp;
+      float* o = nxt + p;
+      o[IB11 * nblk] = (s.v[IB11] + f11 * q.v[IA11]) + f12 * q.v[IA21];
+      o[IB12 * nblk] = (s.v[IB12] + e11 * a.v[IC12]) + e12 * a.v[IC22];
+      o[IB21 * nblk] = (s.v[IB21] + f21 * q.v[IA11]) + f22 * q.v[IA21];
+      o[IB22 * nblk] = (s.v[IB22] + e21 * a.v[IC12]) + e22 * a.v[IC22];
+      o[ID1 * nblk] = (((s.v[ID1] + e11 * a.v[ID1]) + e12 * a.v[ID2])
+                       + f11 * q.v[ID1]) + f12 * q.v[ID2];
+      o[ID2 * nblk] = (((s.v[ID2] + e21 * a.v[ID1]) + e22 * a.v[ID2])
+                       + f21 * q.v[ID1]) + f22 * q.v[ID2];
+      o[IA11 * nblk] = e11 * a.v[IA11] + e12 * a.v[IA21];
+      o[IA21 * nblk] = e21 * a.v[IA11] + e22 * a.v[IA21];
+      o[IC12 * nblk] = f11 * q.v[IC12] + f12 * q.v[IC22];
+      o[IC22 * nblk] = f21 * q.v[IC12] + f22 * q.v[IC22];
+    }
+    float* sw = cur;
+    cur = nxt;
+    nxt = sw;
+  }
+  // every read of the buffer that nxt now names is done
+  __syncthreads();
+
+  // each block's (e, f), into the buffer no thread reads any more
+  float* E = nxt;
+  float* F = nxt + nblk;
+  for (int p = tid; p < nblk; p += nt) {
+    const Iface s = iface_get(cur, nblk, p);
+    const float idet =
+        safe_inv(s.v[IB11] * s.v[IB22] - s.v[IB12] * s.v[IB21]);
+    E[p] = (s.v[IB22] * s.v[ID1] - s.v[IB12] * s.v[ID2]) * idet;
+    F[p] = (s.v[IB11] * s.v[ID2] - s.v[IB21] * s.v[ID1]) * idet;
+  }
+  __syncthreads();
+
+  // the block scalars: e_prev, f_next, and the next block's first w
+  const size_t bo = (size_t)row * nblk, bplane = (size_t)rows * nblk;
+  for (int p = tid; p < nblk; p += nt) {
+    out[bo + p] = p > 0 ? E[p - 1] : 0.f;
+    out[bplane + bo + p] = p < nblk - 1 ? F[p + 1] : 0.f;
+    float wn = 0.f;
+    if (p < nblk - 1) {
+      const size_t lo = ro + (size_t)(p + 1) * SB;
+      const float fn = p + 2 < nblk ? F[p + 2] : 0.f;
+      wn = (xp2[lo] + vl2[lo] * E[p]) + vr2[lo] * fn;
+    }
+    out[2 * bplane + bo + p] = wn;
+  }
+
+  // the end moments: cubic_baseline._end_moments on _u_at
+  if (tid == 0) {
+    auto u_at = [&](int i) {
+      const int blk = i / SB;
+      const float ep = blk > 0 ? E[blk - 1] : 0.f;
+      const float fn = blk < nblk - 1 ? F[blk + 1] : 0.f;
+      const size_t o = ro + i;
+      return (xp1[o] + vl1[o] * ep) + vr1[o] * fn;
+    };
+    const bool has_i2 = i2 < n, has_il2 = il2 >= 0;
+    if (i1 >= n) i1 = 0;
+    if (il1 < 0) il1 = n - 1;
+    const float m1 = u_at(i1);
+    const float m2 = has_i2 ? u_at(i2) : 0.f;
+    const float ml1 = u_at(il1);
+    const float ml2 = has_il2 ? u_at(il2) : 0.f;
+    const float h0 = (float)i1;
+    const float h1 = (float)(has_i2 ? i2 - i1 : n - 1 - i1);
+    const float hl = (float)(n - 1 - il1);
+    const float hl2 = (float)(has_il2 ? il1 - il2 : il1);
+    ends[row] = m1 + sdiv(h0, h1) * (m1 - m2);
+    ends[rows + row] = ml1 + sdiv(hl, hl2) * (ml1 - ml2);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -280,6 +553,31 @@ int pyitd_spike_factors(const uint8_t* mask, const float* a, const float* b,
   const dim3 grid(npad / SB, rows);
   spike_factors_kernel<<<grid, NRUN, SMEM, (cudaStream_t)stream>>>(
       mask, a, b, c, d, rows, n, npad, out);
+  return (int)cudaGetLastError();
+}
+
+int pyitd_spike_interface(const float* factors, const uint8_t* mask,
+                          int rows, int n, int npad, float* scratch,
+                          float* out, float* ends, void* stream) {
+  const int nblk = npad / SB;
+  const int warps = (nblk + 31) / 32 * 32;
+  const int nt = warps < IFACE_MIN_NT ? IFACE_MIN_NT
+      : warps > IFACE_MAX_NT ? IFACE_MAX_NT : warps;
+  if (nblk > IFACE_SMEM_BLOCKS) {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    spike_interface_kernel<false><<<rows, nt, 0, (cudaStream_t)stream>>>(
+        factors, mask, rows, n, npad, nblk, scratch, out, ends);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = 2ull * IFACE_CH * nblk * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        spike_interface_kernel<true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  spike_interface_kernel<true><<<rows, nt, smem, (cudaStream_t)stream>>>(
+      factors, mask, rows, n, npad, nblk, nullptr, out, ends);
   return (int)cudaGetLastError();
 }
 

@@ -78,6 +78,7 @@ _SIGNATURES = {
     "pyitd_spike_block": (),
     "pyitd_spike_run": (),
     "pyitd_spike_factors": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
+    "pyitd_spike_interface": (_P, _P, _I, _I, _I, _P, _P, _P, _P),
     "pyitd_spike_backsub_eval": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                                  _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _P),

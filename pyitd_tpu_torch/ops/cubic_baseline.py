@@ -16,10 +16,10 @@ Routes (``eval_backend``):
   gathers.  Plain PyTorch, any device and float dtype, differentiable by
   autograd.
 * ``"fills"`` — the padded-resident route of JAX's ``_eval_fills_fused``,
-  on four kernels (``ops/cuda_cubic.py``): the knot values (K5), the
+  on five kernels (``ops/cuda_cubic.py``): the knot values (K5), the
   neighbor fills (K6), the elementwise not-a-knot rows, the SPIKE local
   factorization of the grid-resident moment system (K7), the interface
-  solve over SPIKE blocks (torch), the end moments, and the fused
+  solve over SPIKE blocks with the end moments (one kernel), and the fused
   back-substitution and evaluation (K8).  On a CPU tensor the wrappers run
   their plain versions.  f32 inside for any input dtype, no compact
   buffers (``capacity`` is ignored), positions below 2^24; its gradient is
@@ -268,11 +268,10 @@ def _eval_fills_fused(x: torch.Tensor, min_extrema: int):
         lastrow=nb.n1p == n - 1)
     factors = cc.spike_factors_cuda(mask_int, a, b, c, d)
 
-    # the interface solve over SPIKE blocks, the end moments, then the
-    # fused back-substitution and evaluation
-    e_prev, f_next, w_first_next = cc.spike_interface(factors)
-    m0, m_last = _end_moments(
-        lambda idx: _u_at(factors, e_prev, f_next, idx), mask_int, n)
+    # the interface solve over SPIKE blocks and the end moments in one
+    # launch, then the fused back-substitution and evaluation
+    e_prev, f_next, w_first_next, m0, m_last = cc.spike_interface_cuda(
+        factors, mask_int)
     baseline, rotation = cc.spike_backsub_eval_cuda(
         factors, e_prev, f_next, w_first_next, m0, m_last, b_last,
         states.nex < min_extrema, nb, x2)

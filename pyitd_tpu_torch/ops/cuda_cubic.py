@@ -18,6 +18,10 @@ The padded-resident route of ``ops/cubic_baseline.py`` runs them in order:
   solved by the partition method on runs of ``SPIKE_RUN`` cells, six
   channels ``(6, rows, npad)`` in the order ``xp1, xp2, vl1, vl2, vr1,
   vr2``;
+* ``spike_interface_cuda(factors, mask_int)``: the interface solve over
+  the SPIKE blocks, the block scalars and the not-a-knot end moments, one
+  kernel (``csrc/spike.cu``) in place of the XLA glue of JAX's
+  ``_eval_fills_fused``;
 * ``spike_backsub_eval_cuda(...)``: the back-substitution with the
   interface solve's block scalars, the end-moment patches and the
   closed-form spline; baseline and rotation.
@@ -25,12 +29,12 @@ The padded-resident route of ``ops/cubic_baseline.py`` runs them in order:
 Each wrapper checks its tensors and, for a CUDA tensor, launches its
 kernel through ``cuda_fill._launch``, which counts it in ``LAUNCHES``; a
 call runs inside the profiler span ``pyitd.<wrapper>`` (``cubic_ksite``
-... ``spike_backsub_eval``), and :func:`spike_interface` inside
+... ``spike_backsub_eval``), :func:`spike_interface_cuda` inside
 ``pyitd.interface_solve`` (``utils/spans.py``).  For a CPU tensor it runs
 the plain PyTorch version beside it (``cubic_ksite``, ``cubic_neighbors``,
-``spike_factors``, ``spike_backsub_eval``); those run on any device, and a
-CUDA tensor never reaches them through a wrapper.
-:func:`chained_block_spike` is the drop-in twin of JAX's
+``spike_factors``, ``interface_end_moments``, ``spike_backsub_eval``);
+those run on any device, and a CUDA tensor never reaches them through a
+wrapper.  :func:`chained_block_spike` is the drop-in twin of JAX's
 ``pallas_spike.chained_block_spike``: K7, the interface solve and a torch
 back-substitution.
 """
@@ -41,9 +45,11 @@ from typing import NamedTuple
 import torch
 
 from .chained_pcr import _safe_inv, interface_pcr, reduced_interface_solve
-from .cubic_baseline import _fo_knot_values, _segment_eval
+from .cubic_baseline import (_end_moments, _fo_knot_values, _segment_eval,
+                             _u_at)
 from ..utils.spans import spanned
-from .cuda_fill import LevelStates, _check_signal, _launch, _ntiles, _same
+from .cuda_fill import (LevelStates, _check_signal, _launch, _ntiles, _ptr,
+                        _same)
 from .fill import backward_fill_scan, forward_fill2_scan, shift_left
 from .linear_baseline import knot_mask
 from .tridiag import _shift_l, _shift_r
@@ -51,19 +57,24 @@ from .tridiag import _shift_l, _shift_r
 __all__ = [
     "SPIKE_BLK", "SPIKE_RUN", "LAUNCHES", "reset_launches", "Neighbors",
     "spike_pad", "cubic_ksite", "cubic_neighbors", "spike_factors",
-    "spike_backsub_eval", "spike_interface", "chained_block_spike", "PLAIN",
-    "cubic_ksite_cuda", "cubic_neighbors_cuda", "spike_factors_cuda",
-    "spike_backsub_eval_cuda",
+    "spike_backsub_eval", "spike_interface", "interface_end_moments",
+    "chained_block_spike", "PLAIN", "cubic_ksite_cuda", "cubic_neighbors_cuda",
+    "spike_factors_cuda", "spike_interface_cuda", "spike_backsub_eval_cuda",
 ]
 
 # cells per SPIKE block and per thread's run: the SB and R of csrc/spike.cu
 # (checked by _check_build)
 SPIKE_BLK = 2048
 SPIKE_RUN = 8
+# the interface kernel's channels a SPIKE block, and the most blocks whose
+# double-buffered state it keeps in shared memory: beyond them the wrapper
+# hands it a scratch (IFACE_CH and IFACE_SMEM_BLOCKS of csrc/spike.cu)
+_IFACE_CH = 10
+_IFACE_SMEM_BLOCKS = 2048
 
 # launches per kernel wrapper, counted where the kernel is launched
 LAUNCHES = {"cubic_ksite": 0, "cubic_neighbors": 0, "spike_factors": 0,
-            "spike_backsub_eval": 0}
+            "spike_interface": 0, "spike_backsub_eval": 0}
 
 
 def reset_launches() -> None:
@@ -235,7 +246,6 @@ def spike_backsub_eval(factors, e_prev, f_next, w_first_next, m0, m_last,
     return _segment_eval(x, it, nb, m_j, m_j1, m_last, b_last, passthrough)
 
 
-@spanned("pyitd.interface_solve")
 def spike_interface(factors: torch.Tensor):
     """The interface solve over SPIKE blocks (torch ops on (rows, nblk)):
     per block ``e_prev`` (the true ``u`` at the previous block's last
@@ -254,14 +264,29 @@ def spike_interface(factors: torch.Tensor):
     return e_prev, f_next, torch.cat([w_first[:, 1:], zero], dim=-1)
 
 
+def interface_end_moments(factors: torch.Tensor, mask_int: torch.Tensor):
+    """Plain version of the ``spike_interface`` kernel: the block scalars
+    of :func:`spike_interface`, then the not-a-knot end moments of
+    ``cubic_baseline._end_moments`` from the back-substituted ``u``
+    (``_u_at``) at the first two and last two marks of ``mask_int`` (rows,
+    n).  Returns ``(e_prev, f_next, w_first_next, m0, m_last)``."""
+    e_prev, f_next, w_first_next = spike_interface(factors)
+    m0, m_last = _end_moments(
+        lambda idx: _u_at(factors, e_prev, f_next, idx), mask_int,
+        mask_int.shape[-1])
+    return e_prev, f_next, w_first_next, m0, m_last
+
+
 def chained_block_spike(mask, a, b, c, d):
     """Drop-in twin of ``chained_pcr.chained_block_pcr`` for (rows, n)
     inputs, in f32, solved by SPIKE: the ``spike_factors`` kernel, the
-    interface solve and a torch back-substitution.  Returns ``(u, w)``."""
+    ``spike_interface`` kernel and a torch back-substitution.  Returns
+    ``(u, w)``."""
     rows, n = mask.shape
+    mask = mask.contiguous()
     f32 = [t.to(torch.float32).contiguous() for t in (a, b, c, d)]
-    factors = spike_factors_cuda(mask.contiguous(), *f32)
-    e_prev, f_next, _ = spike_interface(factors)
+    factors = spike_factors_cuda(mask, *f32)
+    e_prev, f_next, *_ = spike_interface_cuda(factors, mask)
     xp1, xp2, vl1, vl2, vr1, vr2 = factors.reshape(6, rows, -1, SPIKE_BLK)
     ep, fn = e_prev[..., None], f_next[..., None]
     u = xp1 + vl1 * ep + vr1 * fn
@@ -282,6 +307,7 @@ PLAIN = {
     "cubic_neighbors_cuda": lambda x, k_site, states: cubic_neighbors(
         x, k_site),
     "spike_factors_cuda": spike_factors,
+    "spike_interface_cuda": interface_end_moments,
     "spike_backsub_eval_cuda": spike_backsub_eval,
 }
 
@@ -372,14 +398,46 @@ def spike_factors_cuda(mask: torch.Tensor, a, b, c, d) -> torch.Tensor:
     return out
 
 
+@spanned("pyitd.interface_solve")
+def spike_interface_cuda(factors: torch.Tensor, mask_int: torch.Tensor):
+    """The interface solve over the SPIKE blocks of ``factors`` (6, rows,
+    npad) f32 and the end moments under the interior-knot ``mask_int``
+    (rows, n) bool: ``(e_prev, f_next, w_first_next)``, each (rows, nblk),
+    and ``(m0, m_last)``, each (rows,), f32, as
+    :func:`interface_end_moments` gives them."""
+    if mask_int.dim() != 2:
+        raise ValueError(f"expected a (rows, n) mask, got "
+                         f"{tuple(mask_int.shape)}")
+    rows, n = mask_int.shape
+    if rows < 1 or n < 1:
+        raise ValueError(f"spike_interface takes non-empty rows, got "
+                         f"{tuple(mask_int.shape)}")
+    npad = spike_pad(n)
+    nblk = npad // SPIKE_BLK
+    _same(factors, mask_int, dtype=torch.bool, shape=(rows, n))
+    _same(mask_int, factors, dtype=torch.float32, shape=(6, rows, npad))
+    if not factors.is_cuda:
+        return interface_end_moments(factors, mask_int)
+    dev = factors.device
+    out = torch.empty((3, rows, nblk), dtype=torch.float32, device=dev)
+    ends = torch.empty((2, rows), dtype=torch.float32, device=dev)
+    scratch = torch.empty((rows, 2 * _IFACE_CH * nblk), dtype=torch.float32,
+                          device=dev) if nblk > _IFACE_SMEM_BLOCKS else None
+    _launch("spike_interface", dev, factors.data_ptr(), mask_int.data_ptr(),
+            rows, n, npad, _ptr(scratch), out.data_ptr(), ends.data_ptr(),
+            counts=LAUNCHES)
+    return (*out.unbind(0), *ends.unbind(0))
+
+
 @spanned("pyitd.spike_backsub_eval")
 def spike_backsub_eval_cuda(factors, e_prev, f_next, w_first_next, m0,
                             m_last, b_last, passthrough, nb: Neighbors, x):
     """Baseline and rotation of ``x`` (rows, n) f32 from the SPIKE
-    ``factors`` (6, rows, npad), the (rows, nblk) block scalars of
-    :func:`spike_interface`, the (rows,) f32 end moments ``m0``/``m_last``
-    and end value ``b_last``, the (rows,) bool ``passthrough`` guard and the
-    :class:`Neighbors` channels."""
+    ``factors`` (6, rows, npad), the (rows, nblk) block scalars and the
+    (rows,) f32 end moments ``m0``/``m_last`` of
+    :func:`spike_interface_cuda`, the (rows,) f32 end value ``b_last``, the
+    (rows,) bool ``passthrough`` guard and the :class:`Neighbors`
+    channels."""
     _check_signal(x)
     rows, n = x.shape
     npad = spike_pad(n)

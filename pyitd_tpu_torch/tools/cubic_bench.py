@@ -1,5 +1,6 @@
-"""Time the cubic tier's K5 (``cubic_ksite_cuda``) and K7
-(``spike_factors_cuda``) alone on one GPU, at one kernel shape or several.
+"""Time the cubic tier's K5 (``cubic_ksite_cuda``), K7
+(``spike_factors_cuda``) and the interface solve (``spike_interface_cuda``)
+alone on one GPU, at one kernel shape or several.
 
     python -m pyitd_tpu_torch.tools.cubic_bench [--shapes 2048,8,3 8192,8 ...]
         [--rows 8] [--n 1000000] [--reps 50] [--no-edge-cases]
@@ -18,9 +19,12 @@ signal at ``rows x n``), and times each kernel alone there beside its
 bound: ``hot`` (profiler device time over 5 calls on one set of inputs),
 ``rotating`` (4 copies taken in turn: no call finds its input in the L2)
 and ``events`` (CUDA events around ``reps`` calls).  It also prints the
-interface solve that the block size leaves (blocks per row, ATen calls,
-CUDA event time) and the whole cubic level's event time and device busy
-time.  Each line carries the card's name and power limit.
+interface solve and end moments that the block size leaves, one launch of
+``spike_interface_cuda`` held bitwise against its plain version, at
+``rows x n`` and at :data:`INTERFACE_SHAPES` (the kernel's CUDA-event and
+device time beside the plain version's time and ATen calls), and the whole
+cubic level's event time and device busy time.  Each line carries the
+card's name and power limit.
 """
 from __future__ import annotations
 
@@ -36,8 +40,22 @@ import numpy as np
 from .level_bench import (_smi, aten_ops, device_time, events, ptxas_lines,
                           same)
 
-KERNELS = ("spike_factors_kernel", "cubic_ksite_kernel")
+KERNELS = ("spike_factors_kernel", "cubic_ksite_kernel",
+           "spike_interface_kernel")
 HBM_BPS, F32_FLOPS = 3.35e12, 67e12
+# the interface solve's shapes besides the bench's: the MEITD ensemble's
+# levels (16 SPIKE blocks a row) and 8 x 2^20 (512)
+INTERFACE_SHAPES = ((32, 32768), (8, 1 << 20))
+
+
+def bench_signal(rows: int, n: int) -> np.ndarray:
+    """The bench's (rows, n) f32 signal: a chirp, a tone, noise and a
+    trend."""
+    rng = np.random.default_rng(0)
+    t = np.linspace(0, 2 * np.pi, n)
+    return (np.sin(20 * t * (1 + 0.2 * t))[None] + np.sin(13 * t)
+            + 0.3 * rng.normal(size=(rows, n)) + 0.1 * t ** 2
+            ).astype(np.float32)
 
 
 def spike_issue_ops(rows: int, npad: int, sb: int, r: int) -> int:
@@ -113,6 +131,49 @@ def edge_cases(sb: int, r: int):
     yield "a SPIKE block with no knot (2, 3 SB)", x
 
 
+def interface_rows(n: int, device="cpu"):
+    """(rows, n) f32 signals for the interface solve and the end moments:
+    a ramp (no interior knot), a tent (one), a zigzag (two), an
+    alternating row (every interior sample a knot), a noisy chirp, and
+    two slow periods that the guard passes through at ``min_extrema=10``.
+    Made on ``device``, so the card makes its rows of 2^24 itself."""
+    import torch
+
+    it = torch.arange(n, device=device, dtype=torch.float64)
+    p1, p2 = n // 3, (2 * n) // 3
+    gen = torch.Generator(device=device).manual_seed(n)
+    t = it / n
+    return torch.stack([
+        it,
+        torch.where(it <= p1, it, 2 * p1 - it),
+        torch.where(it <= p1, it, torch.where(it <= p2, 2 * p1 - it,
+                                              it + 2 * (p1 - p2))),
+        torch.where(it % 2 == 0, 1.0, -1.0),
+        torch.sin(2 * torch.pi * 40 * t * (1 + t)) + 0.3 * torch.randn(
+            n, generator=gen, device=device, dtype=torch.float64),
+        torch.sin(4 * torch.pi * t + 0.3),
+    ]).to(torch.float32).contiguous()
+
+
+@contextlib.contextmanager
+def recorded_interface(calls: list):
+    """``spike_interface_cuda`` with each call's arguments appended to
+    ``calls``."""
+    from ..ops import cuda_cubic as cc
+
+    real = cc.spike_interface_cuda
+
+    def fn(*args):
+        calls.append(args)
+        return real(*args)
+
+    cc.spike_interface_cuda = fn
+    try:
+        yield
+    finally:
+        cc.spike_interface_cuda = real
+
+
 @contextlib.contextmanager
 def checked_route(calls: dict):
     """K5 and K7 inside the cubic level, each held bitwise against its
@@ -147,6 +208,45 @@ def level(x):
 
     return cubic_baseline_extract(x, x.shape[-1] + 2, min_extrema=0,
                                   eval_backend="fills")
+
+
+def interface_timing(x, card: str, reps: int = 20,
+                     tag: str = "") -> dict:
+    """The interface solve and the end moments alone, on the arguments the
+    cubic level of ``x`` (rows, n) f32 on the card hands them: the launch
+    held bitwise against its plain version, then the kernel's CUDA-event
+    time (median of ``reps`` single calls) and profiler device time beside
+    the plain version's event time and ATen calls.  Prints one line,
+    ``tag`` first, and returns the numbers."""
+    from ..ops import cuda_cubic as cc
+
+    calls = []
+    with recorded_interface(calls):
+        level(x)
+    (factors, mask), = calls
+    rows, n = mask.shape
+    nblk = factors.shape[-1] // cc.SPIKE_BLK
+
+    def kernel():
+        return cc.spike_interface_cuda(factors, mask)
+
+    def plain():
+        return cc.PLAIN["spike_interface_cuda"](factors, mask)
+
+    if not same(kernel(), plain()):
+        raise AssertionError(f"spike_interface at {rows}x{n}: kernel differs "
+                             f"from its plain version")
+    k_ms = statistics.median(events(kernel, 1) for _ in range(reps))
+    p_ms = statistics.median(events(plain, 1) for _ in range(reps))
+    busy, lost = device_time([kernel])
+    ops = aten_ops(plain)
+    print(f"{tag}interface solve and end moments at {rows}x{n} ({nblk} SPIKE "
+          f"blocks a row): kernel {k_ms:.4f} ms (CUDA events, median of "
+          f"{reps} calls), device {busy:.4f} ms ({lost} of 5 records "
+          f"missing), 1 launch; plain {p_ms:.4f} ms, {ops} ATen calls; "
+          f"bitwise equal  [{card}]", flush=True)
+    return {"rows": rows, "n": n, "nblk": nblk, "kernel_ms": k_ms,
+            "device_ms": busy, "plain_ms": p_ms, "plain_aten_calls": ops}
 
 
 def _child(shape: str, rows: int, n: int, reps: int, edge: bool) -> int:
@@ -185,11 +285,7 @@ def _child(shape: str, rows: int, n: int, reps: int, edge: bool) -> int:
               f"{len(cases)} systems, K5 and K7 in the cubic level on "
               f"{len(sigs)} edge signals", flush=True)
 
-    rng = np.random.default_rng(0)
-    t = np.linspace(0, 2 * np.pi, n)
-    x = torch.from_numpy((np.sin(20 * t * (1 + 0.2 * t))[None] + np.sin(13 * t)
-                          + 0.3 * rng.normal(size=(rows, n))
-                          + 0.1 * t ** 2).astype(np.float32)).to(dev)
+    x = torch.from_numpy(bench_signal(rows, n)).to(dev)
     calls = {}
     with checked_route(calls):
         level(x)
@@ -224,13 +320,10 @@ def _child(shape: str, rows: int, n: int, reps: int, edge: bool) -> int:
            2 * spike_issue_ops(rows, npad, sb, r))
 
     # what the block size leaves to the interface solve
-    factors = cc.spike_factors_cuda(*sargs)
-    n_ops = aten_ops(lambda: cc.spike_interface(factors))
-    times = sorted(events(lambda: cc.spike_interface(factors), 1)
-                   for _ in range(10))
-    print(f"shape {shape} interface solve: {rows} x {npad // sb} blocks, "
-          f"{n_ops} ATen calls, {statistics.median(times):.4f} ms "
-          f"(CUDA events, median of 10)  [{card}]", flush=True)
+    interface_timing(x, card, tag=f"shape {shape}: ")
+    for shape_i in INTERFACE_SHAPES:
+        interface_timing(torch.from_numpy(bench_signal(*shape_i)).to(dev),
+                         card, tag=f"shape {shape}: ")
     # and the whole cubic level at this shape
     times = sorted(events(lambda: level(x), 1) for _ in range(10))
     busy, lost = device_time([lambda: level(x)])

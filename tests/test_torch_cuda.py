@@ -20,10 +20,14 @@ equal their plain versions (rtol = atol = 0, NaN equal to NaN) on
 arrays off a 16-byte boundary, 256 x 16,384 and 8 x 1,048,576), the sift
 gradient equals the same chain with those three swapped for their plain
 versions, and they refuse what they cannot take.
-The cubic tier's kernels (K5-K8) are bitwise their plain versions, and its
-``"fills"`` route bitwise the plain route, also with knots and NaN on K7's
-run and SPIKE-block edges; K7 alone on ``tools/cubic_bench.py::
-spike_cases`` and K5 alone on the tile-edge shapes.  The shard-aware sift
+The cubic tier's kernels (K5-K8 and the interface solve) are bitwise their
+plain versions, and its ``"fills"`` route bitwise the plain route, also with
+knots and NaN on K7's run and SPIKE-block edges; K7 alone on
+``tools/cubic_bench.py::spike_cases`` and K5 alone on the tile-edge shapes;
+the interface solve alone at 1 to 8,192 SPIKE blocks (its state in shared
+memory up to 2,048, in a scratch beyond) on
+``tools/cubic_bench.py::interface_rows``, and once a level in the MEITD
+ensemble at the benchmark's 32 x 32,768.  The shard-aware sift
 kernels (the port of K9) are bitwise their plain versions, and
 ``sharded_itd_sift`` on them is bitwise the unsharded kernel sift on
 ``chip_smoke.sharded_cases``.  The cubic tier's callers: the MEITD
@@ -58,7 +62,9 @@ from pyitd_tpu_torch.ops.cubic_baseline import _odd_reflect_ends
 from pyitd_tpu_torch.ops.linear_baseline import (knot_mask,
                                                  structural_level_bwd)
 from pyitd_tpu_torch.tools.cubic_bench import edge_cases as spike_edges
-from pyitd_tpu_torch.tools.cubic_bench import spike_cases
+from pyitd_tpu_torch.tools.cubic_bench import (interface_rows,
+                                               recorded_interface,
+                                               spike_cases)
 from pyitd_tpu_torch.tools.level_bench import check_level, edge_cases, same
 
 pytestmark = pytest.mark.cuda
@@ -609,6 +615,63 @@ def test_chained_block_spike_kernel_against_plain(device, name, sys_):
     assert bitwise_equal(got, cuda_cubic.spike_factors(m, *args))
     u, w = cuda_cubic.chained_block_spike(m, *args)
     assert u.shape == m.shape and bool(torch.isfinite(u).all())
+
+
+# a row length per count of SPIKE blocks; past 2,048 blocks the interface
+# kernel keeps its state in a scratch
+_SB = cuda_cubic.SPIKE_BLK
+IFACE_N = {1: 300, 2: 2 * _SB - 5, 3: 3 * _SB - 1, 5: 4 * _SB + 77,
+           16: 16 * _SB, 512: 512 * _SB - 77, 2048: 2048 * _SB,
+           2049: 2048 * _SB + 1, 8192: 8192 * _SB}
+
+
+@pytest.mark.parametrize("nblk", sorted(IFACE_N))
+def test_interface_kernel_is_bitwise_plain(device, nblk):
+    """The interface solve and the end moments on the cubic level's own
+    inputs, bitwise their plain version, twice: rows with no interior
+    knot, one, two, every sample a knot, many, and a guarded row."""
+    n = IFACE_N[nblk]
+    assert cuda_cubic.spike_pad(n) == nblk * _SB
+    x = interface_rows(n, device)
+    calls = []
+    with recorded_interface(calls):
+        cubic_baseline_extract(x, n + 2, min_extrema=10,
+                               eval_backend="fills")
+    (factors, mask), = calls
+    del x
+    assert sorted(mask.sum(-1).tolist())[:3] == [0, 1, 2]
+    want = cuda_cubic.PLAIN["spike_interface_cuda"](factors, mask)
+    for _ in range(2):
+        cuda_cubic.reset_launches()
+        got = cuda_cubic.spike_interface_cuda(factors, mask)
+        assert cuda_cubic.LAUNCHES["spike_interface"] == 1
+        for a, b in zip(got, want):
+            assert bitwise_equal(a, b)
+
+
+def test_ensemble_launches_one_interface_kernel_a_level(device, monkeypatch):
+    """The benchmark's ensemble, 32 x 32,768 f64: one ``spike_interface``
+    launch a cubic level, and the result bitwise the same ensemble with
+    the wrapper swapped for its plain version."""
+    from chip_smoke import ensemble_signal, same_result
+    from pyitd_tpu_torch import meitd_ensemble
+    from pyitd_tpu_torch.decomp import meitd as pm
+
+    x = torch.from_numpy(ensemble_signal(32768)).to(device)
+
+    def run():
+        gen = torch.Generator(device=device).manual_seed(0)
+        return meitd_ensemble(x, gen, 32, 0.1, 0.6)
+
+    cuda_cubic.reset_launches()
+    pm.reset_counts()
+    got = run()
+    torch.cuda.synchronize()
+    assert pm.COUNTS["levels"] > 0
+    assert cuda_cubic.LAUNCHES["spike_interface"] == pm.COUNTS["levels"]
+    monkeypatch.setattr(cuda_cubic, "spike_interface_cuda",
+                        cuda_cubic.PLAIN["spike_interface_cuda"])
+    same_result(got, run(), "ensemble")
 
 
 @pytest.mark.parametrize("name,x", LEVEL_CASES,

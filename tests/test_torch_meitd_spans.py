@@ -11,8 +11,9 @@ ensemble holds ``pyitd.ensemble`` around the call, ``pyitd.walk`` and
 ``pyitd.interface_solve`` inside it, one ``pyitd.read`` per host read and
 ``pyitd.wpe`` around every entropy; the counts are those of
 ``meitd.COUNTS``.  With no profiler running no span is entered.  On the
-card (marked ``cuda``) each wrapper span's count is its
-``cuda_cubic.LAUNCHES`` increment and each holds its kernel's launch.
+card (marked ``cuda``) each wrapper span's count, and
+``pyitd.interface_solve``'s, is its ``cuda_cubic.LAUNCHES`` increment and
+each holds its kernel's launch.
 """
 import collections
 import json
@@ -30,7 +31,9 @@ torch.set_num_threads(1)
 
 WRAPPERS = ("cubic_ksite", "cubic_neighbors", "spike_factors",
             "spike_backsub_eval")
-KERNEL = {w: f"{w}_kernel" for w in WRAPPERS}
+# each launching span's counter in cuda_cubic.LAUNCHES, and its kernel
+LAUNCHED = dict({w: w for w in WRAPPERS}, interface_solve="spike_interface")
+KERNEL = {s: f"{k}_kernel" for s, k in LAUNCHED.items()}
 NEW = ("ensemble", "ensemble_select", "walk", "walk_trip", "dig",
        "cubic_level", "interface_solve", "read", "wpe") + WRAPPERS
 
@@ -182,13 +185,14 @@ def test_meitd_cuda_wrapper_spans_hold_their_launches(tmp_path):
         return (e.get("args") or {}).get("correlation")
 
     spans_ = [e for e in evs if e.get("cat") == "user_annotation"
-              and e["name"][6:] in WRAPPERS and inside(e, win)]
+              and e["name"][6:] in LAUNCHED and inside(e, win)]
     launches = [e for e in evs if e.get("cat") in ("cuda_runtime",
                                                    "cuda_driver")
                 and "LaunchKernel" in e["name"] and inside(e, win)]
     kernels = {corr(e): e for e in evs if e.get("cat") == "kernel"}
-    assert {w: sum(s["name"] == f"pyitd.{w}" for s in spans_)
-            for w in WRAPPERS} == delta == {w: levels for w in WRAPPERS}
+    assert {k: sum(s["name"] == f"pyitd.{w}" for s in spans_)
+            for w, k in LAUNCHED.items()} == delta == {
+                k: levels for k in LAUNCHED.values()}
     for s in spans_:
         own = [kernels[corr(la)] for la in launches
                if la["tid"] == s["tid"] and inside(la, s)
