@@ -27,6 +27,12 @@ computes in int64, and the port is held against it there.
 The FFTs are ``torch.fft``.  Entry points given numpy run on ``device``
 (the card by default); a tensor stays on its own device.  Integer outputs
 are int64 (bounds) and int32 (counts).
+
+While a profiler records, ``efd`` runs inside the span ``pyitd.efd``, its
+segmentation inside ``pyitd.efd_segments`` and its filterbank (the mirror's
+rfft, the band masks, the batched irfft) inside ``pyitd.efd_bands``
+(``utils/spans.py``); :data:`COUNTS` counts EFD's calls, the rows they
+decompose and the ``torch.fft`` calls they issue, from shapes alone.
 """
 from __future__ import annotations
 
@@ -37,9 +43,20 @@ import torch
 
 from ..ops.extrema import extrema_masks
 from ..utils.interop import as_input
+from ..utils.spans import spanned
 
 __all__ = ["spectral_segments", "efd", "EFDResult", "efd_real",
            "iterative_efd", "efd_slice_max", "iterative_max"]
+
+# EFD's calls, the rows (signals) they decompose and the torch.fft calls
+# they issue (three a call: the input's rfft, the mirror's, the bands'
+# batched irfft); host counts from shapes, no device value is read
+COUNTS = {"calls": 0, "rows": 0, "transforms": 0}
+
+
+def reset_counts() -> None:
+    for k in COUNTS:
+        COUNTS[k] = 0
 
 
 def _masked_argmin(x, lo, hi):
@@ -87,6 +104,7 @@ class SegmentResult(NamedTuple):
     raw_peaks: torch.Tensor  # maxima before the dedup (int32)
 
 
+@spanned("pyitd.efd_segments")
 def spectral_segments(f: torch.Tensor, n_bands: int) -> SegmentResult:
     """The reference's ``segm_tec`` (EFD.py:5-69) on the half spectrum
     ``f``."""
@@ -135,18 +153,24 @@ class EFDResult(NamedTuple):
     count: torch.Tensor   # valid band rows = kept maxima + 2 (int32)
 
 
+@spanned("pyitd.efd")
 def efd(x, n_bands: int, *, device="cuda") -> EFDResult:
     """Empirical Fourier Decomposition (EFD.py:72-110) on the last axis.
     Differentiable in ``x`` (the bounds are constant in it)."""
     x = as_input(x, None, device)
+    COUNTS["calls"] += 1
+    COUNTS["rows"] += math.prod(x.shape[:-1])
+    COUNTS["transforms"] += 1
     ff = torch.fft.rfft(x)
     # Python's round on the float: 524289 / 2 -> 262144 (half to even)
     half1 = round(ff.shape[-1] / 2)
     return _efd_bands(x, spectral_segments(ff[..., :half1].abs(), n_bands))
 
 
+@spanned("pyitd.efd_bands")
 def _efd_bands(x: torch.Tensor, seg: SegmentResult) -> EFDResult:
     """EFD's bands from its segmentation of ``x``'s half spectrum."""
+    COUNTS["transforms"] += 2
     n = x.shape[-1]
     dtype = x.dtype
     n_bands = seg.cerf.shape[-1]
