@@ -262,6 +262,7 @@ SRC.update({k: "pyitd_tpu_torch/csrc/cubic.cu"
             for k in ("cubic_ksite", "cubic_neighbors", "spike_backsub_eval")})
 SRC["spike_factors"] = "pyitd_tpu_torch/csrc/spike.cu"
 SRC["spike_interface"] = "pyitd_tpu_torch/csrc/spike.cu"
+SRC["walk_stats"] = "pyitd_tpu_torch/csrc/walk_stats.cu"
 # the level adjoint's own kernels: they replace no TPU kernel, but fuse the
 # XLA glue of JAX's structural adjoint
 ADJOINT_KERNELS = ("bwd_knots", "bwd_pre", "bwd_post")
@@ -288,6 +289,9 @@ REPLACES = {
     "spike_interface": "none: the XLA glue of pyitd_tpu/ops/cubic_baseline."
                        "py:530-567 (reduced_interface_solve and the end "
                        "moments)",
+    "walk_stats": "none: the eager glue of pyitd_tpu_torch/ops/wpe.py and "
+                  "ops/extrema.py (JAX's WPE and extrema count are plain "
+                  "jnp)",
 }
 REPLACES.update({k: "none: the XLA glue of pyitd_tpu/ops/linear_baseline.py:"
                     "315 (_structural_level_bwd)"
@@ -1882,17 +1886,20 @@ def same_result(got, want, what: str) -> None:
 
 def counted(fn):
     """``fn()`` with the cubic and sift kernel launches, the walks' trips
-    and host reads and the cubic levels counted from 0; returns ``(out,
-    launches, sift launches, counts, level calls)``."""
+    and host reads, the cubic levels and the gate statistics' launches
+    (``counts["walk_stats"]``) counted from 0; returns ``(out, launches,
+    sift launches, counts, level calls)``."""
     import torch
     from pyitd_tpu_torch.decomp import meitd as pm
     from pyitd_tpu_torch.ops import cuda_cubic as cc
     from pyitd_tpu_torch.ops import cuda_fill as cf
+    from pyitd_tpu_torch.ops import wpe as wo
 
     levels = []
     torch.cuda.synchronize()
     cc.reset_launches()
     cf.reset_launches()
+    wo.reset_launches()
     pm.reset_counts()
     with recorded_levels(levels), recorded_cubic({}):
         out = fn()
@@ -1903,7 +1910,7 @@ def counted(fn):
             or sift != {k: want.get(k, 0) for k in sift}):
         raise AssertionError(f"{len(levels)} cubic levels: launches "
                              f"{launches}, sift kernels {sift}")
-    return out, launches, sift, dict(pm.COUNTS), levels
+    return out, launches, sift, dict(pm.COUNTS, **wo.LAUNCHES), levels
 
 
 def timed(what: str, fn, card: str, reps: int = 3, tag: str = "10"):
@@ -1923,10 +1930,12 @@ def timed(what: str, fn, card: str, reps: int = 3, tag: str = "10"):
     return ms, by_name
 
 
-def phase10_meitd(dev, card: str, level_by: dict) -> None:
+def phase10_meitd(dev, card: str, level_by: dict) -> int:
     """The cubic tier's callers at full width: the 32 x 32,768 ensemble,
     the host walk, the 20 x 256² 2-D ensemble, and the cubic level at the
-    MEITD shapes.  ``level_by``: phase 8's device time by kernel name."""
+    MEITD shapes.  ``level_by``: phase 8's device time by kernel name.
+    Returns the ensemble's launches of the gate statistics' kernel (one a
+    host read and one for the select)."""
     import torch
     from pyitd_tpu_torch import (cubic_baseline_extract, meitd,
                                  meitd_ensemble, meitd_jit, totalextract2d,
@@ -1958,7 +1967,8 @@ def phase10_meitd(dev, card: str, level_by: dict) -> None:
           f"{len(levels)} cubic levels (launches {launches}; pre-pass "
           f"{sift}), rows per level min {rows[0]} median "
           f"{statistics.median(rows)} max {rows[-1]}; {counts['reads']} host "
-          f"reads; every launch bitwise its plain version, the ensemble "
+          f"reads, {counts['walk_stats']} walk_stats launches; every cubic "
+          f"launch bitwise its plain version, the ensemble "
           f"bitwise the plain route; components "
           f"{res.num_components.tolist()}, selected "
           f"{int(res.selected_index)}, completeness "
@@ -1967,6 +1977,9 @@ def phase10_meitd(dev, card: str, level_by: dict) -> None:
           flush=True)
     if not (rec <= 1e-10 and rec_each <= 1e-10):
         raise AssertionError("ensemble reconstruction beyond 1e-10")
+    if counts["walk_stats"] != counts["reads"] + 1:
+        raise AssertionError(f"{counts['walk_stats']} walk_stats launches "
+                             f"for {counts['reads']} reads and the select")
     t_bank, _ = timed(f"ensemble {reps} x {n}", ensemble, card)
     ops = aten_ops(ensemble)
     print(f"[10]   ATen calls: {ops} per ensemble, "
@@ -2061,6 +2074,7 @@ def phase10_meitd(dev, card: str, level_by: dict) -> None:
             print(f"[10]   {aten_ops(level)} ATen calls", flush=True)
     print(f"[10] phase 10 took {time.perf_counter() - t_phase:.1f} s (host "
           f"clock)", flush=True)
+    return counts["walk_stats"]
 
 
 # ---- the FFT family: EFD, modified EFD, the ITD-Fourier cascade ----
@@ -4608,7 +4622,29 @@ def main() -> int:
     del calls, calls_fold
 
     # ---- phase 10: the cubic tier's callers at full width ----
-    phase10_meitd(dev, card, level_by)
+    stats_launches = phase10_meitd(dev, card, level_by)
+
+    # phase 7's rows for the walk's gate statistics: the largest stage (the
+    # ensemble's 32 rows) and the select's (R, 45, n) stacks.  Bytes: the
+    # rows read once, two f64 a row written; about 25 f64 operations a
+    # sample, counted twice against the f32 peak (f64 runs at half rate)
+    from pyitd_tpu_torch.ops import wpe as wo
+    reps, n = ENS_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for srows in (reps, reps * 45):
+        xs = torch.from_numpy(ensemble_signal(n)).to(dev) + 0.1 * torch.randn(
+            (srows, n), generator=gen, device=dev, dtype=torch.float64)
+        got, want = wo.walk_stats_cuda(xs), wo.walk_stats(xs)
+        err = max_abs_err(got[1], want[1])
+        if not (torch.equal(got[0], want[0]) and err <= 1e-12):
+            raise AssertionError(f"walk_stats at {srows} x {n}: counts "
+                                 f"equal {torch.equal(got[0], want[0])}, "
+                                 f"entropies apart {err!r}")
+        entry("walk_stats", err, lambda: wo.walk_stats_cuda(xs),
+              lambda: wo.walk_stats(xs), 8 * srows * n + 16 * srows,
+              2 * 25 * srows * n, stats_launches, exact=False,
+              shape=f"{srows}x{n} f64")
+    del xs, got, want
 
     # ---- phase 11: the FFT family at full width ----
     phase11_fft(dev, card)

@@ -39,7 +39,7 @@ import torch
 from ..utils.interop import as_input
 from ..utils.spans import span, spanned
 from ..utils.stats import fingerprint_rows, median, sorted_median_index
-from .meitd import _wpe
+from ..ops.wpe import walk_stats_cuda
 from .meitd_jit import meitd_jit_bank
 
 __all__ = ["meitd_ensemble", "EnsembleResult"]
@@ -71,7 +71,8 @@ class EnsembleResult(NamedTuple):
 
 def _sorted_stacks(high, low, residual, highc, lowc):
     """Every realization's XITD-style stack: valid high rows, valid low
-    rows, residual, WPE-sorted ascending; invalid rows sort last (+inf
+    rows, residual, WPE-sorted ascending (the entropy row of one
+    ``walk_stats`` launch over every row); invalid rows sort last (+inf
     sentinel) and hold zeros."""
     rows = torch.cat([high[:, :_MAX_VALID], low[:, :_MAX_VALID],
                       residual[:, None]], dim=1)
@@ -79,7 +80,7 @@ def _sorted_stacks(high, low, residual, highc, lowc):
     valid = ((k < highc[:, None])
              | ((k >= _MAX_VALID) & (k < _MAX_VALID + lowc[:, None]))
              | (k == 2 * _MAX_VALID))
-    ent = torch.where(valid, _wpe(rows), torch.inf)
+    ent = torch.where(valid, walk_stats_cuda(rows)[1], torch.inf)
     order = torch.argsort(ent, dim=1, stable=True)
     rows = torch.take_along_dim(rows, order[..., None], dim=1)
     return torch.where(torch.take_along_dim(valid, order, dim=1)[..., None],

@@ -23,12 +23,15 @@ Behavioral contract (the reference's ``MEITD.py:344-549``):
 
 The walk runs on the host: each state's device work (cubic extractions,
 WPE, extrema counts) is grouped per trip, and the scalars the host decides
-on (counts, WPE) come back in one transfer of a small stacked tensor.  The
-signal is float64; on the card the cubic level computes in f32 and returns
-f64, so the subtraction chain and the gate stay f64.
+on (counts, WPE) come back in one transfer of the (2, rows) buffer that one
+launch of ``ops/wpe.py::walk_stats_cuda`` fills (:func:`_stats`, shared
+with the batched walk).  The signal is float64; on the card the cubic
+level computes in f32 and returns f64, so the subtraction chain and the
+gate stay f64.
 
 While a profiler records, each cubic level runs inside the span
-``pyitd.cubic_level``, each host read inside ``pyitd.read`` and each WPE
+``pyitd.cubic_level``, each host read inside ``pyitd.read``, the
+statistics it reads inside ``pyitd.walk_stats`` and XITD's sort entropy
 inside ``pyitd.wpe`` (``utils/spans.py``); :data:`COUNTS` counts the walks'
 trips, reads, cubic levels and the rows those levels extract.
 """
@@ -38,8 +41,7 @@ import numpy as np
 import torch
 
 from ..ops.cubic_baseline import cubic_baseline_extract
-from ..ops.extrema import count_extrema
-from ..ops.wpe import weighted_permutation_entropy
+from ..ops.wpe import walk_stats_cuda, weighted_permutation_entropy
 from ..utils.interop import as_input
 from ..utils.spans import span
 
@@ -78,11 +80,19 @@ def _wpe(x):
         return weighted_permutation_entropy(x, 3, normalize=True)
 
 
-def _read(*values) -> list:
-    """Scalars (counts, entropies) to the host in one transfer."""
+def _read(values: torch.Tensor) -> list:
+    """A small tensor of scalars to the host in one transfer."""
     COUNTS["reads"] += 1
     with span("pyitd.read"):
-        return torch.stack([v.to(torch.float64) for v in values]).tolist()
+        return values.tolist()
+
+
+def _stats(x: torch.Tensor, entropy: bool = True) -> list:
+    """The extrema counts and (``entropy``) normalised order-3 WPEs of the
+    rows of ``x``, from one launch, on the host in one read: ``[counts,
+    entropies]`` or ``[counts]``, each a float per row (a number for 1-D
+    ``x``)."""
+    return _read(walk_stats_cuda(x, entropy=entropy))
 
 
 def _cap(n: int) -> int:
@@ -92,7 +102,7 @@ def _cap(n: int) -> int:
 def _fused_gate(x, capacity):
     """count(x), WPE(x) and the first extraction of x, one host read."""
     rot, base = _extract(x, capacity)
-    nex, w = _read(count_extrema(x), _wpe(x))
+    nex, w = _stats(x)
     return int(nex), w, rot, base
 
 
@@ -109,7 +119,7 @@ def retrieve_proper_rotation(x, wpemax: float, *, device="cuda"):
     and returns the input unchanged (gate fails — nothing from the burn is
     observable).  Both outcomes are computed here without the loop."""
     x = as_input(x, torch.float64, device)
-    nex, w = _read(count_extrema(x), _wpe(x))
+    nex, w = _stats(x)
     if nex <= 5:  # reference: nex<5 bails before the loop; nex==5 skips it
         return x, 0
     if not 0.2 <= w < wpemax:
@@ -124,7 +134,7 @@ def first_rotation_is_proper(x, wpemax: float, *, device="cuda"):
     Returns ``(rotation, baseline, flag)``; with < 5 extrema returns
     ``(x, zeros, 0)`` (``MEITD.py:371-392``)."""
     x = as_input(x, torch.float64, device)
-    nex, w = _read(count_extrema(x), _wpe(x))
+    nex, w = _stats(x)
     if nex < 5:
         return x, torch.zeros_like(x), 0
     rotation, baseline = _extract(x, _cap(x.shape[-1]))
@@ -174,7 +184,7 @@ def meitd(data, max_iteration: int = 40, wpemax: float = 0.6, *,
             # retrieve_proper_rotation: the gate on the input first, the
             # extraction only where it holds (the re-sift burn is
             # unobservable, see retrieve_proper_rotation)
-            rnex, rwpe = _read(count_extrema(rotation), _wpe(rotation))
+            rnex, rwpe = _stats(rotation)
             if rnex > 5 and gate(rwpe):
                 rotation, _ = _extract(rotation, cap)
                 proper = 1
@@ -188,8 +198,7 @@ def meitd(data, max_iteration: int = 40, wpemax: float = 0.6, *,
             # the baseline of x and the gate pieces of that baseline
             _, base_c = _extract(x, cap)
             rotb, _ = _extract(base_c, cap)
-            nex_x, nexb, wpeb = _read(count_extrema(x), count_extrema(base_c),
-                                      _wpe(base_c))
+            (nex_x, nexb), (_, wpeb) = _stats(torch.stack([x, base_c]))
             nex = int(nex_x)
             if nex < 5:
                 continue
@@ -222,12 +231,12 @@ def meitd(data, max_iteration: int = 40, wpemax: float = 0.6, *,
             if soft_reset == 0:
                 rotation, baseline = _extract(x, cap)
                 soft_reset = 1
-            (nex,) = _read(count_extrema(baseline))
+            (nex,) = _stats(baseline, entropy=False)
             if nex < 5:
                 continue
             for _ in range(soft_reset):
                 rotation, baseline = _extract(baseline, cap)
-                (nex,) = _read(count_extrema(baseline))
+                (nex,) = _stats(baseline, entropy=False)
                 if nex < 5:
                     break
             soft_reset += 1
@@ -243,7 +252,7 @@ def xitd(data, *, use_auto_wpemax: bool = False, device="cuda"):
     (``MEITD.py:536-549``)."""
     x = as_input(data, torch.float64, device)
     if use_auto_wpemax:
-        m, sd = _read(x.mean(), x.std(correction=0))
+        m, sd = _read(torch.stack([x.mean(), x.std(correction=0)]))
         snr = 0.0 if sd == 0 else m / sd
         wpemax = float(np.log(abs(20 * np.log10(abs(snr))))) if snr != 0 \
             else 0.6

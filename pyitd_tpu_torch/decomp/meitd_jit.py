@@ -11,11 +11,12 @@ B = 1 and ``meitd_jit_bank`` the same walk at B.  The signals, rotations,
 baselines and output buffers are (B, ...) tensors on the input's device;
 the per-row scalars of the state machine (counts, flags, ``nex``) live on
 the host, and the counts and entropies they are decided on come back in
-one small transfer per stage.  Each stage makes one batched cubic call on
-exactly the rows that need an extraction there (indexed out, scattered
-back), never on every row of every branch as ``vmap`` does.  The cubic
-level, WPE and the extrema count all work row by row, so every row gets
-the result it gets alone.
+one small transfer per stage, from one launch of the gate statistics
+(``decomp/meitd.py::_stats``, the host walk's path too).  Each stage makes
+one batched cubic call on exactly the rows that need an extraction there
+(indexed out, scattered back), never on every row of every branch as
+``vmap`` does.  The cubic level and the gate statistics work row by row,
+so every row gets the result it gets alone.
 
 Semantics follow the reference's ``MEITD.py:344-534`` like the host walk
 (``decomp/meitd.py``); the tests hold the two against each other and
@@ -30,10 +31,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.extrema import count_extrema
 from ..utils.interop import as_input
 from ..utils.spans import span, spanned
-from .meitd import COUNTS, _extract, _read, _wpe
+from .meitd import COUNTS, _extract, _stats
 
 __all__ = ["meitd_jit", "meitd_jit_bank", "MeitdResult"]
 
@@ -69,8 +69,7 @@ def _walk(x0: torch.Tensor, wpemax: float, cap: int) -> MeitdResult:
         """count and WPE of every part's rows, on the host, one read."""
         if not sum(r.size for r, _ in parts):
             return np.zeros(0, np.int64), np.zeros(0)
-        sig = rows_of(parts)
-        c, w = _read(count_extrema(sig), _wpe(sig))
+        c, w = _stats(rows_of(parts))
         return np.asarray(c, np.int64), np.asarray(w)
 
     def extract_into(parts):
@@ -170,7 +169,7 @@ def _walk(x0: torch.Tensor, wpemax: float, cap: int) -> MeitdResult:
         with span("pyitd.dig"):
             i = 1
             while dig.size:
-                (cnt,) = _read(count_extrema(baseline[ix(dig)]))
+                (cnt,) = _stats(baseline[ix(dig)], entropy=False)
                 cnt = np.asarray(cnt, np.int64)
                 nex[dig] = cnt
                 more = (i < lim) & (cnt >= 5)

@@ -46,6 +46,7 @@ NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
 # C entry points of csrc/*.cu: (name, argtypes); each launcher returns the
 # launch's cudaGetLastError() as an int
 _SIGNATURES = {
@@ -82,6 +83,7 @@ _SIGNATURES = {
     "pyitd_spike_backsub_eval": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                                  _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _P),
+    "pyitd_walk_stats": (_P, _I, _I, _I, _D, _P, _P),
 }
 
 # the native tier: the Makefile's CXXFLAGS, then -shared and -lpthread

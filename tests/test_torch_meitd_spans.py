@@ -8,8 +8,9 @@ ensemble holds ``pyitd.ensemble`` around the call, ``pyitd.walk`` and
 ``pyitd.ensemble_select`` (the epilogue) inside it, one
 ``pyitd.walk_trip`` per trip, ``pyitd.dig`` inside trips, one
 ``pyitd.cubic_level`` per level with the four wrapper spans and
-``pyitd.interface_solve`` inside it, one ``pyitd.read`` per host read and
-``pyitd.wpe`` around every entropy; the counts are those of
+``pyitd.interface_solve`` inside it, one ``pyitd.read`` per host read,
+one ``pyitd.walk_stats`` (the gate statistics' wrapper) per read and one in
+the epilogue, and no ``pyitd.wpe``; the counts are those of
 ``meitd.COUNTS``.  With no profiler running no span is entered.  On the
 card (marked ``cuda``) each wrapper span's count, and
 ``pyitd.interface_solve``'s, is its ``cuda_cubic.LAUNCHES`` increment and
@@ -35,7 +36,7 @@ WRAPPERS = ("cubic_ksite", "cubic_neighbors", "spike_factors",
 LAUNCHED = dict({w: w for w in WRAPPERS}, interface_solve="spike_interface")
 KERNEL = {s: f"{k}_kernel" for s, k in LAUNCHED.items()}
 NEW = ("ensemble", "ensemble_select", "walk", "walk_trip", "dig",
-       "cubic_level", "interface_solve", "read", "wpe") + WRAPPERS
+       "cubic_level", "interface_solve", "read", "walk_stats") + WRAPPERS
 
 
 def _signal(n, device="cpu"):
@@ -101,7 +102,8 @@ def test_meitd_counters(recorded):
     ("walk", lambda c: 1), ("walk_trip", lambda c: c["trips"]),
     ("cubic_level", lambda c: c["levels"]),
     ("interface_solve", lambda c: c["levels"]),
-    ("read", lambda c: c["reads"])] + [
+    ("read", lambda c: c["reads"]),
+    ("walk_stats", lambda c: c["reads"] + 1)] + [
     (w, lambda c: c["levels"]) for w in WRAPPERS])
 def test_meitd_span_counts(recorded, name, count):
     spans_, counts, _, _ = recorded
@@ -111,7 +113,8 @@ def test_meitd_span_counts(recorded, name, count):
 @pytest.mark.parametrize("name,within", [
     ("walk", "ensemble"), ("ensemble_select", "ensemble"),
     ("walk_trip", "walk"), ("dig", "walk_trip"), ("cubic_level", "walk"),
-    ("read", "walk"), ("interface_solve", "cubic_level")] + [
+    ("read", "walk"), ("walk_stats", "ensemble"),
+    ("interface_solve", "cubic_level")] + [
     (w, "cubic_level") for w in WRAPPERS])
 def test_meitd_spans_nest(recorded, name, within):
     spans_ = recorded[0]
@@ -127,15 +130,20 @@ def test_meitd_select_follows_the_walk(recorded):
 
 
 def test_meitd_wpe_spans(recorded):
-    """An entropy goes with each of the walk's reads but the dig's (those
-    read extrema counts alone), and one sorts the stacks."""
+    """The gate statistics of each of the walk's reads (the dig's included,
+    which read extrema counts alone) come from one ``pyitd.walk_stats``
+    just before the read, and one sorts the stacks; no entropy is left to
+    ``pyitd.wpe``."""
     spans_ = recorded[0]
     (walk,), (select,) = _named(spans_, "walk"), _named(spans_, "ensemble_select")
-    digs = _named(spans_, "dig")
-    wpe, reads = _named(spans_, "wpe"), _named(spans_, "read")
-    assert sum(s.inside(select) for s in wpe) == 1
-    assert sum(s.inside(walk) for s in wpe) == sum(
-        not any(r.inside(d) for d in digs) for r in reads)
+    stats, reads = _named(spans_, "walk_stats"), _named(spans_, "read")
+    assert not _named(spans_, "wpe")
+    assert sum(s.inside(select) for s in stats) == 1
+    in_walk = [s for s in stats if s.inside(walk)]
+    assert len(in_walk) == len(reads) == len(stats) - 1
+    for s, r in zip(in_walk, reads):
+        assert s.end <= r.start and s.thread == r.thread
+    assert all(later.start >= r.end for r, later in zip(reads, in_walk[1:]))
 
 
 def test_meitd_span_names(recorded):
