@@ -21,9 +21,19 @@ template tier's segment maps and their device copies.  The FFTs are
 ported).  The reference's complex64 spectrum buffer is widened to the
 input's dtype, as in JAX.  Entry points given numpy run on ``device``
 (the card by default); a tensor stays on its own device.
+
+While a profiler records, ``cascade_iteration`` runs inside the span
+``pyitd.cascade_iteration``, its sift inside ``pyitd.sine_sift`` (each
+template baseline inside ``pyitd.template_baseline``,
+``ops/cubic_baseline.py``) and the rest of the iteration (the rotations'
+rfft, the band weights, the keep flags, the summed irfft and the update)
+inside ``pyitd.fourier_modes`` (``utils/spans.py``); :data:`COUNTS`
+counts cascade iterations, template baselines and the transforms the
+iterations issue, from shapes alone.
 """
 from __future__ import annotations
 
+import math
 from functools import lru_cache
 
 import numpy as np
@@ -32,6 +42,7 @@ import torch
 from ..ops.cubic_baseline import (_check_f32_grid, _StaticTemplate,
                                   _template_fast_baseline_static)
 from ..utils.interop import as_input
+from ..utils.spans import span, spanned
 
 __all__ = [
     "sine_template_positions",
@@ -42,6 +53,14 @@ __all__ = [
     "itd_fourier_decomposition",
     "itd_fourier_decomposition_lean",
 ]
+
+# transforms: an rfft a rotation row and an irfft a signal row
+COUNTS = {"iterations": 0, "templates": 0, "transforms": 0}
+
+
+def reset_counts() -> None:
+    for k in COUNTS:
+        COUNTS[k] = 0
 
 
 def sine_template_positions(sample_rate: int, n: int, *, device="cuda"):
@@ -93,6 +112,7 @@ def _sine_template_static(sample_rate: int, n: int):
     return tuple(_StaticTemplate(p, int(c), n) for p, c in zip(pos_np, cnt_np))
 
 
+@spanned("pyitd.sine_sift")
 def itd_sine_sift(x, sample_rate: int, *, device="cuda"):
     """``(rotations[F, ..., n], residual)``: for input ``(..., n)`` the
     frequency axis leads.  Differentiable in ``x``."""
@@ -100,7 +120,9 @@ def itd_sine_sift(x, sample_rate: int, *, device="cuda"):
     _check_f32_grid(x)
     problem = x
     rotations = []
-    for tpl in _sine_template_static(sample_rate, x.shape[-1]):
+    templates = _sine_template_static(sample_rate, x.shape[-1])
+    COUNTS["templates"] += len(templates)
+    for tpl in templates:
         baseline = _template_fast_baseline_static(problem, tpl)
         rotations.append(problem - baseline)
         problem = baseline
@@ -203,6 +225,7 @@ def fourier_mode_valid(rotation, *, device="cuda"):
     return torch.fft.irfft(x * _mode_weights_valid(x, n), n)
 
 
+@spanned("pyitd.cascade_iteration")
 def cascade_iteration(current, sample_rate: int, *, mode: str = "any",
                       device="cuda"):
     """One cascade iteration with the per-rotation inverse FFTs summed into
@@ -219,10 +242,14 @@ def cascade_iteration(current, sample_rate: int, *, mode: str = "any",
     weights_fn = _weights_fn(mode)
     n = current.shape[-1]
     rotations, residual = itd_sine_sift(current, sample_rate)
-    spectra = torch.fft.rfft(rotations)
-    mode_spectra = spectra * weights_fn(spectra, n)
-    is_mode = (mode_spectra != 0).any(-1)
-    new_current = current - torch.fft.irfft(mode_spectra.sum(0), n)
+    COUNTS["iterations"] += 1
+    COUNTS["transforms"] += (math.prod(rotations.shape[:-1])
+                             + math.prod(current.shape[:-1]))
+    with span("pyitd.fourier_modes"):
+        spectra = torch.fft.rfft(rotations)
+        mode_spectra = spectra * weights_fn(spectra, n)
+        is_mode = (mode_spectra != 0).any(-1)
+        new_current = current - torch.fft.irfft(mode_spectra.sum(0), n)
     return new_current, is_mode, mode_spectra, rotations, residual
 
 

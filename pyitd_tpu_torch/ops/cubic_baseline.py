@@ -45,6 +45,7 @@ from .extrema import compact_indices, extrema_mask
 from .fill import forward_fill_scan, shift_left, shift_right, take_last_axis
 from .linear_baseline import knot_value
 from .tridiag import _count, reference_spline_moments, spline_moments
+from ..utils.spans import spanned
 
 __all__ = ["CubicBaselineResult", "segment_index", "eval_moment_spline",
            "cubic_baseline_extract", "template_fast_baseline"]
@@ -465,9 +466,12 @@ class _StaticTemplate:
                 "it": f(np.arange(n))}
 
 
+@spanned("pyitd.template_baseline")
 def _template_fast_baseline_static(x: torch.Tensor,
                                    tpl: _StaticTemplate) -> torch.Tensor:
-    """Static-positions path of :func:`template_fast_baseline`.
+    """Static-positions path of :func:`template_fast_baseline`; while a
+    profiler records, each call runs inside the span
+    ``pyitd.template_baseline`` (``utils/spans.py``).
 
     Knot positions that depend only on configuration make everything
     positional a host constant (:class:`_StaticTemplate`), and the buffers
